@@ -1,0 +1,100 @@
+"""Solver entry points over the CUDA kernels.
+
+Follows the simplex and hyperbox halves of ``repro/kernels/ops.py``.
+The tableau is built by the plain ``core/tableau.py:build_tableau`` and
+handed to the kernel unpadded: the TPU's 128-lane/8-sublane padding,
+VMEM budget and batch tiling do not carry over (one thread block per LP
+takes every shape).  On CPU tensors the same calls run the kernels'
+plain versions, as the reference's wrappers run Pallas in interpret mode
+off the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import engine
+from ..core.lp import LPSolution, ResumeState
+from ..core.simplex import phase2_costs, resolve_cap
+from ..core.tableau import DEFAULT_LAYOUT, TableauSpec, build_tableau
+from . import hyperbox_cuda, simplex_cuda
+
+
+def _launch(tab, basis, phase, b, c, spec: TableauSpec, rule, max_iters, seed, tol,
+            want_state: bool):
+    if tol <= 0.0:
+        tol = engine.default_tolerance(tab.dtype)
+    c_ext = phase2_costs(c, spec)
+    feas = engine.phase1_feasibility_tol(b).contiguous()
+    cap = resolve_cap(max_iters, spec.m, spec.n)
+    obj, x, status, iters = simplex_cuda.simplex(
+        tab, basis, phase, c_ext, feas, cap, spec=spec, rule=rule, seed=seed, tol=tol
+    )
+    sol = LPSolution(objective=obj, x=x, status=status, iterations=iters, basis=basis)
+    if not want_state:
+        return sol
+    return sol, ResumeState(tab, basis, phase)
+
+
+def simplex_solve(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    rule: str = engine.LPC,
+    max_iters: int = 0,
+    seed: int = 0,
+    tol: float = 0.0,
+    basis0: Optional[torch.Tensor] = None,
+    want_state: bool = False,
+    layout: str = DEFAULT_LAYOUT,
+):
+    """Solve a batch (max c.x, Ax <= b, x >= 0) with the simplex kernel.
+
+    Same knobs and results as ``core/simplex.py:solve_batched``.  The
+    kernel pivots the freshly built tableau in place, so ``want_state``
+    (returning ``(LPSolution, ResumeState)``) costs nothing.
+    """
+    _, m, n = a.shape
+    spec = TableauSpec(m, n, layout)
+    tab, basis, phase = build_tableau(a, b, c, basis0, spec)
+    return _launch(tab.contiguous(), basis.contiguous(), phase.contiguous(), b, c, spec,
+                   rule, max_iters, seed, tol, want_state)
+
+
+def simplex_resume(
+    b: torch.Tensor,
+    c: torch.Tensor,
+    state: ResumeState,
+    rule: str = engine.LPC,
+    max_iters: int = 0,
+    seed: int = 0,
+    tol: float = 0.0,
+    want_state: bool = True,
+):
+    """Continue a carried :class:`ResumeState` for ``max_iters`` more steps.
+
+    The same launch as a cold solve, on a copy of the state (the caller's
+    state is left as it was).  Rounds whose caps sum to K end
+    bit-identical to one solve at cap K.
+    """
+    m = state.basis.shape[1]
+    n = c.shape[-1]
+    spec = TableauSpec.from_tableau(m, n, state.tab.shape[-1])
+    return _launch(
+        state.tab.clone(memory_format=torch.contiguous_format),
+        state.basis.to(torch.int32).clone(memory_format=torch.contiguous_format),
+        state.phase.to(torch.int32).clone(memory_format=torch.contiguous_format),
+        b, c, spec, rule, max_iters, seed, tol, want_state,
+    )
+
+
+def hyperbox_support(lo, hi, directions) -> torch.Tensor:
+    """Box support values via the hyperbox kernel: (B, n) -> (B,).
+
+    ``lo``/``hi`` are (B, n), or one box (n,) or (1, n) that the kernel
+    reads with row stride 0.
+    """
+    d = directions.contiguous()
+    return hyperbox_cuda.hyperbox(lo.to(d.dtype).contiguous(), hi.to(d.dtype).contiguous(), d)
