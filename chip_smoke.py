@@ -7,17 +7,24 @@ Phases, one JSON line each; any failure exits non-zero before the last
 line is printed:
 
 1. environment: torch and CUDA versions, the card, its power limit, TF32 off;
-2. build: both CUDA sources compiled from the checkout, one ``nvcc`` each,
-   started together, with each kernel's registers, shared memory, spills;
+2. build: the three CUDA sources compiled from the checkout, one ``nvcc``
+   each, started together, with each kernel's registers, shared memory,
+   spills;
 3. each kernel against its plain PyTorch version on the card: the simplex
-   kernel must be bit-identical in every output and in the terminal
-   state (five cases), the hyperbox kernel within rtol 1e-6 (float32) /
+   and revised kernels must be bit-identical in every output and in the
+   terminal state, the hyperbox kernel within rtol 1e-6 (float32) /
    1e-12 (float64) of the sum of |terms|; kernel and plain times;
-4. the main path at the paper's sizes through ``repro_torch.solve``:
-   type 1 (100x100, 50,000 LPs), type 2 (200x100 infeasible start,
-   10,000 LPs), hyperbox 4,000,000 x 5 and 6,000,000 x 28, and one
-   heterogeneous list; launch counts, statuses, pivots, memory, and a
-   sample held against the float64 oracle.
+4. the main paths, each read with the launch counts set to 0 just before
+   it.  Slice 1, the dense and box path at the paper's sizes through
+   ``repro_torch.solve``: type 1 (100x100, 50,000 LPs), type 2 (200x100
+   infeasible start, 10,000 LPs), hyperbox 4,000,000 x 5 and
+   6,000,000 x 28, and one heterogeneous list.  Slice 2, the shared-A
+   path: the two paper classes as ``SharedLPBatch``es through
+   ``repro_torch.solve``, and the paper's reachability runs (5-dim and
+   helicopter, 200 steps) through ``reach_supports`` on the revised
+   kernel's warm sweep.  Launch counts, statuses, pivots, memory, and
+   samples held against the float64 oracle or the hyperbox path; then,
+   with the counts read, each slice-2 row's call timed five more times.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  The
@@ -208,8 +215,115 @@ def hyperbox_case(dev, timer, *, name, bsz, n, dtype, data_seed, reps=20):
     return row
 
 
+def revised_work(m, n, pivots, pricing_steps):
+    """Flops the revised simplex needs: every step prices (y, w.A, the
+    phase-I value), every pivot adds u, the ratio divides and the rank-1
+    update of binv and xb."""
+    return pricing_steps * (2 * m * m + 2 * m * n + 2 * m) + pivots * (4 * m * m + 4 * m)
+
+
+def revised_case(timer, *, name, sb, rule="lpc", seed=0, chain=None, basis0=None, reps=3):
+    """One revised case: the kernel against its plain version, then timed.
+
+    ``sb`` is a ``SharedLPBatch`` on the card, the main path's own LPs
+    where the case stands for a main-path launch.
+    """
+    from repro_torch.core import engine, revised
+    from repro_torch.core.simplex import resolve_cap
+    from repro_torch.kernels import ops, revised_cuda
+
+    a, b, c = sb.a, sb.b, sb.c
+    bsz, m, n = sb.batch, sb.m, sb.n
+    state = revised.init_traced(a, b, basis0)
+    feas = engine.phase1_feasibility_tol(b).contiguous()
+    tol = engine.default_tolerance(a.dtype)
+    cap = resolve_cap(0, m, n) if chain is None else sum(chain)
+
+    def fresh():
+        return [t.clone() for t in (state.binv, state.basis, state.xb, state.phase)]
+
+    kw = dict(rule=rule, seed=seed, tol=tol)
+    k_state = fresh()
+    k_out = list(revised_cuda.revised(a, b, c, *k_state, feas, cap, **kw))
+    timer.sync()
+    p_state = fresh()
+    t0 = time.perf_counter()
+    p_out = list(revised_cuda.revised_plain(a, b, c, *p_state, feas, cap, **kw))
+    timer.sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    k_obj = revised.objective(k_state[1], k_state[2], c, k_out[1])
+    p_obj = revised.objective(p_state[1], p_state[2], c, p_out[1])
+    pairs = list(zip([k_obj] + k_out + k_state, [p_obj] + p_out + p_state))
+    if chain is not None:
+        # The same LPs as a resumed chain of kernel launches, caps K1 + K2.
+        part, st = ops.revised_solve(a, b, c, rule=rule, seed=seed, max_iters=chain[0],
+                                     want_state=True)
+        rest, st = ops.revised_resume(a, b, c, st, rule=rule, seed=seed, max_iters=chain[1])
+        pairs += [(rest.objective, k_obj), (rest.x, k_out[0]), (rest.status, k_out[1]),
+                  (part.iterations + rest.iterations, k_out[2]), (st.binv, k_state[0]),
+                  (st.basis, k_state[1]), (st.xb, k_state[2]), (st.phase, k_state[3])]
+    identical = all(torch.equal(bits(x), bits(y)) for x, y in pairs)
+    err = max(max_abs_diff(x, y) for x, y in pairs)
+    del p_state, p_out
+    ms = timer(lambda *st: revised_cuda.revised(a, b, c, *st, feas, cap, **kw), reps=reps,
+               setup=fresh)
+    iters = k_out[2].to(torch.int64)
+    pivots = int(iters.sum())
+    # Each LP prices once more than it pivots, and once more again when it
+    # enters phase II.
+    flops = revised_work(m, n, pivots, pivots + bsz + int((state.phase == 1).sum()))
+    item = a.element_size()
+    nbytes = ((m * n + bsz * (m + n + 2 * m * m + 2 * m + 1 + n)) * item
+              + bsz * (2 * m + 2 + 2) * 4)
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[a.dtype]
+    row = dict(case=name, batch=bsz, m=m, n=n, dtype=str(a.dtype), rule=rule, chain=chain,
+               warm=basis0 is not None, bit_identical=identical, max_abs_err=err,
+               kernel_ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="operations" if ops_s > bytes_s else "bytes", pivots=pivots,
+               max_pivots=int(iters.max()),
+               status_counts=np.bincount(k_out[1].cpu().numpy(), minlength=6).tolist())
+    emit("kernel_vs_plain", kernel="revised", **row)
+    check(identical, f"revised kernel differs from its plain version in case {name}")
+    return row
+
+
+def sweep_case(timer, dev, *, name, model, kind, steps, reps=3):
+    """The reach row's warm sweep: ``revised_sweep`` (one kernel launch per
+    step) against the plain ``sweep_batched``, on the same inputs."""
+    from repro_torch.core import reach, revised, support
+    from repro_torch.kernels import ops
+
+    dirs = support.template_directions(model.dim, kind)
+    stack = reach.direction_stack(model, 0.02, steps, dirs).astype(np.float32)
+    sb, c_stack = support.box_to_polytope(model.x0).shared_sweep_inputs(stack, device=dev)
+    k_out = ops.revised_sweep(sb.a, sb.b, c_stack)
+    timer.sync()
+    t0 = time.perf_counter()
+    p_out = revised.sweep_batched(sb.a, sb.b, c_stack)
+    timer.sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    identical = all(torch.equal(bits(x), bits(y)) for x, y in zip(k_out, p_out))
+    err = max(max_abs_diff(x, y) for x, y in zip(k_out, p_out))
+    ms = timer(lambda: ops.revised_sweep(sb.a, sb.b, c_stack), reps=reps)
+    m, n, bsz = sb.m, sb.n, sb.batch
+    pivots = int(k_out[3].to(torch.int64).sum())
+    flops = revised_work(m, n, pivots, pivots + steps * bsz)
+    item = sb.a.element_size()
+    nbytes = (m * n + bsz * m + c_stack.numel() + steps * bsz * (1 + n)) * item \
+        + steps * bsz * 2 * 4
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[sb.a.dtype]
+    row = dict(case=name, steps=steps, batch=bsz, m=m, n=n, dtype=str(sb.a.dtype),
+               launches_per_run=steps, bit_identical=identical, max_abs_err=err, kernel_ms=ms,
+               plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="operations" if ops_s > bytes_s else "bytes", pivots=pivots,
+               status_counts=np.bincount(k_out[2].flatten().cpu().numpy(), minlength=6).tolist())
+    emit("kernel_vs_plain", kernel="revised_sweep", **row)
+    check(identical, f"revised sweep differs from its plain version in case {name}")
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 
@@ -323,6 +437,105 @@ def run_row(rt, dev, *, name, problem, counters, oracle_data, lps, extra):
     return row
 
 
+def shared_row(rt, dev, *, name, bsz, m, n, feasible, seed, counters, dense_row, reruns):
+    """A paper class as one ``SharedLPBatch`` through ``repro_torch.solve``.
+
+    Appends ``(name, lps, fn)`` to ``reruns``: the same call, for
+    :func:`repeat_rows` to time once the launch counts have been read.
+    """
+    from repro_torch.core.lp import random_shared_lp_batch
+
+    sb = random_shared_lp_batch(np.random.default_rng(seed), bsz, m, n, feasible, device=dev)
+    before = {k: mod.launches for k, mod in counters.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol = rt.solve(sb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    status = sol.status.cpu().numpy()
+    iters = sol.iterations.cpu().numpy()
+    k = 256
+    sample = tuple(t[:k].cpu().numpy() for t in (sb.densify().a, sb.b, sb.c))
+    row = dict(row=name, lps=bsz, m=m, n=n, dtype="float32", wall_s=wall, lps_per_s=bsz / wall,
+               launches=delta, status_counts=np.bincount(status, minlength=6).tolist(),
+               mean_pivots=float(iters.mean()), max_pivots=int(iters.max()),
+               max_memory_allocated=int(torch.cuda.max_memory_allocated()),
+               dense_row=dense_row["row"],
+               dense_row_max_memory_allocated=dense_row["max_memory_allocated"],
+               oracle=oracle_check(*sample, status, sol.objective.cpu().numpy(), k))
+    emit("main_path", **row)
+    reruns.append((name, bsz, lambda: rt.solve(sb)))
+    check(delta["revised"] > 0, f"row {name} did not launch the revised kernel")
+    check(tuple(sol.x.shape) == (bsz, n), f"row {name}: x has shape {tuple(sol.x.shape)}")
+    check(row["oracle"]["status_agreement"] >= 0.99,
+          f"row {name}: statuses agree with the oracle on only "
+          f"{row['oracle']['status_agreement']:.3f} of the sample")
+    check(row["oracle"]["max_rel_obj_err"] <= 1e-4,
+          f"row {name}: objective off the oracle by {row['oracle']['max_rel_obj_err']:.3g}")
+    return row
+
+
+def reach_args(rt, model, kind):
+    from repro_torch.core import support
+
+    return dict(directions=support.template_directions(model.dim, kind),
+                options=rt.SolveOptions(backend="cuda-shared"), use_hyperbox=False,
+                warm_start=True)
+
+
+def reach_row(rt, *, name, model, kind, steps, counters, plain_pivots, hyperbox_ref, reruns):
+    """The paper's reachability run on the revised kernel's warm sweep.
+
+    ``hyperbox_ref`` is the ``use_hyperbox=True`` run's supports, computed
+    before the launch counts were set to 0.  Appends the same call to
+    ``reruns``, as :func:`shared_row` does.
+    """
+    from repro_torch.core import reach
+
+    kw = reach_args(rt, model, kind)
+    stats = rt.SolveStats()
+    before = {k: mod.launches for k, mod in counters.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sup, _ = reach.reach_supports(model, 0.02, steps, stats=stats, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    point = bool(np.array_equal(model.u.lo, model.u.hi))
+    n_lps = reach.count_lps(steps, len(kw["directions"]), point)
+    rel = float((np.abs(sup - hyperbox_ref) / np.maximum(1.0, np.abs(hyperbox_ref))).max())
+    row = dict(row=name, steps=steps, directions=len(kw["directions"]), template=kind,
+               lps=n_lps, lps_counted_by_stats=stats.lps, wall_s=wall, lps_per_s=n_lps / wall,
+               launches=delta, pivots=stats.simplex_iterations,
+               plain_sweep_pivots=plain_pivots, warm_started=stats.warm_started,
+               max_rel_diff_from_hyperbox=rel, finite=bool(np.isfinite(sup).all()))
+    emit("main_path", **row)
+    reruns.append((name, n_lps, lambda: reach.reach_supports(model, 0.02, steps, **kw)))
+    check(delta["revised"] > 0 and delta["hyperbox"] > 0,
+          f"row {name} did not launch both the revised and the hyperbox kernel: {delta}")
+    check(stats.simplex_iterations == plain_pivots,
+          f"row {name}: {stats.simplex_iterations} pivots, the plain sweep {plain_pivots}")
+    check(row["finite"] and rel <= 1e-5, f"row {name}: supports off the hyperbox path by {rel:.3g}")
+    return row
+
+
+def repeat_rows(reruns, reps):
+    """Wall time of each row's call, ``reps`` more times, after the counted run."""
+    for name, lps, fn in reruns:
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med = float(np.median(walls))
+        emit("main_path_repeats", row=name, reps=reps, wall_s=walls, median_wall_s=med,
+             min_wall_s=min(walls), max_wall_s=max(walls), median_lps_per_s=lps / med)
+
+
 def hetero_problems(rt, seed, per_class):
     """Single-LP problems of shape classes 5, 28 and 100, and their host data."""
     from repro_torch.core.lp import random_lp_batch
@@ -381,7 +594,9 @@ def main(argv=None) -> int:
         from repro_torch.core.bucketing import bucket_problems
         from repro_torch.core.lp import LPBatch
         from repro_torch.core.problem import canonicalize
-        from repro_torch.kernels import build, hyperbox_cuda, simplex_cuda
+        from repro_torch.core.lp import random_shared_lp_batch
+        from repro_torch.core.reach import five_dim_model, helicopter_model, reach_supports
+        from repro_torch.kernels import build, hyperbox_cuda, ops, revised_cuda, simplex_cuda
     except ImportError as exc:
         raise SystemExit(f"chip_smoke: FAILED: the port is not beside this script: {exc}")
     dev = torch.device("cuda")
@@ -435,11 +650,63 @@ def main(argv=None) -> int:
     hyperbox_case(dev, timer, name="1000000x28_f64", bsz=1_000_000, n=28,
                   dtype=torch.float64, data_seed=args.seed + 20)
     torch.cuda.empty_cache()
+    # Every revised launch of the slice-2 path is held against the plain
+    # version here on the same inputs: the two shared rows at full batch
+    # and the two reach sweeps.
+    def shared_batch(bsz, m, n, feasible, seed, dtype=np.float32):
+        return random_shared_lp_batch(np.random.default_rng(seed), bsz, m, n, feasible,
+                                      dtype=dtype, device=dev)
 
-    # -- 4. the main path; the launch counts are read over exactly this phase
-    counters = {"simplex": simplex_cuda, "hyperbox": hyperbox_cuda}
-    simplex_cuda.launches = 0
-    hyperbox_cuda.launches = 0
+    r_main = revised_case(timer, name="shared_type1_50000x100x100_f32_lpc",
+                          sb=shared_batch(50_000, 100, 100, True, args.seed + 30))
+    torch.cuda.empty_cache()
+    revised_case(timer, name="shared_type2_10000x200x100_f32_lpc",
+                 sb=shared_batch(10_000, 200, 100, False, args.seed + 31))
+    torch.cuda.empty_cache()
+    revised_case(timer, name="shared_256x28x28_f64_bland", rule="bland",
+                 sb=shared_batch(256, 28, 28, True, args.seed + 32, np.float64))
+    revised_case(timer, name="shared_256x28x28_f32_rpc_seed7", rule="rpc", seed=7,
+                 sb=shared_batch(256, 28, 28, True, args.seed + 33))
+    revised_case(timer, name="shared_chain_256x40x20_f32_lpc", chain=(25, 175),
+                 sb=shared_batch(256, 40, 20, False, args.seed + 34))
+    warm = shared_batch(256, 30, 30, True, args.seed + 35)
+    basis0 = ops.revised_solve(warm.a, warm.b, warm.c).basis.clone()
+    basis0[:4, 1] = basis0[:4, 0]  # four singular bases: those rows start cold
+    revised_case(timer, name="shared_warm_256x30x30_f32_lpc_4_singular", sb=warm,
+                 basis0=basis0)
+    reach_steps = 200
+    # The reach rows' input-set supports: 200 steps x 50 (5-dim, oct) and
+    # x 56 (helicopter, box) directions.
+    hyperbox_case(dev, timer, name="reach_10000x5_f32", bsz=10_000, n=5, dtype=torch.float32,
+                  data_seed=args.seed + 36)
+    hyperbox_case(dev, timer, name="reach_11200x28_f32", bsz=11_200, n=28,
+                  dtype=torch.float32, data_seed=args.seed + 37)
+    sweeps = {
+        "five_dim": sweep_case(timer, dev, name="reach_sweep_five_dim_oct", kind="oct",
+                               model=five_dim_model(), steps=reach_steps),
+        "helicopter": sweep_case(timer, dev, name="reach_sweep_helicopter_box", kind="box",
+                                 model=helicopter_model(), steps=reach_steps),
+    }
+    # The reach rows' reference, the hyperbox path for X0, computed here so
+    # that its launches stay out of the main path's counts.
+    hyperbox_refs = {
+        name: reach_supports(model, 0.02, reach_steps,
+                             directions=reach_args(rt, model, kind)["directions"])[0]
+        for name, model, kind in [("five_dim", five_dim_model(), "oct"),
+                                  ("helicopter", helicopter_model(), "box")]
+    }
+    del warm, basis0
+    torch.cuda.empty_cache()
+
+    # -- 4. the main paths; the launch counts are set to 0 just before each
+    # path and read just after it
+    counters = {"simplex": simplex_cuda, "hyperbox": hyperbox_cuda, "revised": revised_cuda}
+
+    def reset_counts():
+        for mod in counters.values():
+            mod.launches = 0
+
+    reset_counts()
     rows = [
         simplex_row(rt, dev, name="type1_feasible_100x100", bsz=50_000, m=100, n=100,
                     feasible=True, seed=args.seed, counters=counters),
@@ -451,10 +718,41 @@ def main(argv=None) -> int:
                      seed=args.seed + 3, counters=counters),
         hetero_row(rt, seed=args.seed + 4, counters=counters, per_class=HETERO_PER_CLASS),
     ]
-    launches = {k: mod.launches for k, mod in counters.items()}
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path was never launched: {launches}")
-    emit("main_path_summary", launches=launches, rows=len(rows))
+    slice1 = {k: mod.launches for k, mod in counters.items()}
+    check(slice1["simplex"] > 0 and slice1["hyperbox"] > 0,
+          f"a kernel of the slice-1 path was never launched: {slice1}")
+    emit("main_path_summary", path="slice1_dense_and_box", launches=slice1, rows=len(rows))
+    torch.cuda.empty_cache()
+
+    reruns = []
+    reset_counts()
+    rows2 = [
+        shared_row(rt, dev, name="shared_type1_100x100", bsz=50_000, m=100, n=100,
+                   feasible=True, seed=args.seed + 30, counters=counters, dense_row=rows[0],
+                   reruns=reruns),
+        shared_row(rt, dev, name="shared_type2_200x100", bsz=10_000, m=200, n=100,
+                   feasible=False, seed=args.seed + 31, counters=counters, dense_row=rows[1],
+                   reruns=reruns),
+        reach_row(rt, name="reach_five_dim", model=five_dim_model(), kind="oct",
+                  steps=reach_steps, counters=counters,
+                  plain_pivots=sweeps["five_dim"]["pivots"],
+                  hyperbox_ref=hyperbox_refs["five_dim"], reruns=reruns),
+        reach_row(rt, name="reach_helicopter", model=helicopter_model(), kind="box",
+                  steps=reach_steps, counters=counters,
+                  plain_pivots=sweeps["helicopter"]["pivots"],
+                  hyperbox_ref=hyperbox_refs["helicopter"], reruns=reruns),
+    ]
+    slice2 = {k: mod.launches for k, mod in counters.items()}
+    check(slice2 == {k: sum(r["launches"][k] for r in rows2) for k in counters},
+          f"slice-2 launches {slice2} are not the sum of its rows'")
+    check(slice2["revised"] > 0 and slice2["hyperbox"] > 0,
+          f"a kernel of the slice-2 path was never launched: {slice2}")
+    emit("main_path_summary", path="slice2_shared_and_reach", launches=slice2, rows=len(rows2))
+    # Wall times of the slice-2 rows beyond the counted run (one reading
+    # of a sub-second row is not a rate), after the counts were read.
+    repeat_rows(reruns, reps=5)
+    del reruns
+    launches = {k: slice1[k] + slice2[k] for k in counters}
 
     print(json.dumps({"kernels": [
         dict(name="simplex", route="cuda", source="src/repro_torch/kernels/csrc/simplex.cu",
@@ -467,6 +765,11 @@ def main(argv=None) -> int:
              max_abs_err=h_main["max_abs_err"], ms=h_main["kernel_ms"],
              plain_ms=h_main["plain_ms"], bound_ms=h_main["bound_ms"],
              bound_by=h_main["bound_by"], library_ms=None),
+        dict(name="revised", route="cuda", source="src/repro_torch/kernels/csrc/revised.cu",
+             replaces="src/repro/kernels/revised_pallas.py:56", launches=launches["revised"],
+             max_abs_err=r_main["max_abs_err"], ms=r_main["kernel_ms"],
+             plain_ms=r_main["plain_ms"], bound_ms=r_main["bound_ms"],
+             bound_by=r_main["bound_by"], library_ms=None),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

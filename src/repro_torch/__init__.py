@@ -1,8 +1,9 @@
 """repro_torch — the PyTorch and CUDA port of the batched-LP library ``repro``.
 
 The public surface follows ``repro/__init__.py``: ``solve``,
-``solve_hyperbox``, ``LPProblem``, ``LPBatch``, ``SolveOptions``,
-``SolveStats`` and the status codes.  The default backend is ``"cuda"``:
+``solve_hyperbox``, ``LPProblem``, ``LPBatch``, ``SharedLPBatch``,
+``canonicalize_shared``, ``SolveOptions``, ``SolveStats`` and the status
+codes.  The default backend is ``"cuda"``:
 hand-written kernels for NVIDIA Hopper (``kernels/csrc``), built with
 ``nvcc`` at first use.  Entry points put their tensors on the card unless
 the caller passes ``device="cpu"``; on CPU tensors the kernels' plain
@@ -30,11 +31,13 @@ from .core.lp import (
     LPBatch,
     LPSolution,
     ResumeState,
+    SharedLPBatch,
 )
-from .core.problem import LPProblem
+from .core.problem import LPProblem, canonicalize_shared
 
 __all__ = [
-    "solve", "solve_hyperbox", "LPProblem", "LPBatch", "LPSolution", "ResumeState",
+    "solve", "solve_hyperbox", "LPProblem", "LPBatch", "SharedLPBatch", "canonicalize_shared",
+    "LPSolution", "ResumeState",
     "SolveOptions", "SolveStats", "Backend", "available_backends", "get_backend",
     "register_backend", "RUNNING", "OPTIMAL", "UNBOUNDED", "INFEASIBLE", "ITER_LIMIT",
     "NUMERICAL", "STATUS_NAMES",

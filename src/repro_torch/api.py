@@ -18,6 +18,9 @@ Routing:
   * ``list/tuple`` of ``LPProblem`` -> shape bucketing, one solve per
     bucket, per-problem single-LP solutions in input order.
   * ``LPBatch`` -> straight to the chunked dispatch.
+  * ``SharedLPBatch`` (one ``A``, batched ``c``/``b``) -> the chunked
+    dispatch on the shared revised-simplex backends; the default
+    ``"cuda"`` promotes to ``"cuda-shared"``, the revised kernel.
 
 A solve runs where its tensors live: problems built with
 ``device="cpu"`` solve on the CPU through the kernels' plain versions.
@@ -32,10 +35,10 @@ import torch
 from .core import dispatch as _dispatch
 from .core.backends import SolveOptions, SolveStats
 from .core.bucketing import ShapeGrid, bucket_problems, scatter_solutions
-from .core.lp import INFEASIBLE, LPBatch, LPSolution
+from .core.lp import INFEASIBLE, LPBatch, LPSolution, SharedLPBatch
 from .core.problem import LPProblem, canonicalize, solve_box, uncanonicalize
 
-Solvable = Union[LPProblem, LPBatch, Sequence[LPProblem]]
+Solvable = Union[LPProblem, LPBatch, SharedLPBatch, Sequence[LPProblem]]
 
 
 def solve(
@@ -51,15 +54,15 @@ def solve(
     ``grid`` pins the shape classes of a list input; ``stats`` collects
     counters.  Returns one ``LPSolution``, or a list for a list input.
     """
-    if isinstance(problem, LPBatch):
+    if isinstance(problem, (LPBatch, SharedLPBatch)):
         return _dispatch.solve_canonical(problem, options, stats=stats)
     if isinstance(problem, LPProblem):
         return _solve_problem(problem, options, stats)
     if isinstance(problem, (list, tuple)):
         return _solve_many(problem, options, grid, stats)
     raise TypeError(
-        f"repro_torch.solve expects LPProblem, LPBatch, or a list of LPProblem; "
-        f"got {type(problem).__name__}"
+        "repro_torch.solve expects LPProblem, LPBatch, SharedLPBatch, or a list of "
+        f"LPProblem; got {type(problem).__name__}"
     )
 
 

@@ -7,6 +7,8 @@ callables
     solve_canonical(LPBatch, SolveOptions)      -> LPSolution
     solve_hyperbox(lo, hi, dirs, SolveOptions)  -> LPSolution
 
+(the shared backends' ``solve_canonical`` takes a ``SharedLPBatch``).
+
 (The reference's exact-state hooks, start / resume / init, arrive with
 the round-scheduler slice; the state-carrying entry points exist below
 this layer, in ``core/simplex.py`` and ``kernels/ops.py``.)
@@ -22,10 +24,18 @@ Built-ins:
   * ``torch``     — the plain lockstep simplex (``core/simplex.py``), the
                     counterpart of ``xla``.
   * ``reference`` — the sequential float64 NumPy oracle (``core/oracle.py``).
+  * ``cuda-shared`` / ``torch-shared`` (:data:`SHARED_BACKENDS`) — the
+                    counterparts of ``pallas-shared`` / ``xla-shared``:
+                    a ``SharedLPBatch`` (one ``A``) through the revised
+                    kernel (``kernels/csrc/revised.cu``) or its plain
+                    lockstep loop (``core/revised.py``).  Their box path
+                    is that of ``cuda`` / ``torch``.
 
-No backend falls back to another: a shape the CUDA kernel is given runs
-on the kernel (it keeps the tableau in global memory, so every shape
-fits), and a failed build or launch raises.
+No backend falls back to another: a shape a CUDA kernel is given runs
+on the kernel (the tableau and the basis inverse live in global memory,
+so every shape fits), and a failed build or launch raises.  The
+reference's ``pallas-shared`` -> ``xla-shared`` VMEM fallback has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -38,12 +48,19 @@ import torch
 
 from . import engine as _engine
 from . import hyperbox as _hyperbox
+from . import revised as _revised
 from . import simplex as _simplex
-from .lp import OPTIMAL, LPBatch, LPSolution
+from .lp import OPTIMAL, LPBatch, LPSolution, SharedLPBatch
 from .tableau import DEFAULT_LAYOUT, LAYOUTS
 
 #: The port's default backend: the CUDA kernels.
 DEFAULT_BACKEND = "cuda"
+
+#: Backends that consume :class:`~repro_torch.core.lp.SharedLPBatch`: one
+#: ``(m, n)`` matrix read by every LP, O(m^2) revised-simplex state per LP.
+#: On a shared batch ``cuda``/``torch`` promote to these; a plain
+#: ``LPBatch`` on one of them is an error.
+SHARED_BACKENDS = ("torch-shared", "cuda-shared")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +74,10 @@ class SolveOptions:
     ----------
     backend : str, default "cuda"
         Registered backend name: ``"cuda"`` (the kernels; the default),
-        ``"torch"`` (plain lockstep loop) or ``"reference"`` (float64
-        oracle), or a name added via :func:`register_backend`.
+        ``"torch"`` (plain lockstep loop), ``"cuda-shared"`` /
+        ``"torch-shared"`` (the revised engine on a ``SharedLPBatch``;
+        ``cuda``/``torch`` promote to them there) or ``"reference"``
+        (float64 oracle), or a name added via :func:`register_backend`.
     rule : str, default "lpc"
         Pivot rule ``"lpc"``, ``"rpc"`` or ``"bland"``; the oracle is
         LPC-only and ignores it.
@@ -118,13 +137,17 @@ class SolveStats:
     simplex_iterations : int
         Total simplex pivots across the recorded LPs.
     tableau_bytes : int
-        Peak tableau bytes of one dispatch (chunk size x bytes per LP).
+        Peak solver-state bytes of one dispatch (chunk size x bytes per
+        LP: the tableau, or the revised engine's basis state).
+    warm_started : int
+        LPs that entered a solve with a carried basis (support sweeps).
     """
 
     lps: int = 0
     rounds: int = 0
     simplex_iterations: int = 0
     tableau_bytes: int = 0
+    warm_started: int = 0
 
     def record_tableau(self, nbytes: int) -> None:
         self.tableau_bytes = max(self.tableau_bytes, int(nbytes))
@@ -213,6 +236,22 @@ def _cuda_hyperbox(lo, hi, directions, options: SolveOptions) -> LPSolution:
     )
 
 
+def _torch_shared_solve(batch: SharedLPBatch, options: SolveOptions) -> LPSolution:
+    return _revised.solve_batched(
+        batch.a, batch.b, batch.c, rule=options.rule, max_iters=options.max_iters,
+        seed=options.seed, tol=options.tolerance, basis0=batch.basis0,
+    )
+
+
+def _cuda_shared_solve(batch: SharedLPBatch, options: SolveOptions) -> LPSolution:
+    from ..kernels import ops as kernel_ops
+
+    return kernel_ops.revised_solve(
+        batch.a, batch.b, batch.c, rule=options.rule, max_iters=options.max_iters,
+        seed=options.seed, tol=options.tolerance, basis0=batch.basis0,
+    )
+
+
 def _reference_solve(batch: LPBatch, options: SolveOptions) -> LPSolution:
     # The oracle has no warm-start path; basis0 is ignored (a hint).
     from . import oracle
@@ -249,3 +288,5 @@ def _reference_hyperbox(lo, hi, directions, options: SolveOptions) -> LPSolution
 register_backend(Backend("cuda", _cuda_solve, _cuda_hyperbox))
 register_backend(Backend("torch", _torch_solve, _torch_hyperbox))
 register_backend(Backend("reference", _reference_solve, _reference_hyperbox))
+register_backend(Backend("cuda-shared", _cuda_shared_solve, _cuda_hyperbox))
+register_backend(Backend("torch-shared", _torch_shared_solve, _torch_hyperbox))

@@ -1,6 +1,6 @@
 """Shape bucketing: megabatch heterogeneous LPs into few device batches.
 
-Follows the non-shared half of ``repro/core/bucketing.py``:
+Follows ``repro/core/bucketing.py``:
 
   1. group a list of single-LP ``LPProblem``s by padded shape class —
      powers of two per axis by default, or a caller-supplied grid;
@@ -9,7 +9,10 @@ Follows the non-shared half of ``repro/core/bucketing.py``:
   3. after the per-bucket solves, scatter results back in input order,
      trimming each primal point to its problem's true variable count.
 
-Objective sense and dtype are part of the bucket key.
+Objective sense and dtype are part of the bucket key.  Shared batches
+(:class:`~repro_torch.core.lp.SharedLPBatch`) bucket by shape, dtype and
+identical ``A`` (:func:`bucket_shared_batches`), so a merged bucket
+still stores one ``A``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .lp import LPSolution
+import torch
+
+from .lp import LPSolution, SharedLPBatch
 from .problem import LPProblem, stack_problems
 
 ShapeGrid = Sequence[Tuple[int, int]]
@@ -79,6 +84,81 @@ def bucket_problems(
                true_shapes=tuple(shapes))
         for key, (padded, idx, shapes) in groups.items()
     ]
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedBucket:
+    """One (m, n, dtype, device, A) class of shared batches, concatenated.
+
+    Only the per-LP ``b``/``c`` rows are concatenated: the merged batch
+    still stores ONE ``A``.
+    """
+
+    key: Tuple
+    batch: SharedLPBatch  # b/c concatenated over the group, one shared A
+    indices: Tuple[int, ...]  # positions in the input list
+    sizes: Tuple[int, ...]  # batch rows each input contributed
+
+
+def bucket_shared_batches(batches: Sequence[SharedLPBatch]) -> List[SharedBucket]:
+    """Group ``SharedLPBatch``es by (m, n, dtype, device) and identical ``A``.
+
+    Batches whose matrices compare equal (the same tensor short-circuits)
+    merge into one batch per ``A``; batches that share only the shape
+    stay apart, since merging them would force densification.  Warm-start
+    bases concatenate only when every member carries one.
+    """
+    shape_groups: Dict[Tuple, List[Tuple[int, SharedLPBatch]]] = {}
+    for i, sb in enumerate(batches):
+        if not isinstance(sb, SharedLPBatch):
+            raise TypeError(f"batches[{i}] is {type(sb).__name__}, expected SharedLPBatch")
+        key = (sb.m, sb.n, str(sb.a.dtype), str(sb.a.device))
+        shape_groups.setdefault(key, []).append((i, sb))
+
+    out: List[SharedBucket] = []
+    for key, members in shape_groups.items():
+        a_groups: List[Tuple[SharedLPBatch, List[Tuple[int, SharedLPBatch]]]] = []
+        for i, sb in members:
+            for rep, grp in a_groups:
+                if sb.a is rep.a or torch.equal(sb.a, rep.a):
+                    grp.append((i, sb))
+                    break
+            else:
+                a_groups.append((sb, [(i, sb)]))
+        for sub, (rep, grp) in enumerate(a_groups):
+            parts = [sb for _, sb in grp]
+            basis0 = None
+            if all(p.basis0 is not None for p in parts):
+                basis0 = torch.cat([p.basis0 for p in parts])
+            out.append(SharedBucket(
+                key=(*key, sub),
+                batch=SharedLPBatch(rep.a, torch.cat([p.b for p in parts]),
+                                    torch.cat([p.c for p in parts]), basis0=basis0),
+                indices=tuple(i for i, _ in grp),
+                sizes=tuple(p.batch for p in parts),
+            ))
+    return out
+
+
+def scatter_shared_solutions(
+    buckets: Sequence[SharedBucket], bucket_solutions: Sequence[LPSolution], total: int
+) -> List[LPSolution]:
+    """One ``LPSolution`` per input ``SharedLPBatch``, sliced back to its rows."""
+    out: List[Optional[LPSolution]] = [None] * total
+    for bucket, sol in zip(buckets, bucket_solutions):
+        row = 0
+        for idx, size in zip(bucket.indices, bucket.sizes):
+            sl = slice(row, row + size)
+            out[idx] = LPSolution(
+                objective=sol.objective[sl], x=sol.x[sl], status=sol.status[sl],
+                iterations=sol.iterations[sl],
+                basis=None if sol.basis is None else sol.basis[sl],
+            )
+            row += size
+    missing = [i for i, s in enumerate(out) if s is None]
+    if missing:
+        raise RuntimeError(f"scatter left unsolved batches at indices {missing}")
+    return out  # type: ignore[return-value]
 
 
 def scatter_solutions(

@@ -1,12 +1,14 @@
 """Carry data across the two packages through numpy.
 
-The port's records (``LPBatch``, ``LPProblem``, ``ResumeState``,
-``LPSolution``) are dataclasses of tensors, and so are the reference's
-of arrays.  :func:`to_numpy` turns any such record into a dict of numpy
-arrays (plain fields such as ``LPProblem``'s structure flags pass
-through); :func:`from_numpy` builds a port record from such a dict on a
-device.  A reference ``ResumeState`` taken to numpy can so continue in
-the port, and a port ``LPSolution`` can be held against the reference.
+The port's records (``LPBatch``, ``SharedLPBatch``, ``LPProblem``,
+``ResumeState``, ``RevisedResumeState``, ``LPSolution``) are dataclasses
+of tensors, and so are the reference's of arrays.  :func:`to_numpy`
+turns any such record into a dict of numpy arrays (plain fields such as
+``LPProblem``'s structure flags pass through); :func:`from_numpy` builds
+a port record from such a dict on a device, keeping each array's shape
+(``SharedLPBatch.a`` has no batch axis).  A reference ``ResumeState`` or
+``RevisedResumeState`` taken to numpy can so continue in the port, and a
+port ``LPSolution`` can be held against the reference.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ independent LPs of identical shape:
     maximize    c . x
     subject to  A x <= b,   x >= 0
 
-with ``A: (B, m, n)``, ``b: (B, m)``, ``c: (B, n)`` as torch tensors.
+with ``A: (B, m, n)``, ``b: (B, m)``, ``c: (B, n)`` as torch tensors;
+:class:`SharedLPBatch` stores one ``A: (m, n)`` for the whole batch.
 The tableau column map and its layouts live in ``core/tableau.py``.
 
 The generators build their arrays in numpy from the caller's
@@ -127,6 +128,54 @@ class LPBatch:
 
 
 @dataclasses.dataclass(frozen=True)
+class SharedLPBatch:
+    """B LPs over ONE constraint matrix: max c_k.x s.t. A x <= b_k, x >= 0.
+
+    The shared-structure counterpart of :class:`LPBatch` for support
+    sweeps, reachability and scenario analysis, where the LPs differ only
+    in ``c`` and/or ``b``.  ``A`` is stored once, and the revised-simplex
+    engine (``core/revised.py``) keeps O(m^2) basis state per LP.
+    ``basis0`` is an optional warm-start basis with the column convention
+    of :class:`LPBatch`.
+    """
+
+    a: torch.Tensor  # (m, n): ONE constraint matrix for the whole batch
+    b: torch.Tensor  # (B, m)
+    c: torch.Tensor  # (B, n)
+    basis0: Optional[torch.Tensor] = None  # (B, m) int32 warm-start basis
+
+    @property
+    def batch(self) -> int:
+        return self.b.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.a.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.a.shape[1]
+
+    def astype(self, dtype) -> "SharedLPBatch":
+        return SharedLPBatch(self.a.to(dtype), self.b.to(dtype), self.c.to(dtype), self.basis0)
+
+    def take(self, idx) -> "SharedLPBatch":
+        """Rows ``idx`` of the per-LP arrays; the shared ``A`` is not copied."""
+        return SharedLPBatch(
+            self.a, self.b[idx], self.c[idx],
+            None if self.basis0 is None else self.basis0[idx],
+        )
+
+    def densify(self) -> LPBatch:
+        """The per-LP-``A`` view for shared-blind backends.
+
+        ``a`` is an ``expand`` of the shared matrix (row stride 0): a
+        caller that writes to it must ``.contiguous()`` it first.
+        """
+        return LPBatch(self.a.expand(self.batch, self.m, self.n), self.b, self.c, self.basis0)
+
+
+@dataclasses.dataclass(frozen=True)
 class ResumeState:
     """Mid-solve simplex state: the exact tableau, basis and phase.
 
@@ -215,6 +264,53 @@ def random_lp_batch(
             )
         c = rng.uniform(0.1, 1.0, size=(batch, n))
     return LPBatch(
+        _tensor(np.asarray(a, dtype), device=dev),
+        _tensor(np.asarray(b, dtype), device=dev),
+        _tensor(np.asarray(c, dtype), device=dev),
+    )
+
+
+def random_shared_lp_batch(
+    rng: np.random.Generator,
+    batch: int,
+    m: int,
+    n: int,
+    feasible_start: bool = True,
+    dtype=np.float32,
+    device=None,
+) -> SharedLPBatch:
+    """Random LPs over ONE shared ``A``: the scenario-analysis workload.
+
+    The two classes of :func:`random_lp_batch`, with the constraint matrix
+    drawn once and only ``b``/``c`` per LP.  The infeasible start shares
+    the structure ``[I; -I; W]`` and draws the box bounds per LP.
+    """
+    dev = resolve_device(device)
+    if feasible_start:
+        a = rng.uniform(-1.0, 1.0, size=(m, n))
+        for j in range(min(m, n)):
+            a[j, j] = np.abs(a[j, j]) + 1.0
+        b = rng.uniform(1.0, 10.0, size=(batch, m))
+        c = rng.uniform(0.1, 1.0, size=(batch, n))
+    else:
+        lo = rng.uniform(0.5, 1.0, size=(batch, n))
+        hi = lo + rng.uniform(0.5, 2.0, size=(batch, n))
+        extra = m - 2 * n
+        if extra < 0:
+            raise ValueError(f"need m >= 2n for infeasible-start generator, got m={m} n={n}")
+        a = np.zeros((m, n))
+        b = np.zeros((batch, m))
+        eye = np.eye(n)
+        a[:n, :] = eye
+        b[:, :n] = hi
+        a[n : 2 * n, :] = -eye
+        b[:, n : 2 * n] = -lo
+        if extra > 0:
+            w = np.abs(rng.uniform(0.1, 1.0, size=(extra, n)))
+            a[2 * n :, :] = w
+            b[:, 2 * n :] = hi @ w.T + rng.uniform(0.1, 1.0, size=(batch, extra))
+        c = rng.uniform(0.1, 1.0, size=(batch, n))
+    return SharedLPBatch(
         _tensor(np.asarray(a, dtype), device=dev),
         _tensor(np.asarray(b, dtype), device=dev),
         _tensor(np.asarray(c, dtype), device=dev),

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .lp import INFEASIBLE, NUMERICAL, OPTIMAL, LPBatch, LPSolution, _writable, resolve_device
+from .lp import (INFEASIBLE, NUMERICAL, OPTIMAL, LPBatch, LPSolution, SharedLPBatch, _writable,
+                 resolve_device)
 
 _INF = float("inf")
 
@@ -247,7 +248,7 @@ def stack_problems(problems: Sequence[LPProblem]) -> LPProblem:
 class Canonicalized:
     """A canonical ``LPBatch`` plus the data needed to map solutions back."""
 
-    batch: LPBatch
+    batch: LPBatch  # or SharedLPBatch (canonicalize_shared)
     c_user: torch.Tensor  # (B, n) original objective
     shift: torch.Tensor  # (B, n) lo' applied as x = lo' + x'
     n: int = 0
@@ -307,6 +308,35 @@ def canonicalize(problem: LPProblem) -> Canonicalized:
         sign=sign,
         split=p.split,
     )
+
+
+def canonicalize_shared(problem: LPProblem) -> Canonicalized:
+    """Canonicalize a batch whose rows share ONE constraint system.
+
+    Runs :func:`canonicalize` and keeps a single copy of the canonical
+    matrix (:class:`~repro_torch.core.lp.SharedLPBatch`), which the
+    dispatch routes to the revised-simplex backends.  :func:`uncanonicalize`
+    works unchanged on the result.  The canonical rows must be identical
+    across the batch, the shared matrix finite, and ``b``/``c`` free of
+    NaN; each failure raises ``ValueError``.
+    """
+    canon = canonicalize(problem)
+    batch = canon.batch
+    a0 = batch.a[0]
+    if bool((batch.a != a0[None]).any()):
+        raise ValueError(
+            "canonicalize_shared: canonical constraint matrices differ across the "
+            "batch; solve as a plain LPBatch instead"
+        )
+    if not bool(torch.isfinite(a0).all()):
+        raise ValueError(
+            "canonicalize_shared: the shared constraint matrix contains NaN/Inf; "
+            "reject the input instead of poisoning every batched variant"
+        )
+    if bool(torch.isnan(batch.b).any()) or bool(torch.isnan(batch.c).any()):
+        raise ValueError("canonicalize_shared: canonical b/c contain NaN")
+    shared = SharedLPBatch(a0.contiguous(), batch.b, batch.c, basis0=batch.basis0)
+    return dataclasses.replace(canon, batch=shared)
 
 
 def uncanonicalize(canon: Canonicalized, sol: LPSolution) -> LPSolution:

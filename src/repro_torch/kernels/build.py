@@ -1,6 +1,7 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled by
+Each ``csrc/<name>.cu`` exposes a plain C interface (``csrc/*.cuh`` are
+shared headers).  It is compiled by
 ``nvcc`` on first use into ``build/`` at the repository root (or
 ``$REPRO_TORCH_BUILD_DIR``) and loaded with ``ctypes``; the library's
 file name carries a hash of the sources and flags, so an edited source
@@ -31,7 +32,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: The kernel sources of the port, one shared library each.
-SOURCES = ("simplex", "hyperbox")
+SOURCES = ("simplex", "hyperbox", "revised")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

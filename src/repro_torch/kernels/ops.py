@@ -1,12 +1,13 @@
 """Solver entry points over the CUDA kernels.
 
-Follows the simplex and hyperbox halves of ``repro/kernels/ops.py``.
-The tableau is built by the plain ``core/tableau.py:build_tableau`` and
-handed to the kernel unpadded: the TPU's 128-lane/8-sublane padding,
-VMEM budget and batch tiling do not carry over (one thread block per LP
-takes every shape).  On CPU tensors the same calls run the kernels'
-plain versions, as the reference's wrappers run Pallas in interpret mode
-off the TPU.
+Follows the simplex, revised and hyperbox halves of
+``repro/kernels/ops.py``.  The tableau (``core/tableau.py:build_tableau``)
+and the revised start state (``core/revised.py:init_traced``) are built
+by the plain code and handed to the kernels unpadded: the TPU's
+128-lane/8-sublane padding, VMEM budget and batch tiling do not carry
+over (one thread block per LP takes every shape).  On CPU tensors the
+same calls run the kernels' plain versions, as the reference's wrappers
+run Pallas in interpret mode off the TPU.
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ from typing import Optional
 import torch
 
 from ..core import engine
+from ..core import revised as _revised
 from ..core.lp import LPSolution, ResumeState
 from ..core.simplex import phase2_costs, resolve_cap
 from ..core.tableau import DEFAULT_LAYOUT, TableauSpec, build_tableau
-from . import hyperbox_cuda, simplex_cuda
+from . import hyperbox_cuda, revised_cuda, simplex_cuda
 
 
 def _launch(tab, basis, phase, b, c, spec: TableauSpec, rule, max_iters, seed, tol,
@@ -88,6 +90,104 @@ def simplex_resume(
         state.phase.to(torch.int32).clone(memory_format=torch.contiguous_format),
         b, c, spec, rule, max_iters, seed, tol, want_state,
     )
+
+
+def _revised_launch(a, b, c, state: _revised.RevisedResumeState, cap: int, rule, seed, tol,
+                    want_state: bool):
+    """One revised-kernel launch on ``state``'s buffers, updated in place.
+
+    The objective is computed after the launch from the terminal
+    ``(basis, xb)`` by the same ascending sum as the plain loop.
+    """
+    binv, basis, xb, phase = (t.contiguous() for t in
+                              (state.binv, state.basis, state.xb, state.phase))
+    feas = engine.phase1_feasibility_tol(b).contiguous()
+    x, status, iters = revised_cuda.revised(a, b, c, binv, basis, xb, phase, feas, cap,
+                                            rule=rule, seed=seed, tol=tol)
+    sol = LPSolution(objective=_revised.objective(basis, xb, c, status), x=x, status=status,
+                     iterations=iters, basis=basis)
+    if not want_state:
+        return sol
+    return sol, _revised.RevisedResumeState(binv, basis, xb, phase)
+
+
+def revised_solve(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    rule: str = engine.LPC,
+    max_iters: int = 0,
+    seed: int = 0,
+    tol: float = 0.0,
+    basis0: Optional[torch.Tensor] = None,
+    want_state: bool = False,
+):
+    """Solve a shared-A batch (``a`` (m, n), ``b`` (B, m), ``c`` (B, n)) with the revised kernel.
+
+    Same knobs and results as ``core/revised.py:solve_batched``.
+    ``basis0`` warm-starts through the same ``init_traced`` overlay (the
+    factorization runs before the launch; warm rows enter the kernel in
+    phase II).  The kernel updates the start state in place, so
+    ``want_state`` (returning ``(LPSolution, RevisedResumeState)``) costs
+    nothing.
+    """
+    cap, tol = _revised.resolve_cap_tol(a, max_iters, tol)
+    a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
+    return _revised_launch(a, b, c, _revised.init_traced(a, b, basis0), cap, rule, seed, tol,
+                           want_state)
+
+
+def revised_resume(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    state: _revised.RevisedResumeState,
+    rule: str = engine.LPC,
+    max_iters: int = 0,
+    seed: int = 0,
+    tol: float = 0.0,
+    want_state: bool = True,
+):
+    """Continue a carried :class:`RevisedResumeState` for ``max_iters`` more steps.
+
+    The shared ``a`` is passed back in.  The launch runs on a copy of the
+    state (the caller's is left as it was); rounds whose caps sum to K
+    end bit-identical to one solve at cap K.
+    """
+    cap, tol = _revised.resolve_cap_tol(a, max_iters, tol)
+    copy = _revised.RevisedResumeState(
+        state.binv.clone(memory_format=torch.contiguous_format),
+        state.basis.to(torch.int32).clone(memory_format=torch.contiguous_format),
+        state.xb.clone(memory_format=torch.contiguous_format),
+        state.phase.to(torch.int32).clone(memory_format=torch.contiguous_format),
+    )
+    return _revised_launch(a.contiguous(), b.contiguous(), c.contiguous(), copy, cap, rule,
+                           seed, tol, want_state)
+
+
+def revised_sweep(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c_stack: torch.Tensor,
+    rule: str = engine.LPC,
+    max_iters: int = 0,
+    seed: int = 0,
+    tol: float = 0.0,
+    warm: bool = True,
+):
+    """``core/revised.py:sweep_batched`` on the kernel: one launch per step.
+
+    Each step launches on the state carried from the step before, with
+    the sweep's warm/cold overlay.  Returns ``(objective, x, status,
+    iterations)``, each with a leading (T, B).
+    """
+    cap, tol = _revised.resolve_cap_tol(a, max_iters, tol)
+    a, b = a.contiguous(), b.contiguous()
+
+    def step(c_t, start):
+        return _revised_launch(a, b, c_t.contiguous(), start, cap, rule, seed, tol, True)
+
+    return _revised.sweep_loop(a, b, c_stack, step, warm)
 
 
 def hyperbox_support(lo, hi, directions) -> torch.Tensor:

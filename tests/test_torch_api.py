@@ -195,7 +195,8 @@ def test_default_device_is_the_card(monkeypatch):
 def test_import_hygiene():
     code = (
         "import sys, repro_torch, repro_torch.kernels.ops, repro_torch.core.convert, "
-        "repro_torch.core.oracle\n"
+        "repro_torch.core.oracle, repro_torch.core.revised, repro_torch.core.support, "
+        "repro_torch.core.reach, repro_torch.kernels.revised_cuda\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -22,6 +22,11 @@ from repro.core import simplex as jsimplex
 from repro_torch.core import lp as tlp
 from repro_torch.core import simplex as tsimplex
 
+# The batches here are tiny.  One intra-op thread per test process keeps
+# torch's idle OpenMP workers from spinning beside pytest-xdist's other
+# processes; the test_torch_* modules that import this one share it.
+torch.set_num_threads(1)
+
 FIXTURES = [
     (16, 5, 5, True),
     (16, 10, 10, True),
