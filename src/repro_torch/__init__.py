@@ -5,7 +5,11 @@ The public surface follows ``repro/__init__.py``: ``solve``,
 ``canonicalize_shared``, ``SolveOptions``, ``SolveStats`` and the status
 codes.  The default backend is ``"cuda"``:
 hand-written kernels for NVIDIA Hopper (``kernels/csrc``), built with
-``nvcc`` at first use.  Entry points put their tensors on the card unless
+``nvcc`` at first use.  ``"pdhg"`` is the first-order backend for large
+LPs (restarted PDHG on its own kernel; ``crossover=True`` polishes its
+answers into exact vertices), and ``"auto"`` routes each batch by
+shape: the simplex kernel below ``max(m, n) = 500``, ``pdhg`` from
+there on.  Entry points put their tensors on the card unless
 the caller passes ``device="cpu"``; on CPU tensors the kernels' plain
 PyTorch versions run instead.  This package imports torch, numpy and the
 standard library only — never JAX or ``repro``.

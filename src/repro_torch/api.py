@@ -13,11 +13,15 @@ Routing:
 
   * ``LPProblem`` -> the hyperbox path when ``boxlike`` (no general rows,
     finite box), else canonicalize -> chunked dispatch -> uncanonicalize.
-    On the default ``"cuda"`` backend box problems run the hyperbox
-    kernel; on ``"torch"`` they take the closed form ``solve_box``.
+    On ``"cuda"`` (the default), ``"auto"`` and ``"pdhg"`` box problems
+    run the hyperbox kernel; on ``"torch"`` they take the closed form
+    ``solve_box``.
   * ``list/tuple`` of ``LPProblem`` -> shape bucketing, one solve per
     bucket, per-problem single-LP solutions in input order.
-  * ``LPBatch`` -> straight to the chunked dispatch.
+  * ``LPBatch`` -> straight to the chunked dispatch; on ``"pdhg"`` (or
+    ``"auto"`` past the frontier) the solution carries the dual point
+    ``y``, which ``uncanonicalize`` drops for an ``LPProblem``, as the
+    reference does.
   * ``SharedLPBatch`` (one ``A``, batched ``c``/``b``) -> the chunked
     dispatch on the shared revised-simplex backends; the default
     ``"cuda"`` promotes to ``"cuda-shared"``, the revised kernel.

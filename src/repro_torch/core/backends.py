@@ -30,6 +30,12 @@ Built-ins:
                     kernel (``kernels/csrc/revised.cu``) or its plain
                     lockstep loop (``core/revised.py``).  Their box path
                     is that of ``cuda`` / ``torch``.
+  * ``pdhg``      — first-order restarted PDHG for the large shapes the
+                    tableau cedes: the PDHG kernel (``kernels/csrc/pdhg.cu``)
+                    on CUDA tensors, its plain loop (``core/pdhg.py``) on
+                    CPU tensors.  Its box path is the hyperbox kernel's.
+  * ``auto``      — not a registered backend: the dispatch layer resolves
+                    it per batch through :func:`route_shape`.
 
 No backend falls back to another: a shape a CUDA kernel is given runs
 on the kernel (the tableau and the basis inverse live in global memory,
@@ -48,6 +54,7 @@ import torch
 
 from . import engine as _engine
 from . import hyperbox as _hyperbox
+from . import pdhg as _pdhg
 from . import revised as _revised
 from . import simplex as _simplex
 from .lp import OPTIMAL, LPBatch, LPSolution, SharedLPBatch
@@ -61,6 +68,12 @@ DEFAULT_BACKEND = "cuda"
 #: On a shared batch ``cuda``/``torch`` promote to these; a plain
 #: ``LPBatch`` on one of them is an error.
 SHARED_BACKENDS = ("torch-shared", "cuda-shared")
+
+#: Shape frontier for ``backend="auto"``: LPs with ``max(m, n)`` at or
+#: above it route to the first-order ``pdhg`` backend, smaller ones to the
+#: simplex kernel: the regime the paper's tableau method cedes
+#: (m, n >= 500).  Override per solve with ``SolveOptions.route_frontier``.
+DEFAULT_ROUTE_FRONTIER = 500
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +89,14 @@ class SolveOptions:
         Registered backend name: ``"cuda"`` (the kernels; the default),
         ``"torch"`` (plain lockstep loop), ``"cuda-shared"`` /
         ``"torch-shared"`` (the revised engine on a ``SharedLPBatch``;
-        ``cuda``/``torch`` promote to them there) or ``"reference"``
-        (float64 oracle), or a name added via :func:`register_backend`.
+        ``cuda``/``torch`` promote to them there), ``"pdhg"`` (first-order
+        PDHG) or ``"reference"`` (float64 oracle), or a name added via
+        :func:`register_backend`; or ``"auto"``, which picks ``cuda``,
+        ``cuda-shared`` or ``pdhg`` by shape (:func:`route_shape`).
     rule : str, default "lpc"
         Pivot rule ``"lpc"``, ``"rpc"`` or ``"bland"``; the oracle is
-        LPC-only and ignores it.
+        LPC-only and ignores it, and ``pdhg`` rejects any other than
+        ``"lpc"``.
     max_iters : int, default 0
         Iteration cap across both phases; 0 means ``50 (m + n)``.
     tolerance : float, default 0.0
@@ -92,7 +108,20 @@ class SolveOptions:
         chunk); bounds the tableau memory of one launch.
     layout : str, optional
         Tableau layout, ``"compact"`` (None means this) or ``"dense"``;
-        results are bit-identical.
+        results are bit-identical.  ``pdhg`` rejects ``"dense"``.
+    pdhg_tol : float, default 0.0
+        Relative KKT tolerance of ``pdhg`` (primal and dual residuals and
+        the duality gap); 0 means 1e-4.
+    pdhg_restart : int, default 0
+        Fixed restart-to-average period of ``pdhg``; 0 means 64.
+    crossover : bool, default False
+        Polish ``pdhg``'s OPTIMAL rows into exact vertices: a basis guess
+        read off each point warm-starts the simplex kernel
+        (``core/pdhg.py:crossover``), which returns the vertex and a
+        reusable ``basis``.  Requires ``backend`` ``"pdhg"`` or ``"auto"``.
+    route_frontier : int, default 0
+        The ``"auto"`` frontier: ``max(m, n)`` at or above it routes to
+        ``pdhg``; 0 means :data:`DEFAULT_ROUTE_FRONTIER`.
     """
 
     backend: str = DEFAULT_BACKEND
@@ -102,6 +131,10 @@ class SolveOptions:
     seed: int = 0
     chunk_size: Optional[int] = None
     layout: Optional[str] = None
+    pdhg_tol: float = 0.0
+    pdhg_restart: int = 0
+    crossover: bool = False
+    route_frontier: int = 0
 
     def __post_init__(self):
         if self.rule not in _engine.RULES:
@@ -114,6 +147,30 @@ class SolveOptions:
             )
         if self.chunk_size is not None and self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size!r}")
+        if self.pdhg_tol < 0.0:
+            raise ValueError(f"pdhg_tol must be >= 0, got {self.pdhg_tol!r}")
+        if self.pdhg_restart < 0:
+            raise ValueError(f"pdhg_restart must be >= 0, got {self.pdhg_restart!r}")
+        if self.route_frontier < 0:
+            raise ValueError(f"route_frontier must be >= 0, got {self.route_frontier!r}")
+        if self.backend == "pdhg":
+            # A first-order method pivots nothing and stores no tableau.
+            if self.rule != _engine.LPC:
+                raise ValueError(
+                    f"rule={self.rule!r} is meaningless for backend='pdhg' (a first-order "
+                    "method performs no pivots); leave rule at its default 'lpc'"
+                )
+            if self.layout not in (None, DEFAULT_LAYOUT):
+                raise ValueError(
+                    f"layout={self.layout!r} is meaningless for backend='pdhg' (a first-order "
+                    f"method stores no tableau); leave layout unset or {DEFAULT_LAYOUT!r}"
+                )
+        if self.crossover and self.backend not in ("pdhg", "auto"):
+            raise ValueError(
+                "crossover=True polishes a first-order solution into an exact vertex and "
+                f"requires backend='pdhg' or 'auto'; backend={self.backend!r} already "
+                "returns vertices"
+            )
 
     @property
     def effective_layout(self) -> str:
@@ -135,10 +192,12 @@ class SolveStats:
     rounds : int
         Backend dispatches recorded (chunks).
     simplex_iterations : int
-        Total simplex pivots across the recorded LPs.
+        Total simplex pivots (PDHG steps on ``pdhg``) across the recorded
+        LPs.
     tableau_bytes : int
         Peak solver-state bytes of one dispatch (chunk size x bytes per
-        LP: the tableau, or the revised engine's basis state).
+        LP: the tableau, the revised engine's basis state, or PDHG's
+        problem data and iterates).
     warm_started : int
         LPs that entered a solve with a carried basis (support sweeps).
     """
@@ -192,6 +251,30 @@ def get_backend(name: str) -> Backend:
 
 def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def route_shape(m: int, n: int, options: Optional[SolveOptions] = None,
+                shared: bool = False) -> str:
+    """The shape-routing table behind ``backend="auto"``.
+
+    A dense batch with ``max(m, n)`` below the frontier
+    (``options.route_frontier``, 0 -> :data:`DEFAULT_ROUTE_FRONTIER`)
+    goes to the simplex kernel (``"cuda"``), at or past it to the
+    first-order ``"pdhg"``.  A shared batch always goes to
+    ``"cuda-shared"``: its per-LP state is the O(m^2) basis record, and
+    densifying it for ``pdhg`` would forfeit the memory the caller asked
+    to save.
+
+    This is the reference's static table (its ``autotune="off"`` leg);
+    the cost-model autotuner that ranks the candidates there is not
+    ported yet, so the port's ``"auto"`` is this table.
+    """
+    if shared:
+        return "cuda-shared"
+    frontier = DEFAULT_ROUTE_FRONTIER
+    if options is not None and options.route_frontier > 0:
+        frontier = options.route_frontier
+    return "pdhg" if max(m, n) >= frontier else "cuda"
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +335,16 @@ def _cuda_shared_solve(batch: SharedLPBatch, options: SolveOptions) -> LPSolutio
     )
 
 
+def _pdhg_solve(batch: LPBatch, options: SolveOptions) -> LPSolution:
+    # basis0 is a simplex warm-start hint; a first-order method ignores it.
+    from ..kernels import ops as kernel_ops
+
+    return kernel_ops.pdhg_solve(
+        batch.a, batch.b, batch.c, tol=options.pdhg_tol, restart=options.pdhg_restart,
+        max_iters=options.max_iters,
+    )
+
+
 def _reference_solve(batch: LPBatch, options: SolveOptions) -> LPSolution:
     # The oracle has no warm-start path; basis0 is ignored (a hint).
     from . import oracle
@@ -290,3 +383,6 @@ register_backend(Backend("torch", _torch_solve, _torch_hyperbox))
 register_backend(Backend("reference", _reference_solve, _reference_hyperbox))
 register_backend(Backend("cuda-shared", _cuda_shared_solve, _cuda_hyperbox))
 register_backend(Backend("torch-shared", _torch_shared_solve, _torch_hyperbox))
+# Box LPs are closed-form: the first-order backend's box leg is the
+# hyperbox kernel (the reference's is its plain xla closed form).
+register_backend(Backend("pdhg", _pdhg_solve, _cuda_hyperbox))

@@ -10,9 +10,15 @@ busy while the host slices the next chunk.
 A :class:`~repro_torch.core.lp.SharedLPBatch` runs on the shared
 backends: ``cuda`` and ``torch`` promote to ``cuda-shared`` and
 ``torch-shared`` (:func:`resolve_backend`), another backend (such as
-``reference``) gets the densified batch, and a plain ``LPBatch`` on a
-shared backend raises.  Shared chunks slice only ``b``/``c``: the one
-``A`` is never copied.
+``reference`` or ``pdhg``) gets the densified batch, and a plain
+``LPBatch`` on a shared backend raises.  Shared chunks slice only
+``b``/``c``: the one ``A`` is never copied.
+
+``backend="auto"`` is resolved once per batch, by shape
+(``core/backends.py:route_shape``).  On ``pdhg`` two post-passes run on
+the merged solution: every divergence certificate is confirmed on the
+float64 oracle, then, with ``crossover=True``, the OPTIMAL rows are
+polished into exact vertices (``core/pdhg.py``).
 
 Not here yet (later slices): convergence compaction and its round
 plans, exact round resume between rounds, guardrails and quarantine,
@@ -21,12 +27,14 @@ fault injection and retry, speculation, and mesh sharding.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from . import pdhg as _pdhg
 from . import revised as _revised
-from .backends import SHARED_BACKENDS, SolveOptions, SolveStats, get_backend
+from .backends import SHARED_BACKENDS, SolveOptions, SolveStats, get_backend, route_shape
+from .engine import LPC
 from .lp import LPBatch, LPSolution, SharedLPBatch, _tensor, resolve_device
 from .tableau import TableauSpec
 
@@ -42,24 +50,41 @@ def empty_solution(n: int, dtype=torch.float32, device=None) -> LPSolution:
 
 
 def _concat_solutions(parts: Sequence[LPSolution]) -> LPSolution:
-    bases = [p.basis for p in parts]
+    def cat_optional(field):
+        vals = [getattr(p, field) for p in parts]
+        return torch.cat(vals) if all(v is not None for v in vals) else None
+
     return LPSolution(
         objective=torch.cat([p.objective for p in parts]),
         x=torch.cat([p.x for p in parts]),
         status=torch.cat([p.status for p in parts]),
         iterations=torch.cat([p.iterations for p in parts]),
-        basis=torch.cat(bases) if all(b is not None for b in bases) else None,
+        basis=cat_optional("basis"),
+        y=cat_optional("y"),
     )
 
 
-def resolve_backend(options: SolveOptions, shared: bool = False) -> SolveOptions:
-    """The concrete backend for a batch.
+def resolve_backend(options: SolveOptions, shared: bool = False,
+                    shape: Optional[Tuple[int, int]] = None) -> SolveOptions:
+    """The concrete backend for a batch of LPs of ``shape`` = (m, n).
 
-    On a shared batch the simplex names promote to their shared
-    counterparts (``"cuda"`` -> ``"cuda-shared"``, ``"torch"`` ->
-    ``"torch-shared"``): the revised engine is the simplex solver for that
-    container.  Every other name passes through.
+    ``"auto"`` resolves through :func:`~repro_torch.core.backends.route_shape`
+    (``shape`` is needed for a dense batch); a batch routed to ``pdhg``
+    gets ``rule``/``layout`` reset to their defaults, since those knobs
+    configure the simplex leg and ``pdhg`` rejects them.  On a shared
+    batch the simplex names promote to their shared counterparts
+    (``"cuda"`` -> ``"cuda-shared"``, ``"torch"`` -> ``"torch-shared"``):
+    the revised engine is the simplex solver for that container.  Every
+    other name passes through.
     """
+    if options.backend == "auto":
+        if not shared and shape is None:
+            raise ValueError("backend='auto' needs the batch's shape (m, n) to resolve")
+        m, n = shape if shape is not None else (0, 0)
+        resolved = route_shape(m, n, options, shared=shared)
+        if resolved == "pdhg":
+            return options.replace(backend=resolved, rule=LPC, layout=None)
+        return options.replace(backend=resolved)
     if shared:
         promote = {"cuda": "cuda-shared", "torch": "torch-shared"}
         if options.backend in promote:
@@ -83,9 +108,9 @@ def solve_canonical(
     if batch.batch == 0:
         return empty_solution(batch.n, batch.a.dtype, batch.a.device)
     shared = isinstance(batch, SharedLPBatch)
-    options = resolve_backend(options, shared)
+    options = resolve_backend(options, shared, (batch.m, batch.n))
     if shared and options.backend not in SHARED_BACKENDS:
-        # An explicit non-shared backend (reference, a plug-in): honour the
+        # An explicit non-shared backend (pdhg, reference, a plug-in): honour the
         # request by densifying, correctness over the memory win.
         batch = batch.densify()
     elif not shared and options.backend in SHARED_BACKENDS:
@@ -94,7 +119,15 @@ def solve_canonical(
             "this batch carries a per-LP constraint matrix: solve it on a tableau "
             "backend, or build a SharedLPBatch"
         )
-    return dispatch_round(batch, options, stats)
+    sol = dispatch_round(batch, options, stats)
+    if options.backend == "pdhg":
+        # Both post-passes run once, on the merged solution.  Confirmation
+        # first: it may revoke a heuristic flag, and crossover polishes
+        # only real optima.
+        sol = _pdhg.confirm_certificates(batch, sol, options)
+        if options.crossover:
+            sol = _pdhg.crossover(batch, sol, options)
+    return sol
 
 
 def dispatch_round(
@@ -109,7 +142,9 @@ def dispatch_round(
     bsz = batch.batch
     chunk = options.chunk_size or bsz
     if stats is not None:
-        if backend.name in SHARED_BACKENDS:
+        if backend.name == "pdhg":
+            per_lp = _pdhg.state_bytes_per_lp(batch.m, batch.n, batch.a.dtype)
+        elif backend.name in SHARED_BACKENDS:
             per_lp = _revised.state_bytes_per_lp(batch.m, batch.n, batch.a.dtype)
         else:
             per_lp = TableauSpec(batch.m, batch.n, options.effective_layout).bytes_per_lp(
@@ -138,6 +173,10 @@ def solve_hyperbox(
     tensors go to ``device`` (None = the card; raises without one).
     """
     options = options or SolveOptions()
+    if options.backend == "auto":
+        # Box LPs are closed-form: the simplex/first-order question of
+        # "auto" does not arise, and the hyperbox kernel answers them.
+        options = options.replace(backend="cuda")
     dev = resolve_device(device)
     directions = _tensor(directions, device=dev)
     dtype = directions.dtype

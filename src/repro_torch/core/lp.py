@@ -201,7 +201,9 @@ class LPSolution:
     """Result batch: objective, primal point, status, iterations used.
 
     ``basis`` is the final simplex basis (same column convention as
-    ``LPBatch.basis0``) when the backend tracks one, else None.
+    ``LPBatch.basis0``) when the backend tracks one, else None.  ``y`` is
+    the dual point of the first-order ``pdhg`` backend (None for the
+    simplex backends).
     """
 
     objective: torch.Tensor  # (B,)
@@ -209,6 +211,7 @@ class LPSolution:
     status: torch.Tensor  # (B,) int32
     iterations: torch.Tensor  # (B,) int32
     basis: Optional[torch.Tensor] = None  # (B, m) int32
+    y: Optional[torch.Tensor] = None  # (B, m) dual point (pdhg only)
 
 
 def auto_cap(m: int, n: int) -> int:

@@ -32,7 +32,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: The kernel sources of the port, one shared library each.
-SOURCES = ("simplex", "hyperbox", "revised")
+SOURCES = ("simplex", "hyperbox", "revised", "pdhg")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

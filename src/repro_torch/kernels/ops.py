@@ -1,27 +1,30 @@
 """Solver entry points over the CUDA kernels.
 
-Follows the simplex, revised and hyperbox halves of
-``repro/kernels/ops.py``.  The tableau (``core/tableau.py:build_tableau``)
-and the revised start state (``core/revised.py:init_traced``) are built
-by the plain code and handed to the kernels unpadded: the TPU's
-128-lane/8-sublane padding, VMEM budget and batch tiling do not carry
-over (one thread block per LP takes every shape).  On CPU tensors the
+Follows ``repro/kernels/ops.py``: the simplex, revised, PDHG and
+hyperbox wrappers.  The tableau (``core/tableau.py:build_tableau``), the
+revised start state (``core/revised.py:init_traced``) and the PDHG step
+sizes (``core/pdhg.py:step_sizes``) are computed by the plain code and
+handed to the kernels unpadded: the TPU's 128-lane/8-sublane padding,
+VMEM budget and batch tiling do not carry over (one thread block per LP
+takes every shape).  On CPU tensors the
 same calls run the kernels' plain versions, as the reference's wrappers
 run Pallas in interpret mode off the TPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from ..core import engine
+from ..core import pdhg as _pdhg
 from ..core import revised as _revised
 from ..core.lp import LPSolution, ResumeState
 from ..core.simplex import phase2_costs, resolve_cap
 from ..core.tableau import DEFAULT_LAYOUT, TableauSpec, build_tableau
-from . import hyperbox_cuda, revised_cuda, simplex_cuda
+from . import hyperbox_cuda, pdhg_cuda, revised_cuda, simplex_cuda
 
 
 def _launch(tab, basis, phase, b, c, spec: TableauSpec, rule, max_iters, seed, tol,
@@ -188,6 +191,74 @@ def revised_sweep(
         return _revised_launch(a, b, c_t.contiguous(), start, cap, rule, seed, tol, True)
 
     return _revised.sweep_loop(a, b, c_stack, step, warm)
+
+
+def _pdhg_launch(a, b, c, state: _pdhg.PDHGResumeState, cap: int, tol: float, restart: int,
+                 want_state: bool):
+    """One PDHG-kernel launch on ``state``'s buffers, updated in place.
+
+    The step sizes are computed here once, by the plain ``step_sizes``,
+    as the reference's wrapper hoists them out of its kernel; the
+    objective is computed after the launch by the same function as the
+    plain loop's.
+    """
+    tau, sigma, scales = _pdhg.step_sizes(a, b, c)
+    scales = tuple(s.contiguous() for s in scales)
+    status, iters = pdhg_cuda.pdhg(a, b, c, state, tau.contiguous(), sigma.contiguous(), scales,
+                                   cap, tol=_pdhg.resolve_tol(tol),
+                                   restart=_pdhg.resolve_restart(restart))
+    sol = LPSolution(objective=_pdhg.objective(c, state.x, status), x=state.x, status=status,
+                     iterations=iters, y=state.y)
+    return (sol, state) if want_state else sol
+
+
+def pdhg_solve(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    tol: float = 0.0,
+    restart: int = 0,
+    max_iters: int = 0,
+    want_state: bool = False,
+):
+    """Solve a canonical batch (max c.x, Ax <= b, x >= 0) with the PDHG kernel.
+
+    Same knobs and results as ``core/pdhg.py:solve_batched`` (``y`` holds
+    the dual point).  The kernel updates a fresh cold state in place, so
+    ``want_state`` (returning ``(LPSolution, PDHGResumeState)``) costs
+    nothing.
+    """
+    bsz, m, n = a.shape
+    a, b, c = a.contiguous(), b.to(a.dtype).contiguous(), c.to(a.dtype).contiguous()
+    state = _pdhg.init_state(bsz, m, n, a.dtype, a.device)
+    return _pdhg_launch(a, b, c, state, _pdhg.resolve_cap(max_iters, m, n), tol, restart,
+                        want_state)
+
+
+def pdhg_resume(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    state: _pdhg.PDHGResumeState,
+    *,
+    tol: float = 0.0,
+    restart: int = 0,
+    max_iters: int = 0,
+    want_state: bool = True,
+):
+    """Continue a carried :class:`PDHGResumeState` for ``max_iters`` more steps.
+
+    The launch runs on a copy of the state (the caller's is left as it
+    was); rounds whose caps sum to K end bit-identical to one launch at
+    cap K.
+    """
+    _, m, n = a.shape
+    a, b, c = a.contiguous(), b.to(a.dtype).contiguous(), c.to(a.dtype).contiguous()
+    copy = _pdhg.PDHGResumeState(*(getattr(state, f.name).clone(
+        memory_format=torch.contiguous_format) for f in dataclasses.fields(state)))
+    return _pdhg_launch(a, b, c, copy, _pdhg.resolve_cap(max_iters, m, n), tol, restart,
+                        want_state)
 
 
 def hyperbox_support(lo, hi, directions) -> torch.Tensor:

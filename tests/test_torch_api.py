@@ -153,7 +153,8 @@ def test_jax_resume_state_continues_in_the_port():
     sol_j = jsimplex.resume_batched(jb.b, jb.c, jstate, max_iters=60, want_state=False)
     assert_matches_reference(sol_t, sol_j, np.float32)
     out = convert.to_numpy(sol_t)
-    assert set(out) == {"objective", "x", "status", "iterations", "basis"}
+    assert set(out) == {"objective", "x", "status", "iterations", "basis", "y"}
+    assert out["y"] is None  # the dual point is pdhg's only
     assert out["status"].dtype == np.int32 and out["basis"].dtype == np.int32
 
 
@@ -196,7 +197,8 @@ def test_import_hygiene():
     code = (
         "import sys, repro_torch, repro_torch.kernels.ops, repro_torch.core.convert, "
         "repro_torch.core.oracle, repro_torch.core.revised, repro_torch.core.support, "
-        "repro_torch.core.reach, repro_torch.kernels.revised_cuda\n"
+        "repro_torch.core.reach, repro_torch.kernels.revised_cuda, repro_torch.core.pdhg, "
+        "repro_torch.kernels.pdhg_cuda\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
