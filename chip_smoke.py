@@ -6,7 +6,9 @@
 Phases, one JSON line each; any failure exits non-zero before the last
 line is printed:
 
-1. environment: torch and CUDA versions, the card, its power limit, TF32 off;
+1. environment: torch and CUDA versions, the card, its power limit, TF32
+   off, and ``cudaOccupancyMaxActiveClusters`` of the simplex and PDHG
+   cluster variants at each cluster size the main paths use;
 2. build: the four CUDA sources compiled from the checkout, one ``nvcc``
    each, started together, with each kernel's registers, shared memory,
    spills;
@@ -19,7 +21,19 @@ line is printed:
    the full cap, and bit-identical to itself across reruns and resume
    chains (the PDHG cases run at the start of slice 3, so that they and
    the HiGHS workers do not weigh on the earlier rows); kernel and plain
-   times;
+   times.  The simplex and PDHG kernels have two variants each
+   (``kernels/cluster.py``): every case names the one it took and checks
+   it.  The cluster variant carries the main paths' shapes (k = 1 for
+   type 1 and the list buckets, 2 for type 2 and a resumed chain, 10 for
+   the crossover tile; 5 for the 500x500 PDHG batch, 2 at 200x200 in
+   float64); type 1, type 2 and the crossover tile also run the global
+   variant on the same LPs (the same bits, timed beside), the PDHG batch
+   at cap 400 also runs the streaming variant and clusters of 8 and 16
+   (a sweep), and at the auto cap the streaming variant (timed beside,
+   statuses held to the cluster variant's), and the batch's slowest LP
+   runs alone on both variants (its time a step).  One small case per second variant lies past the
+   largest cluster: 4 LPs of 700x700 simplex at cap 300, 4 of 1000x1000
+   PDHG at cap 50;
 4. the main paths, each read with the launch counts set to 0 just before
    it.  Slice 1, the dense and box path at the paper's sizes through
    ``repro_torch.solve``: type 1 (100x100, 50,000 LPs), type 2 (200x100
@@ -38,7 +52,11 @@ line is printed:
    After its counts are read, the same batch on the simplex kernel
    (``backend="cuda"``), for the routing frontier.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+The launch counts of each path are also read per variant: every simplex
+and PDHG launch of the main paths must take the cluster variant.
+
+Then a ``{"kernels": [...]}`` line (the simplex and PDHG entries list
+their variants with their case names), the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  The
 script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -132,6 +150,25 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({4: torch.int32, 8: torch.int64}[t.element_size()]) if t.is_floating_point() else t
 
 
+def launch_counts(counters) -> dict:
+    """Each wrapper's launch count, and per variant where it has two
+    (``"simplex.cluster"``, ``"simplex.global"``, ...)."""
+    out = {}
+    for name, mod in counters.items():
+        out[name] = mod.launches
+        for variant, n in getattr(mod, "variant_launches", {}).items():
+            out[f"{name}.{variant}"] = n
+    return out
+
+
+def count_delta(counters, before) -> dict:
+    return {k: v - before[k] for k, v in launch_counts(counters).items()}
+
+
+#: Case names by kernel variant, for the ``{"kernels": [...]}`` line.
+CASES: dict = {}
+
+
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     if not a.is_floating_point() or a.numel() == 0:
         return 0.0
@@ -140,18 +177,52 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max())
 
 
+def cluster_occupancy(dev) -> dict:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster variants at each
+    cluster size the main paths use (and the PDHG sweep's 8 and 16), with
+    the kernels' own shared-memory arithmetic held against the planner's."""
+    import ctypes
+
+    from repro_torch.core.tableau import TableauSpec
+    from repro_torch.kernels import build, cluster, pdhg_cuda, simplex_cuda
+
+    f32 = torch.float32
+    out = dict(simplex_device_max_k=simplex_cuda.device_max_k(f32, dev),
+               pdhg_device_max_k=pdhg_cuda.device_max_k(f32, dev), shapes=[])
+    plans = [("simplex", row, m, TableauSpec(m, n).q, simplex_cuda.plan(TableauSpec(m, n), f32, dev))
+             for row, m, n in [("type1", 100, 100), ("type2", 200, 100),
+                               ("crossover_tile", PDHG_DIM, PDHG_DIM)]]
+    plans += [("pdhg", f"slice3_k{k or 'least'}", PDHG_DIM, PDHG_DIM,
+               pdhg_cuda.plan(PDHG_DIM, PDHG_DIM, f32, dev, k)) for k in (None, 8, 16)]
+    for kernel, row, m, w, how in plans:
+        lib = build.load(kernel)
+        smem_fn = getattr(lib, f"{kernel}_cluster_smem")
+        smem_fn.restype = ctypes.c_longlong
+        smem_fn.argtypes = [ctypes.c_int] * 4
+        check(how.variant == "cluster" and smem_fn(m, w, how.k, 4) == how.smem,
+              f"{kernel} {row}: plan {how} against the kernel's {smem_fn(m, w, how.k, 4)} bytes")
+        out["shapes"].append(dict(
+            kernel=kernel, row=row, m=m, width=w, k=how.k, smem_bytes=how.smem,
+            max_active_clusters=cluster.active_clusters(lib, f"{kernel}_cluster_occupancy", 4,
+                                                        how.k, how.smem)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
 def simplex_case(timer, *, name, batch, rule="lpc", seed=0, layout="compact", chain=None,
-                 basis0=None, reps=3):
+                 basis0=None, reps=3, cap=None, k=None, want=None, beside_global=False):
     """One simplex case: the kernel against its plain version, then timed.
 
     ``batch`` is a canonical ``LPBatch`` on the card: the main path's own
     LPs where the case stands for a main-path launch.  ``basis0`` warm
-    starts the tableau, as crossover does.
+    starts the tableau, as crossover does.  ``k`` forces the variant (as
+    the wrapper's ``_k``), ``want`` is the variant the case must take, and
+    ``beside_global`` also runs the global variant on the same inputs,
+    held to the same bits and timed in the same call (``global_ms``).
     """
     from repro_torch.core import engine
     from repro_torch.core.simplex import phase2_costs, resolve_cap
@@ -165,15 +236,22 @@ def simplex_case(timer, *, name, batch, rule="lpc", seed=0, layout="compact", ch
     c_ext = phase2_costs(batch.c, spec)
     feas = engine.phase1_feasibility_tol(batch.b).contiguous()
     tol = engine.default_tolerance(tab.dtype)
-    cap = resolve_cap(0, m, n) if chain is None else sum(chain)
+    if cap is None:
+        cap = resolve_cap(0, m, n) if chain is None else sum(chain)
 
     def fresh():
         return tab.clone(), basis.clone(), phase.clone()
 
     kw = dict(spec=spec, rule=rule, seed=seed, tol=tol)
+    how = simplex_cuda.plan(spec, tab.dtype, tab.device, k)
     k_state = fresh()
-    k_out = simplex_cuda.simplex(*k_state, c_ext, feas, cap, **kw)
+    before = dict(simplex_cuda.variant_launches)
+    k_out = simplex_cuda.simplex(*k_state, c_ext, feas, cap, _k=k, **kw)
     timer.sync()
+    check(simplex_cuda.variant_launches[how.variant] == before[how.variant] + 1,
+          f"simplex case {name} did not launch the {how.variant} variant")
+    check(want is None or how.variant == want,
+          f"simplex case {name} took the {how.variant} variant, not {want}")
     p_state = fresh()
     t0 = time.perf_counter()
     p_out = simplex_cuda.simplex_plain(*p_state, c_ext, feas, cap, **kw)
@@ -189,10 +267,22 @@ def simplex_case(timer, *, name, batch, rule="lpc", seed=0, layout="compact", ch
         pairs += [(rest.objective, k_out[0]), (rest.x, k_out[1]), (rest.status, k_out[2]),
                   (part.iterations + rest.iterations, k_out[3]), (state.tab, k_state[0]),
                   (state.basis, k_state[1]), (state.phase, k_state[2])]
+    beside = {}
+    if beside_global:
+        g_state = fresh()
+        g_out = simplex_cuda.simplex(*g_state, c_ext, feas, cap, _k=0, **kw)
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(g_out + g_state, k_out + k_state))
+        check(same, f"simplex case {name}: the global variant differs from the cluster variant")
+        del g_state, g_out
+        beside = dict(global_bit_identical=same, global_ms=timer(
+            lambda t, b_, p: simplex_cuda.simplex(t, b_, p, c_ext, feas, cap, _k=0, **kw),
+            setup=fresh))
+        CASES.setdefault("simplex.global", []).append(name)
     identical = all(torch.equal(bits(a), bits(b)) for a, b in pairs)
     err = max(max_abs_diff(a, b) for a, b in pairs)
-    ms = timer(lambda t, b_, p: simplex_cuda.simplex(t, b_, p, c_ext, feas, cap, **kw),
+    ms = timer(lambda t, b_, p: simplex_cuda.simplex(t, b_, p, c_ext, feas, cap, _k=k, **kw),
                reps=reps, setup=fresh)
+    CASES.setdefault(f"simplex.{how.variant}", []).append(name)
     iters = k_out[3].to(torch.int64)
     status = k_out[2]
     q = spec.q
@@ -208,8 +298,9 @@ def simplex_case(timer, *, name, batch, rule="lpc", seed=0, layout="compact", ch
               + bsz * item + bsz * n * item + 2 * bsz * 4)
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tab.dtype]
     row = dict(case=name, batch=bsz, m=m, n=n, dtype=str(tab.dtype), rule=rule, layout=layout,
-               chain=chain, warm=basis0 is not None, bit_identical=identical, max_abs_err=err, kernel_ms=ms,
-               plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+               variant=how.variant, k=how.k, smem_bytes=how.smem, cap=cap,
+               chain=chain, warm=basis0 is not None, bit_identical=identical, max_abs_err=err,
+               kernel_ms=ms, **beside, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="operations" if ops_s > bytes_s else "bytes",
                pivots=pivots, max_pivots=int(iters.max()),
                status_counts=np.bincount(status.cpu().numpy(), minlength=6).tolist())
@@ -368,7 +459,7 @@ def pdhg_work(bsz, m, n, item, dtype, steps):
         compute_s, stream_s
 
 
-def pdhg_case(timer, *, name, batch, cap, full, reps=1, eager=False):
+def pdhg_case(timer, *, name, batch, cap, full, reps=1, eager=False, k=None, want=None):
     """The PDHG kernel against its plain version on the same LPs and step sizes.
 
     ``full=False`` (a short cap): statuses and steps equal per LP and the
@@ -378,8 +469,9 @@ def pdhg_case(timer, *, name, batch, cap, full, reps=1, eager=False):
     are OPTIMAL.  Kernel ms is the compared launch's (CUDA events; the
     library is loaded before), or the median of ``reps`` more launches.
     ``eager`` also runs the plain loop without its CUDA graph: the same
-    bits, and what the graph saves.  Returns ``(row, status, state)`` of
-    the kernel's launch.
+    bits, and what the graph saves.  ``k`` forces the variant (as the
+    wrapper's ``_k``); ``want`` is the variant the case must take.
+    Returns ``(row, status, state, steps)`` of the kernel's launch.
     """
     from repro_torch.core import pdhg
     from repro_torch.kernels import build, pdhg_cuda
@@ -393,13 +485,20 @@ def pdhg_case(timer, *, name, batch, cap, full, reps=1, eager=False):
         return (pdhg.init_state(bsz, m, n, a.dtype, a.device),)
 
     def launch(state):
-        return pdhg_cuda.pdhg(a, b, c, state, tau, sigma, scales, cap, **kw)
+        return pdhg_cuda.pdhg(a, b, c, state, tau, sigma, scales, cap, _k=k, **kw)
 
     if a.is_cuda:
         build.load("pdhg")
+    how = pdhg_cuda.plan(m, n, a.dtype, a.device, k)
+    check(want is None or how.variant == want,
+          f"pdhg case {name} took the {how.variant} variant, not {want}")
     k_state = fresh()[0]
     k_out = []
+    before = dict(pdhg_cuda.variant_launches)
     ms = timer(lambda: k_out.append(launch(k_state)))
+    check(pdhg_cuda.variant_launches[how.variant] == before[how.variant] + 1,
+          f"pdhg case {name} did not launch the {how.variant} variant")
+    CASES.setdefault(f"pdhg.{how.variant}", []).append(name)
     k_status, k_iters = k_out[0]
     p_state = fresh()[0]
     t0 = time.perf_counter()
@@ -423,7 +522,7 @@ def pdhg_case(timer, *, name, batch, cap, full, reps=1, eager=False):
     diffs = {f: max_abs_diff(getattr(k_state, f), getattr(p_state, f)) for f in PDHG_FIELDS
              if f != "inner"}
     row = dict(case=name, batch=bsz, m=m, n=n, dtype=str(a.dtype), cap=cap, full_cap=full,
-               kernel_ms=ms, plain_ms=plain_ms, **graph_check,
+               variant=how.variant, k=how.k, smem_bytes=how.smem, kernel_ms=ms, plain_ms=plain_ms, **graph_check,
                max_abs_err=max(diffs["x"], diffs["y"]),
                state_max_abs_diff=diffs,
                kernel_steps=int(k_iters.to(torch.int64).sum()),
@@ -447,7 +546,7 @@ def pdhg_case(timer, *, name, batch, cap, full, reps=1, eager=False):
         emit("kernel_vs_plain", kernel="pdhg", **row)
         check(same, f"pdhg kernel: statuses or steps differ from the plain version in {name}")
         check(close, f"pdhg kernel: state outside tolerance of the plain version in {name}")
-        return row, k_status, k_state
+        return row, k_status, k_state, k_iters
     limit = 4  # ITER_LIMIT
     k_dec, p_dec = k_status != limit, p_status != limit
     both = k_dec & p_dec
@@ -466,7 +565,62 @@ def pdhg_case(timer, *, name, batch, cap, full, reps=1, eager=False):
     check(one_side <= 0.01 * bsz, f"pdhg kernel: {one_side} LPs decided by one side in {name}")
     check(row["max_rel_obj_diff"] <= 1e-3, f"pdhg kernel: objectives off by "
           f"{row['max_rel_obj_diff']:.3g} in {name}")
-    return row, k_status, k_state
+    return row, k_status, k_state, k_iters
+
+
+def pdhg_slowest_lp(timer, *, batch, status, steps, streaming_cap):
+    """The per-step time of the batch's slowest LP, alone on the card: the
+    cluster variant at the auto cap (the LP's own steps) and the streaming
+    variant (forced) at ``streaming_cap`` steps, in the same call."""
+    from repro_torch.core import pdhg
+    from repro_torch.kernels import pdhg_cuda
+
+    row = int(torch.argmax(steps))
+    one = batch.take(slice(row, row + 1))
+    a, b, c = one.a, one.b, one.c
+    tau, sigma, scales = pdhg.step_sizes(a, b, c)
+    kw = dict(tol=pdhg.DEFAULT_PDHG_TOL, restart=pdhg.DEFAULT_RESTART)
+    out = {}
+    for variant, k, cap in [("cluster", None, pdhg.auto_cap_pdhg(one.m, one.n)),
+                            ("streaming", 0, streaming_cap)]:
+        state = pdhg.init_state(1, one.m, one.n, a.dtype, a.device)
+        got = []
+        ms = timer(lambda: got.append(pdhg_cuda.pdhg(a, b, c, state, tau, sigma, scales, cap,
+                                                     _k=k, **kw)))
+        n_steps = int(got[0][1][0])
+        out[variant] = dict(k=pdhg_cuda.plan(one.m, one.n, a.dtype, a.device, k).k, cap=cap,
+                            steps=n_steps, kernel_ms=ms, us_per_step=1e3 * ms / max(1, n_steps))
+    emit("pdhg_slowest_lp", row=row, batch_status=int(status[row]), batch_steps=int(steps[row]),
+         **out)
+    return out
+
+
+def pdhg_streaming_beside(timer, *, name, batch, cluster_status):
+    """The streaming variant (forced) on the batch at the auto cap, timed in
+    the same call as the cluster variant, its statuses held to the cluster
+    variant's as the auto-cap case holds the kernel to the plain version."""
+    from repro_torch.core import pdhg
+    from repro_torch.kernels import pdhg_cuda
+
+    a, b, c = batch.a, batch.b, batch.c
+    bsz, m, n = a.shape
+    tau, sigma, scales = pdhg.step_sizes(a, b, c)
+    state = pdhg.init_state(bsz, m, n, a.dtype, a.device)
+    out = []
+    ms = timer(lambda: out.append(pdhg_cuda.pdhg(
+        a, b, c, state, tau, sigma, scales, pdhg.auto_cap_pdhg(m, n), _k=0,
+        tol=pdhg.DEFAULT_PDHG_TOL, restart=pdhg.DEFAULT_RESTART)))
+    status, steps = out[0]
+    dec_s, dec_c = status != 4, cluster_status != 4
+    disagree = int((dec_s & dec_c & (status != cluster_status)).sum())
+    one_side = int((dec_s ^ dec_c).sum())
+    CASES.setdefault("pdhg.streaming", []).append(name)
+    emit("pdhg_streaming_beside", case=name, kernel_ms=ms,
+         kernel_steps=int(steps.to(torch.int64).sum()), max_steps=int(steps.max()),
+         decided_disagree=disagree, decided_by_one_side_only=one_side)
+    check(disagree == 0 and one_side <= 0.01 * bsz,
+          f"pdhg streaming variant: statuses off the cluster variant in {name}")
+    return ms
 
 
 def pdhg_chain_case(*, name, batch):
@@ -595,14 +749,14 @@ def hyperbox_row(rt, dev, *, name, bsz, n, seed, counters):
 
 
 def run_row(rt, dev, *, name, problem, counters, oracle_data, lps, extra):
-    before = {k: mod.launches for k, mod in counters.items()}
+    before = launch_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sol = rt.solve(problem)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    delta = count_delta(counters, before)
     status = sol.status.cpu().numpy()
     iters = sol.iterations.cpu().numpy()
     row = dict(row=name, lps=lps, **extra, dtype="float32", wall_s=wall, lps_per_s=lps / wall,
@@ -644,14 +798,14 @@ def shared_row(rt, dev, *, name, bsz, m, n, feasible, seed, counters, dense_row,
     from repro_torch.core.lp import random_shared_lp_batch
 
     sb = random_shared_lp_batch(np.random.default_rng(seed), bsz, m, n, feasible, device=dev)
-    before = {k: mod.launches for k, mod in counters.items()}
+    before = launch_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sol = rt.solve(sb)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    delta = count_delta(counters, before)
     status = sol.status.cpu().numpy()
     iters = sol.iterations.cpu().numpy()
     k = 256
@@ -694,13 +848,13 @@ def reach_row(rt, *, name, model, kind, steps, counters, plain_pivots, hyperbox_
 
     kw = reach_args(rt, model, kind)
     stats = rt.SolveStats()
-    before = {k: mod.launches for k, mod in counters.items()}
+    before = launch_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sup, _ = reach.reach_supports(model, 0.02, steps, stats=stats, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    delta = count_delta(counters, before)
     point = bool(np.array_equal(model.u.lo, model.u.hi))
     n_lps = reach.count_lps(steps, len(kw["directions"]), point)
     rel = float((np.abs(sup - hyperbox_ref) / np.maximum(1.0, np.abs(hyperbox_ref))).max())
@@ -753,13 +907,13 @@ def hetero_row(rt, *, seed, counters, per_class):
     from repro_torch.core import oracle
 
     problems, host = hetero_problems(rt, seed, per_class)
-    before = {k: mod.launches for k, mod in counters.items()}
+    before = launch_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sols = rt.solve(problems)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    delta = count_delta(counters, before)
     status = np.array([int(s.status[0]) for s in sols])
     obj = np.array([float(s.objective[0]) for s in sols])
     agree, errs = [], []
@@ -843,7 +997,7 @@ def pdhg_row(rt, *, name, batch, options, counters, highs, rtol, base_iters=None
     from repro_torch.core import pdhg
     from repro_torch.kernels import ops
 
-    before = {k: mod.launches for k, mod in counters.items()}
+    before = launch_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with Spans([(ops, "pdhg_solve"), (pdhg, "confirm_certificates"), (pdhg, "crossover")]) as sp:
@@ -851,7 +1005,7 @@ def pdhg_row(rt, *, name, batch, options, counters, highs, rtol, base_iters=None
         sol = rt.solve(batch, options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    delta = count_delta(counters, before)
     status = sol.status.cpu().numpy()
     iters = sol.iterations.cpu().numpy().astype(np.int64)
     bsz = batch.batch
@@ -891,13 +1045,13 @@ def auto_list_row(rt, dev, *, seed, counters, per_class):
             a, b, c = (t[i] for t in (part.a, part.b, part.c))
             host.append((a.numpy(), b.numpy(), c.numpy()))
             problems.append(rt.LPProblem.make(c, a, bu=b, device=dev))
-    before = {k: mod.launches for k, mod in counters.items()}
+    before = launch_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sols = rt.solve(problems, rt.SolveOptions(backend="auto"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    delta = {k: mod.launches - before[k] for k, mod in counters.items()}
+    delta = count_delta(counters, before)
     status = np.array([int(s.status[0]) for s in sols])
     obj = np.array([float(s.objective[0]) for s in sols])
     small = slice(0, per_class)
@@ -1020,20 +1174,22 @@ def run(args, pool) -> int:
     dev = torch.device("cuda")
     timer = Timer(dev)
 
-    # -- 1. environment
+    # -- 1. environment (after the build, which the cluster occupancy needs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
+    t0 = time.perf_counter()
+    builds = build.compile_all()
+    build_s = time.perf_counter() - t0
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         cluster_occupancy=cluster_occupancy(dev))
 
     # -- 2. build
-    t0 = time.perf_counter()
-    builds = build.compile_all()
-    emit("build", wall_s=time.perf_counter() - t0,
+    emit("build", wall_s=build_s,
          sources=[dict(source=b["name"], built=b["built"], nvcc_s=b["seconds"],
                        kernels=build.ptxas_report(b["log"])) for b in builds])
 
@@ -1046,15 +1202,24 @@ def run(args, pool) -> int:
                                       dtype, dev, chunk=5000)
         return LPBatch(a, b, c)
 
-    s_main = simplex_case(timer, name="type1_50000x100x100_f32_lpc",
-                          batch=paper_batch(50_000, 100, 100, True, args.seed))
-    simplex_case(timer, name="type2_10000x200x100_f32_lpc",
-                 batch=paper_batch(10_000, 200, 100, False, args.seed + 1))
+    # Type 1 and type 2 also run the global variant on the same LPs: the
+    # same bits, and its time in this call.
+    s_main = simplex_case(timer, name="type1_50000x100x100_f32_lpc", want="cluster",
+                          batch=paper_batch(50_000, 100, 100, True, args.seed),
+                          beside_global=True)
+    simplex_case(timer, name="type2_10000x200x100_f32_lpc", want="cluster",
+                 batch=paper_batch(10_000, 200, 100, False, args.seed + 1), beside_global=True)
     torch.cuda.empty_cache()
     for bucket in bucket_problems(hetero_problems(rt, args.seed + 4, HETERO_PER_CLASS)[0]):
         m, n = bucket.key[:2]
-        simplex_case(timer, name=f"list_bucket_{m}x{n}_f32_lpc",
+        simplex_case(timer, name=f"list_bucket_{m}x{n}_f32_lpc", want="cluster",
                      batch=canonicalize(bucket.problem).batch)
+    # A resumed chain under a cluster of 2 (type 2's shape), and the global
+    # variant past the largest cluster (a 701 x 1401 tableau), small and short.
+    simplex_case(timer, name="chain_1000x200x100_f32_lpc", chain=(60, 14_940), want="cluster",
+                 batch=paper_batch(1000, 200, 100, False, args.seed + 13))
+    s_global = simplex_case(timer, name="global_4x700x700_f32_lpc_cap300", cap=300,
+                            want="global", batch=paper_batch(4, 700, 700, True, args.seed + 14))
     simplex_case(timer, name="256x28x28_f64_bland", rule="bland",
                  batch=paper_batch(256, 28, 28, True, args.seed + 10, torch.float64))
     simplex_case(timer, name="256x28x28_f32_rpc_seed7", rule="rpc", seed=7,
@@ -1124,6 +1289,8 @@ def run(args, pool) -> int:
     def reset_counts():
         for mod in counters.values():
             mod.launches = 0
+            for variant in getattr(mod, "variant_launches", {}):
+                mod.variant_launches[variant] = 0
 
     reset_counts()
     rows = [
@@ -1137,9 +1304,11 @@ def run(args, pool) -> int:
                      seed=args.seed + 3, counters=counters),
         hetero_row(rt, seed=args.seed + 4, counters=counters, per_class=HETERO_PER_CLASS),
     ]
-    slice1 = {k: mod.launches for k, mod in counters.items()}
+    slice1 = launch_counts(counters)
     check(slice1["simplex"] > 0 and slice1["hyperbox"] > 0,
           f"a kernel of the slice-1 path was never launched: {slice1}")
+    check(slice1["simplex.cluster"] == slice1["simplex"],
+          f"a slice-1 simplex launch did not take the cluster variant: {slice1}")
     emit("main_path_summary", path="slice1_dense_and_box", launches=slice1, rows=len(rows))
     torch.cuda.empty_cache()
 
@@ -1161,8 +1330,8 @@ def run(args, pool) -> int:
                   plain_pivots=sweeps["helicopter"]["pivots"],
                   hyperbox_ref=hyperbox_refs["helicopter"], reruns=reruns),
     ]
-    slice2 = {k: mod.launches for k, mod in counters.items()}
-    check(slice2 == {k: sum(r["launches"][k] for r in rows2) for k in counters},
+    slice2 = launch_counts(counters)
+    check(slice2 == {k: sum(r["launches"][k] for r in rows2) for k in slice2},
           f"slice-2 launches {slice2} are not the sum of its rows'")
     check(slice2["revised"] > 0 and slice2["hyperbox"] > 0,
           f"a kernel of the slice-2 path was never launched: {slice2}")
@@ -1185,17 +1354,38 @@ def run(args, pool) -> int:
     pdhg_batch = LPBatch(a, b, c)
     del a, b, c
     highs_futures = [pool.submit(highs_solve, lp) for lp in zip(*highs_lps)]
-    pdhg_case(timer, name=f"{PDHG_LPS}x{PDHG_DIM}x{PDHG_DIM}_f32_cap400", batch=pdhg_batch,
-              cap=400, full=False, reps=3, eager=True)
-    pdhg_chain_case(name=f"{PDHG_LPS}x{PDHG_DIM}x{PDHG_DIM}_f32", batch=pdhg_batch)
-    p_main, p_main_status, _ = pdhg_case(
-        timer, name=f"{PDHG_LPS}x{PDHG_DIM}x{PDHG_DIM}_f32_auto_cap", batch=pdhg_batch,
-        cap=auto_cap_pdhg(PDHG_DIM, PDHG_DIM), full=True)
+    tag = f"{PDHG_LPS}x{PDHG_DIM}x{PDHG_DIM}_f32"
+    p400, *_ = pdhg_case(timer, name=f"{tag}_cap400", batch=pdhg_batch, cap=400, full=False,
+                           reps=3, eager=True, want="cluster")
+    # The same cap on the streaming variant (forced) and, as a finding, at
+    # clusters of 8 and 16 beside the least k.
+    p_stream, *_ = pdhg_case(timer, name=f"{tag}_cap400_streaming", batch=pdhg_batch, cap=400,
+                               full=False, reps=3, k=0, want="streaming")
+    k_sweep = {p400["k"]: p400["kernel_ms"]}
+    for k in (8, 16):
+        row, *_ = pdhg_case(timer, name=f"{tag}_cap400_k{k}", batch=pdhg_batch, cap=400,
+                              full=False, reps=3, k=k, want="cluster")
+        k_sweep[k] = row["kernel_ms"]
+    emit("pdhg_k_sweep", case=f"{tag}_cap400", kernel_ms_by_k=k_sweep,
+         streaming_ms=p_stream["kernel_ms"])
+    pdhg_chain_case(name=tag, batch=pdhg_batch)
+    p_main, p_main_status, _, p_main_iters = pdhg_case(
+        timer, name=f"{tag}_auto_cap", batch=pdhg_batch, cap=auto_cap_pdhg(PDHG_DIM, PDHG_DIM),
+        full=True, want="cluster")
+    stream_auto_ms = pdhg_streaming_beside(timer, name=f"{tag}_auto_cap_streaming",
+                                           batch=pdhg_batch, cluster_status=p_main_status)
+    pdhg_slowest_lp(timer, batch=pdhg_batch, status=p_main_status, steps=p_main_iters,
+                    streaming_cap=4000)
     pdhg_case(timer, name="64x200x200_f64_cap2000", cap=2000, full=False, reps=3,
-              batch=paper_batch(64, 200, 200, True, args.seed + 41, torch.float64))
+              want="cluster", batch=paper_batch(64, 200, 200, True, args.seed + 41, torch.float64))
     cert = certificate_batch(dev)
-    _, cert_status, _ = pdhg_case(timer, name="certificates_4x100x100_f32", batch=cert,
-                               cap=20_000, full=True)
+    _, cert_status, *_ = pdhg_case(timer, name="certificates_4x100x100_f32", batch=cert,
+                               cap=20_000, full=True, want="cluster")
+    # The streaming variant past the largest cluster (A 4 MB an LP), small
+    # and short.
+    p_big, *_ = pdhg_case(timer, name="streaming_4x1000x1000_f32_cap50", cap=50, full=False,
+                            want="streaming",
+                            batch=paper_batch(4, 1000, 1000, True, args.seed + 43))
     confirmed = rt.solve(cert, rt.SolveOptions(backend="pdhg", max_iters=20_000)).status
     emit("certificates", case="4x100x100_rows_0_1_unbounded",
          kernel_status=cert_status.tolist(), confirmed_status=confirmed.tolist())
@@ -1220,11 +1410,14 @@ def run(args, pool) -> int:
     torch.cuda.empty_cache()
     rows3 = [auto_row, cross_row, auto_list_row(rt, dev, seed=args.seed + 42, counters=counters,
                                                  per_class=HETERO_PER_CLASS)]
-    slice3 = {k: mod.launches for k, mod in counters.items()}
-    check(slice3 == {k: sum(r["launches"][k] for r in rows3) for k in counters},
+    slice3 = launch_counts(counters)
+    check(slice3 == {k: sum(r["launches"][k] for r in rows3) for k in slice3},
           f"slice-3 launches {slice3} are not the sum of its rows'")
     check(slice3["pdhg"] > 0 and slice3["simplex"] > 0,
           f"a kernel of the slice-3 path was never launched: {slice3}")
+    check(slice3["pdhg.cluster"] == slice3["pdhg"] and
+          slice3["simplex.cluster"] == slice3["simplex"],
+          f"a slice-3 launch did not take the cluster variant: {slice3}")
     emit("main_path_summary", path="slice3_first_order", launches=slice3, rows=len(rows3))
     # The routing frontier: the same batch on the simplex kernel, after the
     # counts were read.
@@ -1237,35 +1430,46 @@ def run(args, pool) -> int:
     opt = (auto_sol.status == 1).nonzero().flatten()[:pdhg.CROSSOVER_TILE]
     check(opt.numel() == pdhg.CROSSOVER_TILE, f"only {opt.numel()} OPTIMAL rows to polish")
     tile = pdhg_batch.take(opt)
-    simplex_case(timer, name=f"crossover_tile_{opt.numel()}x{PDHG_DIM}x{PDHG_DIM}_f32_warm",
-                 batch=tile, basis0=pdhg.crossover_basis(tile.a, tile.b, auto_sol.x[opt]),
-                 reps=1)
+    s_tile = simplex_case(
+        timer, name=f"crossover_tile_{opt.numel()}x{PDHG_DIM}x{PDHG_DIM}_f32_warm", batch=tile,
+        basis0=pdhg.crossover_basis(tile.a, tile.b, auto_sol.x[opt]), reps=1, want="cluster",
+        beside_global=True)
     del tile
     crossover_tiles(batch=pdhg_batch, sol=auto_sol, small=8)
     del auto_sol
-    launches = {k: slice1[k] + slice2[k] + slice3[k] for k in counters}
 
+    launches = {k: slice1[k] + slice2[k] + slice3[k] for k in slice1}
+
+    def entry(name, source, replaces, row, n, **extra):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=f"src/repro/kernels/{replaces}", launches=n,
+                    max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=None, **extra)
+
+    # The global variant's row: type 1's LPs, timed beside the cluster
+    # variant in the same case (the same bits, so the same error and bound).
+    s_glob = dict(s_main, kernel_ms=s_main["global_ms"])
+    simplex_variants = [
+        entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_main,
+              launches["simplex.cluster"], variant="cluster", cases=CASES["simplex.cluster"]),
+        entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_glob,
+              launches["simplex.global"], variant="global", cases=CASES["simplex.global"]),
+    ]
+    pdhg_variants = [
+        entry("pdhg", "pdhg.cu", "pdhg_pallas.py:62", p_main, launches["pdhg.cluster"],
+              variant="cluster", cases=CASES["pdhg.cluster"]),
+        entry("pdhg", "pdhg.cu", "pdhg_pallas.py:62", p_stream, launches["pdhg.streaming"],
+              variant="streaming", cases=CASES["pdhg.streaming"],
+              auto_cap_ms=stream_auto_ms),
+    ]
     print(json.dumps({"kernels": [
-        dict(name="simplex", route="cuda", source="src/repro_torch/kernels/csrc/simplex.cu",
-             replaces="src/repro/kernels/simplex_pallas.py:53", launches=launches["simplex"],
-             max_abs_err=s_main["max_abs_err"], ms=s_main["kernel_ms"],
-             plain_ms=s_main["plain_ms"], bound_ms=s_main["bound_ms"],
-             bound_by=s_main["bound_by"], library_ms=None),
-        dict(name="hyperbox", route="cuda", source="src/repro_torch/kernels/csrc/hyperbox.cu",
-             replaces="src/repro/kernels/hyperbox_pallas.py:20", launches=launches["hyperbox"],
-             max_abs_err=h_main["max_abs_err"], ms=h_main["kernel_ms"],
-             plain_ms=h_main["plain_ms"], bound_ms=h_main["bound_ms"],
-             bound_by=h_main["bound_by"], library_ms=None),
-        dict(name="revised", route="cuda", source="src/repro_torch/kernels/csrc/revised.cu",
-             replaces="src/repro/kernels/revised_pallas.py:56", launches=launches["revised"],
-             max_abs_err=r_main["max_abs_err"], ms=r_main["kernel_ms"],
-             plain_ms=r_main["plain_ms"], bound_ms=r_main["bound_ms"],
-             bound_by=r_main["bound_by"], library_ms=None),
-        dict(name="pdhg", route="cuda", source="src/repro_torch/kernels/csrc/pdhg.cu",
-             replaces="src/repro/kernels/pdhg_pallas.py:62", launches=launches["pdhg"],
-             max_abs_err=p_main["max_abs_err"], ms=p_main["kernel_ms"],
-             plain_ms=p_main["plain_ms"], bound_ms=p_main["bound_ms"],
-             bound_by=p_main["bound_by"], library_ms=None),
+        entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_main, launches["simplex"],
+              variants=simplex_variants),
+        entry("hyperbox", "hyperbox.cu", "hyperbox_pallas.py:20", h_main, launches["hyperbox"]),
+        entry("revised", "revised.cu", "revised_pallas.py:56", r_main, launches["revised"]),
+        entry("pdhg", "pdhg.cu", "pdhg_pallas.py:62", p_main, launches["pdhg"],
+              variants=pdhg_variants),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

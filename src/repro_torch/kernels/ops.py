@@ -5,8 +5,9 @@ hyperbox wrappers.  The tableau (``core/tableau.py:build_tableau``), the
 revised start state (``core/revised.py:init_traced``) and the PDHG step
 sizes (``core/pdhg.py:step_sizes``) are computed by the plain code and
 handed to the kernels unpadded: the TPU's 128-lane/8-sublane padding,
-VMEM budget and batch tiling do not carry over (one thread block per LP
-takes every shape).  On CPU tensors the
+VMEM budget and batch tiling do not carry over (one thread block, or one
+thread-block cluster chosen by ``kernels/cluster.py``, per LP takes every
+shape).  On CPU tensors the
 same calls run the kernels' plain versions, as the reference's wrappers
 run Pallas in interpret mode off the TPU.
 """

@@ -11,9 +11,14 @@ same way:
   call on the same buffers);
 * the return value is ``(objective, x, status, iterations)``.
 
-On the card the two are bit-identical (see ``core/engine.py`` for the
-rules that make them so).  There is no fallback: a CUDA tensor goes to
-the kernel, and a failed build or launch raises.
+The kernel has two variants (``csrc/simplex.cu``): the cluster variant,
+where a cluster of ``k`` CTAs holds the LP's tableau in shared memory,
+and the global variant for tableaus past the largest cluster.
+:func:`plan` picks one from the shape before the launch
+(``kernels/cluster.py:plan_simplex``).  On the card both are
+bit-identical to the plain version (see ``core/engine.py`` for the rules
+that make them so).  There is no fallback: a CUDA tensor goes to the
+kernel, and a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -25,12 +30,16 @@ import torch
 from ..core import simplex as _simplex
 from ..core.engine import BLAND, LPC, RPC
 from ..core.tableau import TableauSpec
+from . import cluster
 
 #: Kernel launches so far; raised by one per launch of the CUDA kernel only.
 launches = 0
+#: The same launches by variant.
+variant_launches = {"cluster": 0, "global": 0}
 
 _RULE_CODES = {LPC: 0, RPC: 1, BLAND: 2}
 _SYMBOLS = {torch.float32: "simplex_f32", torch.float64: "simplex_f64"}
+_CLUSTER_SYMBOLS = {torch.float32: "simplex_cluster_f32", torch.float64: "simplex_cluster_f64"}
 
 
 def _outputs(tab: torch.Tensor, n: int):
@@ -79,14 +88,35 @@ def simplex_plain(tab, basis, phase, c_ext, feas, cap: int, *, spec: TableauSpec
     return sol.objective, sol.x, sol.status, sol.iterations
 
 
+def device_max_k(dtype: torch.dtype, device: torch.device) -> int:
+    """The largest cluster of the simplex kernel the device schedules (the
+    hardware's :data:`~repro_torch.kernels.cluster.MAX_CLUSTER` off the card)."""
+    if device.type != "cuda":
+        return cluster.MAX_CLUSTER
+    from . import build  # the library is built at first use, never at import
+
+    return cluster.device_max_cluster(build.load("simplex"), "simplex_cluster_occupancy",
+                                      torch.empty((), dtype=dtype).element_size(), device)
+
+
+def plan(spec: TableauSpec, dtype: torch.dtype, device: torch.device,
+         k=None) -> cluster.Plan:
+    """The variant and cluster size of a launch on this shape and device."""
+    return cluster.plan_simplex(spec.m, spec.q, dtype, device_max_k(dtype, device), k)
+
+
 def simplex(tab, basis, phase, c_ext, feas, cap: int, *, spec: TableauSpec,
-            rule: str = LPC, seed: int = 0, tol: float = 1e-5):
+            rule: str = LPC, seed: int = 0, tol: float = 1e-5, _k=None):
     """Run the two-phase simplex on every LP of the batch, up to ``cap`` steps.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
-    :func:`simplex_plain`.
+    :func:`simplex_plain`.  ``_k`` forces the variant (private, for the
+    tests and ``chip_smoke.py``): a cluster of ``_k`` CTAs, or ``0`` for
+    the global variant; a cluster the device cannot schedule raises.
     """
     global launches
+    if _k is not None:
+        plan(spec, tab.dtype, tab.device, _k)
     if not tab.is_cuda:
         return simplex_plain(tab, basis, phase, c_ext, feas, cap, spec=spec,
                              rule=rule, seed=seed, tol=tol)
@@ -96,12 +126,16 @@ def simplex(tab, basis, phase, c_ext, feas, cap: int, *, spec: TableauSpec,
     from . import build  # the library is built at first launch, never at import
 
     lib = build.load("simplex")
-    fn = getattr(lib, _SYMBOLS[tab.dtype])
+    how = plan(spec, tab.dtype, tab.device, _k)
+    on_cluster = how.variant == cluster.CLUSTER
+    fn = getattr(lib, (_CLUSTER_SYMBOLS if on_cluster else _SYMBOLS)[tab.dtype])
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 7
-        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_double, ctypes.c_void_p]
+        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_double]
+        + [ctypes.c_int] * on_cluster
+        + [ctypes.c_void_p]
     )
     obj, x, status, iters = _outputs(tab, spec.n)
     if tab.shape[0] == 0:
@@ -112,12 +146,15 @@ def simplex(tab, basis, phase, c_ext, feas, cap: int, *, spec: TableauSpec,
             tab.data_ptr(), basis.data_ptr(), phase.data_ptr(), c_ext.data_ptr(),
             feas.data_ptr(), obj.data_ptr(), x.data_ptr(), status.data_ptr(),
             iters.data_ptr(), tab.shape[0], spec.m, spec.n, spec.q, spec.art_start,
-            int(cap), _RULE_CODES[rule], int(seed) & 0xFFFFFFFF, 0, float(tol), stream,
+            int(cap), _RULE_CODES[rule], int(seed) & 0xFFFFFFFF, 0, float(tol),
+            *([how.k] if on_cluster else []), stream,
         )
     if err != 0:
         lib.simplex_error_string.restype = ctypes.c_char_p
         lib.simplex_error_string.argtypes = [ctypes.c_int]
         msg = lib.simplex_error_string(err).decode()
-        raise RuntimeError(f"simplex kernel launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"simplex kernel ({how.variant}, k={how.k}) launch failed: "
+                           f"CUDA error {err} ({msg})")
     launches += 1
+    variant_launches[how.variant] += 1
     return obj, x, status, iters

@@ -12,7 +12,10 @@ agrees to rtol 1e-6 (float32) or 1e-12 (float64) relative to the sum of
 |terms|.  The PDHG kernel agrees with its plain version in status and
 step count per LP, and in the state within the tolerances of
 ``tests/test_torch_pdhg.py``; against itself (reruns, resume chains) it
-is bit-identical.
+is bit-identical.  The simplex and PDHG kernels are also run at a forced
+cluster size (``_k``: 0 for the second variant, else the CTAs of the
+cluster variant) and their shared-memory layouts held against
+``kernels/cluster.py``.
 """
 
 import numpy as np
@@ -340,3 +343,152 @@ def test_pdhg_plain_graph_replay_equals_the_eager_loop():
         eager = pdhg._eager_loop(step, start(), cap)
         for g, e in zip(graphed, eager):
             assert _same(g, e)
+
+
+# ---------------------------------------------------------------------------
+# the cluster variants at a forced cluster size, and the second variants
+# ---------------------------------------------------------------------------
+
+
+def _simplex_at_k(batch, spec, rule, cap, k):
+    """The kernel at a forced ``k`` (0: the global variant) and the plain version."""
+    tab, basis, phase = build_tableau(batch.a, batch.b, batch.c, spec=spec)
+    c_ext = phase2_costs(batch.c, spec)
+    feas = engine.phase1_feasibility_tol(batch.b).contiguous()
+    tol = engine.default_tolerance(tab.dtype)
+    kw = dict(spec=spec, rule=rule, seed=7, tol=tol)
+    ks = (tab.clone(), basis.clone(), phase.clone())
+    ps = (tab.clone(), basis.clone(), phase.clone())
+    kern = simplex_cuda.simplex(*ks, c_ext, feas, cap, _k=k, **kw)
+    plain = simplex_cuda.simplex_plain(*ps, c_ext, feas, cap, **kw)
+    torch.cuda.synchronize()
+    return list(kern) + list(ks), list(plain) + list(ps)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+@pytest.mark.parametrize("rule", ["lpc", "bland", "rpc"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,feasible,layout", [(60, 60, True, "compact"),
+                                                 (24, 12, False, "dense")])
+def test_simplex_variants_bit_identical_to_plain_at_forced_k(k, rule, dtype, m, n, feasible,
+                                                             layout):
+    _need_card()
+    batch = tlp.random_lp_batch(np.random.default_rng(m + k), 64, m, n, feasible, dtype=dtype)
+    spec = TableauSpec(m, n, layout)
+    variant = "cluster" if k else "global"
+    before = simplex_cuda.variant_launches[variant]
+    kern, plain = _simplex_at_k(batch, spec, rule, 50 * (m + n), k)
+    assert simplex_cuda.variant_launches[variant] == before + 1
+    for got, want in zip(kern, plain):
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_simplex_cluster_resume_chain_bit_identical(k):
+    _need_card()
+    batch = tlp.random_lp_batch(np.random.default_rng(11), 64, 40, 20, False)
+    spec = TableauSpec(40, 20, "dense")
+    tab, basis, phase = build_tableau(batch.a, batch.b, batch.c, spec=spec)
+    c_ext = phase2_costs(batch.c, spec)
+    feas = engine.phase1_feasibility_tol(batch.b).contiguous()
+    kw = dict(spec=spec, tol=engine.default_tolerance(tab.dtype), _k=k)
+    one = (tab.clone(), basis.clone(), phase.clone())
+    chain = (tab.clone(), basis.clone(), phase.clone())
+    full = simplex_cuda.simplex(*one, c_ext, feas, 200, **kw)
+    part = simplex_cuda.simplex(*chain, c_ext, feas, 25, **kw)
+    rest = simplex_cuda.simplex(*chain, c_ext, feas, 175, **kw)
+    torch.cuda.synchronize()
+    for got, want in zip(list(rest[:3]) + list(chain), list(full[:3]) + list(one)):
+        assert _same(got, want)
+    assert torch.equal(part[3] + rest[3], full[3])
+
+
+def _pdhg_at_k(batch, cap, k, state=None):
+    from repro_torch.core import pdhg
+
+    a, b, c = batch.a, batch.b, batch.c
+    bsz, m, n = a.shape
+    tau, sigma, scales = pdhg.step_sizes(a, b, c)
+    state = state or pdhg.init_state(bsz, m, n, a.dtype, a.device)
+    out = pdhg_cuda.pdhg(a, b, c, state, tau, sigma, scales, cap, tol=1e-4, restart=64, _k=k)
+    return out, state
+
+
+@pytest.mark.parametrize("k", [0, 2, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,feasible", [(60, 40, True), (40, 20, False)])
+def test_pdhg_variants_match_plain_at_cap_400_at_forced_k(k, dtype, m, n, feasible):
+    _need_card()
+    from repro_torch.core import pdhg
+
+    batch = tlp.random_lp_batch(np.random.default_rng(m + n), 64, m, n, feasible, dtype=dtype)
+    variant = "cluster" if k else "streaming"
+    before = pdhg_cuda.variant_launches[variant]
+    (ks, ki), kst = _pdhg_at_k(batch, 400, k)
+    assert pdhg_cuda.variant_launches[variant] == before + 1
+    a, b, c = batch.a, batch.b, batch.c
+    tau, sigma, scales = pdhg.step_sizes(a, b, c)
+    pst = pdhg.init_state(64, m, n, a.dtype, a.device)
+    ps, pi = pdhg_cuda.pdhg_plain(a, b, c, pst, tau, sigma, scales, 400, tol=1e-4, restart=64)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps) and torch.equal(ki, pi)
+    _pdhg_states_close(kst, pst, a.dtype)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_pdhg_cluster_resume_chain_and_rerun_bit_identical_at_forced_k(k):
+    _need_card()
+    batch = tlp.random_lp_batch(np.random.default_rng(9), 64, 60, 40, dtype=np.float32)
+    (fs, fi), full = _pdhg_at_k(batch, 400, k)
+    (gs, gi), again = _pdhg_at_k(batch, 400, k)
+    (_, pi), chain = _pdhg_at_k(batch, 150, k)
+    (rs, ri), chain = _pdhg_at_k(batch, 250, k, state=chain)
+    torch.cuda.synchronize()
+    assert torch.equal(gs, fs) and torch.equal(gi, fi)
+    assert torch.equal(rs, fs) and torch.equal(pi + ri, fi)
+    for f in PDHG_FIELDS:
+        assert _same(getattr(again, f), getattr(full, f))
+        assert _same(getattr(chain, f), getattr(full, f))
+
+
+def test_cluster_layouts_match_the_kernels():
+    _need_card()
+    import ctypes
+
+    from repro_torch.kernels import build, cluster
+
+    for lib_name, fn_name, py in [("simplex", "simplex_cluster_smem", cluster.simplex_smem),
+                                  ("pdhg", "pdhg_cluster_smem", cluster.pdhg_smem)]:
+        fn = getattr(build.load(lib_name), fn_name)
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 4
+        for m, w in [(100, 201), (200, 301), (500, 1001), (500, 500), (24, 49), (7, 3)]:
+            for item in (4, 8):
+                for k in (1, 2, 3, 5, 10, 16):
+                    assert fn(m, w, k, item) == py(m, w, item, k), (lib_name, m, w, item, k)
+
+
+def test_main_path_shapes_take_the_cluster_variant_on_the_card():
+    _need_card()
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    assert simplex_cuda.device_max_k(f32, dev) == 16
+    assert pdhg_cuda.device_max_k(f32, dev) == 16
+    assert simplex_cuda.plan(TableauSpec(100, 100), f32, dev).k == 1
+    assert simplex_cuda.plan(TableauSpec(200, 100), f32, dev).k == 2
+    assert simplex_cuda.plan(TableauSpec(500, 500), f32, dev).k == 10
+    assert simplex_cuda.plan(TableauSpec(700, 700), f32, dev).variant == "global"
+    assert pdhg_cuda.plan(500, 500, f32, dev).k == 5
+    assert pdhg_cuda.plan(1000, 1000, f32, dev).variant == "streaming"
+
+
+def test_wrappers_raise_on_a_cluster_the_card_cannot_take():
+    _need_card()
+    batch = tlp.random_lp_batch(np.random.default_rng(2), 4, 500, 500)
+    with pytest.raises(ValueError, match="shared memory"):
+        _pdhg_at_k(batch, 10, 1)
+    with pytest.raises(ValueError, match="outside"):
+        _pdhg_at_k(batch, 10, 17)
+    spec = TableauSpec(500, 500)
+    with pytest.raises(ValueError, match="shared memory"):
+        _simplex_at_k(batch, spec, "lpc", 10, 2)
