@@ -7,8 +7,9 @@ Phases, one JSON line each; any failure exits non-zero before the last
 line is printed:
 
 1. environment: torch and CUDA versions, the card, its power limit, TF32
-   off, and ``cudaOccupancyMaxActiveClusters`` of the simplex and PDHG
-   cluster variants at each cluster size the main paths use;
+   off, ``cudaOccupancyMaxActiveClusters`` of the simplex and PDHG
+   cluster variants at each cluster size the main paths use, and the
+   resident revised CTAs an SM at the slice-2 shapes;
 2. build: the four CUDA sources compiled from the checkout, one ``nvcc``
    each, started together, with each kernel's registers, shared memory,
    spills;
@@ -31,9 +32,14 @@ line is printed:
    at cap 400 also runs the streaming variant and clusters of 8 and 16
    (a sweep), and at the auto cap the streaming variant (timed beside,
    statuses held to the cluster variant's), and the batch's slowest LP
-   runs alone on both variants (its time a step).  One small case per second variant lies past the
-   largest cluster: 4 LPs of 700x700 simplex at cap 300, 4 of 1000x1000
-   PDHG at cap 50;
+   runs alone on both variants (its time a step).  One small case per
+   second variant lies past the largest cluster: 4 LPs of 700x700 simplex
+   at cap 300, 4 of 1000x1000 PDHG at cap 50.  The revised kernel's
+   resident variant carries the slice-2 shapes; shared types 1 and 2 also
+   run the global variant (the same bits, timed beside), 64 LPs of
+   300x100 lie past the resident budget and take the global variant, and
+   each reach sweep is one launch, timed alone.  The hyperbox cases give
+   their GB/s, the reach rows' on one box (row stride 0);
 4. the main paths, each read with the launch counts set to 0 just before
    it.  Slice 1, the dense and box path at the paper's sizes through
    ``repro_torch.solve``: type 1 (100x100, 50,000 LPs), type 2 (200x100
@@ -42,9 +48,10 @@ line is printed:
    path: the two paper classes as ``SharedLPBatch``es through
    ``repro_torch.solve``, and the paper's reachability runs (5-dim and
    helicopter, 200 steps) through ``reach_supports`` on the revised
-   kernel's warm sweep.  Launch counts, statuses, pivots, memory, and
-   samples held against the float64 oracle or the hyperbox path; then,
-   with the counts read, each slice-2 row's call timed five more times.
+   kernel's warm sweep (one launch a row).  Launch counts, statuses,
+   pivots, memory, and samples held against the float64 oracle or the
+   hyperbox path; then, with the counts read, each slice-2 row's call
+   timed five more times.
    Slice 3, the first-order path: 256 LPs of 500x500 through
    ``backend="auto"`` (one PDHG launch, no simplex launch), the same
    batch with ``crossover=True``, and a list of 100x100 and 500x500 LPs
@@ -53,11 +60,12 @@ line is printed:
    (``backend="cuda"``), for the routing frontier.
 
 The launch counts of each path are also read per variant: every simplex
-and PDHG launch of the main paths must take the cluster variant.
+and PDHG launch of the main paths must take the cluster variant, every
+revised launch the resident variant.
 
-Then a ``{"kernels": [...]}`` line (the simplex and PDHG entries list
-their variants with their case names), the ``nvidia-smi`` name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  The
+Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
+entries list their variants with their case names), the ``nvidia-smi``
+name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  The
 script imports nothing of JAX or of the JAX package ``repro``.
 """
 
@@ -179,12 +187,13 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def cluster_occupancy(dev) -> dict:
     """``cudaOccupancyMaxActiveClusters`` of the cluster variants at each
-    cluster size the main paths use (and the PDHG sweep's 8 and 16), with
-    the kernels' own shared-memory arithmetic held against the planner's."""
+    cluster size the main paths use (and the PDHG sweep's 8 and 16), and
+    the resident revised CTAs an SM at the slice-2 shapes, with the
+    kernels' own shared-memory arithmetic held against the planner's."""
     import ctypes
 
     from repro_torch.core.tableau import TableauSpec
-    from repro_torch.kernels import build, cluster, pdhg_cuda, simplex_cuda
+    from repro_torch.kernels import build, cluster, pdhg_cuda, revised_cuda, simplex_cuda
 
     f32 = torch.float32
     out = dict(simplex_device_max_k=simplex_cuda.device_max_k(f32, dev),
@@ -205,6 +214,21 @@ def cluster_occupancy(dev) -> dict:
             kernel=kernel, row=row, m=m, width=w, k=how.k, smem_bytes=how.smem,
             max_active_clusters=cluster.active_clusters(lib, f"{kernel}_cluster_occupancy", 4,
                                                         how.k, how.smem)))
+    # The revised kernel's resident variant at the slice-2 shapes: shared
+    # types 1 and 2, and the reach rows' canonical polytopes.
+    lib = build.load("revised")
+    smem_fn, occ_fn = lib.revised_resident_smem, lib.revised_resident_occupancy
+    smem_fn.restype, smem_fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    occ_fn.restype, occ_fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_longlong]
+    for row, m, n in [("shared_type1", 100, 100), ("shared_type2", 200, 100),
+                      ("reach_five_dim", 10, 10), ("reach_helicopter", 56, 56)]:
+        how = cluster.plan_revised(m, n, f32)
+        check(how.variant == "resident" and smem_fn(m, n, 4) == how.smem,
+              f"revised {row}: plan {how} against the kernel's {smem_fn(m, n, 4)} bytes")
+        blocks = occ_fn(4, how.smem)
+        check(blocks >= 1, f"revised {row}: occupancy query gave {blocks}")
+        out["shapes"].append(dict(kernel="revised", row=row, m=m, width=n, k=1,
+                                  smem_bytes=how.smem, ctas_per_sm=blocks))
     return out
 
 
@@ -309,10 +333,15 @@ def simplex_case(timer, *, name, batch, rule="lpc", seed=0, layout="compact", ch
     return row
 
 
-def hyperbox_case(dev, timer, *, name, bsz, n, dtype, data_seed, reps=20):
+def hyperbox_case(dev, timer, *, name, bsz, n, dtype, data_seed, reps=20, box=False):
+    """The hyperbox kernel against its plain version; ``box`` reads one box
+    (row 0 of the data) for every direction, with row stride 0, as the
+    reach rows do."""
     from repro_torch.kernels import hyperbox_cuda
 
     lo, hi, d = chunked_hyperbox(np.random.default_rng(data_seed), bsz, n, dtype, dev)
+    if box:
+        lo, hi = lo[0].contiguous(), hi[0].contiguous()
     k = hyperbox_cuda.hyperbox(lo, hi, d)
     p = hyperbox_cuda.hyperbox_plain(lo, hi, d)
     timer.sync()
@@ -323,13 +352,15 @@ def hyperbox_case(dev, timer, *, name, bsz, n, dtype, data_seed, reps=20):
     ms = timer(lambda: hyperbox_cuda.hyperbox(lo, hi, d), reps=reps)
     plain_ms = timer(lambda: hyperbox_cuda.hyperbox_plain(lo, hi, d), reps=max(1, reps // 4))
     item = d.element_size()
-    nbytes = (3 * bsz * n + bsz) * item
+    nbytes = (d.numel() + lo.numel() + hi.numel() + bsz) * item
     flops = 2 * bsz * n
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[d.dtype]
-    row = dict(case=name, batch=bsz, n=n, dtype=str(d.dtype), within_tolerance=ok, rtol=rtol,
-               max_abs_err=float(err.max()), max_rel_err_of_abs_sum=float((err / scale).max()),
+    row = dict(case=name, batch=bsz, n=n, dtype=str(d.dtype), box=box, within_tolerance=ok,
+               rtol=rtol, max_abs_err=float(err.max()),
+               max_rel_err_of_abs_sum=float((err / scale).max()),
                kernel_ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
-               bound_by="operations" if ops_s > bytes_s else "bytes")
+               bound_by="operations" if ops_s > bytes_s else "bytes",
+               gb_per_s=nbytes / (ms * 1e-3) / 1e9)
     emit("kernel_vs_plain", kernel="hyperbox", **row)
     check(ok, f"hyperbox kernel outside tolerance in case {name}")
     return row
@@ -342,15 +373,20 @@ def revised_work(m, n, pivots, pricing_steps):
     return pricing_steps * (2 * m * m + 2 * m * n + 2 * m) + pivots * (4 * m * m + 4 * m)
 
 
-def revised_case(timer, *, name, sb, rule="lpc", seed=0, chain=None, basis0=None, reps=3):
+def revised_case(timer, *, name, sb, rule="lpc", seed=0, chain=None, basis0=None, reps=3,
+                 variant=None, want=None, beside_global=False):
     """One revised case: the kernel against its plain version, then timed.
 
     ``sb`` is a ``SharedLPBatch`` on the card, the main path's own LPs
-    where the case stands for a main-path launch.
+    where the case stands for a main-path launch.  ``variant`` forces the
+    variant (as the wrapper's ``_variant``), ``want`` is the variant the
+    case must take, and ``beside_global`` also runs the global variant on
+    the same inputs, held to the same bits and timed in the same call
+    (``global_ms``).
     """
     from repro_torch.core import engine, revised
     from repro_torch.core.simplex import resolve_cap
-    from repro_torch.kernels import ops, revised_cuda
+    from repro_torch.kernels import cluster, ops, revised_cuda
 
     a, b, c = sb.a, sb.b, sb.c
     bsz, m, n = sb.batch, sb.m, sb.n
@@ -363,81 +399,110 @@ def revised_case(timer, *, name, sb, rule="lpc", seed=0, chain=None, basis0=None
         return [t.clone() for t in (state.binv, state.basis, state.xb, state.phase)]
 
     kw = dict(rule=rule, seed=seed, tol=tol)
+    how = cluster.plan_revised(m, n, a.dtype, variant)
     k_state = fresh()
-    k_out = list(revised_cuda.revised(a, b, c, *k_state, feas, cap, **kw))
+    before = dict(revised_cuda.variant_launches)
+    k_out = list(revised_cuda.revised(a, b, c, *k_state, feas, cap, _variant=variant, **kw))
     timer.sync()
+    check(revised_cuda.variant_launches[how.variant] == before[how.variant] + 1,
+          f"revised case {name} did not launch the {how.variant} variant")
+    check(want is None or how.variant == want,
+          f"revised case {name} took the {how.variant} variant, not {want}")
     p_state = fresh()
     t0 = time.perf_counter()
     p_out = list(revised_cuda.revised_plain(a, b, c, *p_state, feas, cap, **kw))
     timer.sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    k_obj = revised.objective(k_state[1], k_state[2], c, k_out[1])
-    p_obj = revised.objective(p_state[1], p_state[2], c, p_out[1])
-    pairs = list(zip([k_obj] + k_out + k_state, [p_obj] + p_out + p_state))
+    pairs = list(zip(k_out + k_state, p_out + p_state))
     if chain is not None:
         # The same LPs as a resumed chain of kernel launches, caps K1 + K2.
         part, st = ops.revised_solve(a, b, c, rule=rule, seed=seed, max_iters=chain[0],
                                      want_state=True)
         rest, st = ops.revised_resume(a, b, c, st, rule=rule, seed=seed, max_iters=chain[1])
-        pairs += [(rest.objective, k_obj), (rest.x, k_out[0]), (rest.status, k_out[1]),
-                  (part.iterations + rest.iterations, k_out[2]), (st.binv, k_state[0]),
+        pairs += [(rest.objective, k_out[0]), (rest.x, k_out[1]), (rest.status, k_out[2]),
+                  (part.iterations + rest.iterations, k_out[3]), (st.binv, k_state[0]),
                   (st.basis, k_state[1]), (st.xb, k_state[2]), (st.phase, k_state[3])]
+    del p_state, p_out
+    beside = {}
+    if beside_global:
+        g_state = fresh()
+        g_out = list(revised_cuda.revised(a, b, c, *g_state, feas, cap, _variant="global", **kw))
+        same = all(torch.equal(bits(x), bits(y)) for x, y in zip(g_out + g_state, k_out + k_state))
+        check(same, f"revised case {name}: the global variant differs from the resident variant")
+        del g_state, g_out
+        beside = dict(global_bit_identical=same, global_ms=timer(
+            lambda *st: revised_cuda.revised(a, b, c, *st, feas, cap, _variant="global", **kw),
+            setup=fresh))
+        CASES.setdefault("revised.global", []).append(name)
     identical = all(torch.equal(bits(x), bits(y)) for x, y in pairs)
     err = max(max_abs_diff(x, y) for x, y in pairs)
-    del p_state, p_out
-    ms = timer(lambda *st: revised_cuda.revised(a, b, c, *st, feas, cap, **kw), reps=reps,
-               setup=fresh)
-    iters = k_out[2].to(torch.int64)
+    ms = timer(lambda *st: revised_cuda.revised(a, b, c, *st, feas, cap, _variant=variant, **kw),
+               reps=reps, setup=fresh)
+    CASES.setdefault(f"revised.{how.variant}", []).append(name)
+    iters = k_out[3].to(torch.int64)
     pivots = int(iters.sum())
     # Each LP prices once more than it pivots, and once more again when it
     # enters phase II.
     flops = revised_work(m, n, pivots, pivots + bsz + int((state.phase == 1).sum()))
     item = a.element_size()
-    nbytes = ((m * n + bsz * (m + n + 2 * m * m + 2 * m + 1 + n)) * item
+    nbytes = ((m * n + bsz * (m + n + 2 * m * m + 2 * m + 1 + n + 1)) * item
               + bsz * (2 * m + 2 + 2) * 4)
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[a.dtype]
     row = dict(case=name, batch=bsz, m=m, n=n, dtype=str(a.dtype), rule=rule, chain=chain,
-               warm=basis0 is not None, bit_identical=identical, max_abs_err=err,
-               kernel_ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+               warm=basis0 is not None, variant=how.variant, smem_bytes=how.smem,
+               bit_identical=identical, max_abs_err=err, kernel_ms=ms, **beside,
+               plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="operations" if ops_s > bytes_s else "bytes", pivots=pivots,
                max_pivots=int(iters.max()),
-               status_counts=np.bincount(k_out[1].cpu().numpy(), minlength=6).tolist())
+               status_counts=np.bincount(k_out[2].cpu().numpy(), minlength=6).tolist())
     emit("kernel_vs_plain", kernel="revised", **row)
     check(identical, f"revised kernel differs from its plain version in case {name}")
     return row
 
 
 def sweep_case(timer, dev, *, name, model, kind, steps, reps=3):
-    """The reach row's warm sweep: ``revised_sweep`` (one kernel launch per
-    step) against the plain ``sweep_batched``, on the same inputs."""
-    from repro_torch.core import reach, revised, support
-    from repro_torch.kernels import ops
+    """The reach row's warm sweep: ``ops.revised_sweep`` (one kernel launch
+    for the whole sweep) against the plain ``sweep_batched``, on the same
+    inputs; timed as the kernel's launch alone (CUDA events)."""
+    from repro_torch.core import engine, reach, revised, support
+    from repro_torch.kernels import cluster, ops, revised_cuda
 
     dirs = support.template_directions(model.dim, kind)
     stack = reach.direction_stack(model, 0.02, steps, dirs).astype(np.float32)
     sb, c_stack = support.box_to_polytope(model.x0).shared_sweep_inputs(stack, device=dev)
+    how = cluster.plan_revised(sb.m, sb.n, sb.a.dtype)
+    before = dict(revised_cuda.variant_launches)
     k_out = ops.revised_sweep(sb.a, sb.b, c_stack)
     timer.sync()
+    launched = {v: revised_cuda.variant_launches[v] - before[v] for v in before}
+    check(sum(launched.values()) == 1 and launched["resident"] == 1,
+          f"revised sweep {name} launched {launched}, not one resident launch")
     t0 = time.perf_counter()
     p_out = revised.sweep_batched(sb.a, sb.b, c_stack)
     timer.sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     identical = all(torch.equal(bits(x), bits(y)) for x, y in zip(k_out, p_out))
     err = max(max_abs_diff(x, y) for x, y in zip(k_out, p_out))
-    ms = timer(lambda: ops.revised_sweep(sb.a, sb.b, c_stack), reps=reps)
+    cap, tol = revised.resolve_cap_tol(sb.a, 0, 0.0)
+    feas = engine.phase1_feasibility_tol(sb.b).contiguous()
+    ms = timer(lambda: revised_cuda.revised_sweep(sb.a, sb.b, c_stack, feas, cap, tol=tol),
+               reps=reps)
+    CASES.setdefault("revised.resident", []).append(name)
     m, n, bsz = sb.m, sb.n, sb.batch
     pivots = int(k_out[3].to(torch.int64).sum())
     flops = revised_work(m, n, pivots, pivots + steps * bsz)
     item = sb.a.element_size()
-    nbytes = (m * n + bsz * m + c_stack.numel() + steps * bsz * (1 + n)) * item \
+    nbytes = (m * n + bsz * m + c_stack.numel() + bsz + steps * bsz * (1 + n)) * item \
         + steps * bsz * 2 * 4
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[sb.a.dtype]
     row = dict(case=name, steps=steps, batch=bsz, m=m, n=n, dtype=str(sb.a.dtype),
-               launches_per_run=steps, bit_identical=identical, max_abs_err=err, kernel_ms=ms,
-               plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+               variant=how.variant, smem_bytes=how.smem, launches_per_run=sum(launched.values()),
+               bit_identical=identical, max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
+               bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="operations" if ops_s > bytes_s else "bytes", pivots=pivots,
                status_counts=np.bincount(k_out[2].flatten().cpu().numpy(), minlength=6).tolist())
     emit("kernel_vs_plain", kernel="revised_sweep", **row)
+    check(row["launches_per_run"] == 1, f"revised sweep {name} took more than one launch")
     check(identical, f"revised sweep differs from its plain version in case {name}")
     return row
 
@@ -865,8 +930,9 @@ def reach_row(rt, *, name, model, kind, steps, counters, plain_pivots, hyperbox_
                max_rel_diff_from_hyperbox=rel, finite=bool(np.isfinite(sup).all()))
     emit("main_path", **row)
     reruns.append((name, n_lps, lambda: reach.reach_supports(model, 0.02, steps, **kw)))
-    check(delta["revised"] > 0 and delta["hyperbox"] > 0,
-          f"row {name} did not launch both the revised and the hyperbox kernel: {delta}")
+    check(delta["revised"] == 1 and delta["hyperbox"] > 0,
+          f"row {name} did not launch the revised kernel once (the sweep) and the hyperbox "
+          f"kernel: {delta}")
     check(stats.simplex_iterations == plain_pivots,
           f"row {name}: {stats.simplex_iterations} pivots, the plain sweep {plain_pivots}")
     check(row["finite"] and rel <= 1e-5, f"row {name}: supports off the hyperbox path by {rel:.3g}")
@@ -1240,17 +1306,26 @@ def run(args, pool) -> int:
         return random_shared_lp_batch(np.random.default_rng(seed), bsz, m, n, feasible,
                                       dtype=dtype, device=dev)
 
-    r_main = revised_case(timer, name="shared_type1_50000x100x100_f32_lpc",
-                          sb=shared_batch(50_000, 100, 100, True, args.seed + 30))
+    # Shared types 1 and 2 also run the global variant on the same LPs: the
+    # same bits, and its time in this call.
+    r_main = revised_case(timer, name="shared_type1_50000x100x100_f32_lpc", want="resident",
+                          sb=shared_batch(50_000, 100, 100, True, args.seed + 30),
+                          beside_global=True)
     torch.cuda.empty_cache()
-    revised_case(timer, name="shared_type2_10000x200x100_f32_lpc",
-                 sb=shared_batch(10_000, 200, 100, False, args.seed + 31))
+    revised_case(timer, name="shared_type2_10000x200x100_f32_lpc", want="resident",
+                 sb=shared_batch(10_000, 200, 100, False, args.seed + 31), beside_global=True)
     torch.cuda.empty_cache()
+    # The global variant past the resident budget (binv 360 KB an LP).
+    r_global = revised_case(timer, name="shared_global_64x300x100_f32_lpc", want="global",
+                            sb=shared_batch(64, 300, 100, True, args.seed + 38))
     revised_case(timer, name="shared_256x28x28_f64_bland", rule="bland",
                  sb=shared_batch(256, 28, 28, True, args.seed + 32, np.float64))
     revised_case(timer, name="shared_256x28x28_f32_rpc_seed7", rule="rpc", seed=7,
                  sb=shared_batch(256, 28, 28, True, args.seed + 33))
     revised_case(timer, name="shared_chain_256x40x20_f32_lpc", chain=(25, 175),
+                 sb=shared_batch(256, 40, 20, False, args.seed + 34))
+    revised_case(timer, name="shared_chain_256x40x20_f32_lpc_global", chain=(25, 175),
+                 variant="global", want="global",
                  sb=shared_batch(256, 40, 20, False, args.seed + 34))
     warm = shared_batch(256, 30, 30, True, args.seed + 35)
     basis0 = ops.revised_solve(warm.a, warm.b, warm.c).basis.clone()
@@ -1259,11 +1334,11 @@ def run(args, pool) -> int:
                  basis0=basis0)
     reach_steps = 200
     # The reach rows' input-set supports: 200 steps x 50 (5-dim, oct) and
-    # x 56 (helicopter, box) directions.
-    hyperbox_case(dev, timer, name="reach_10000x5_f32", bsz=10_000, n=5, dtype=torch.float32,
-                  data_seed=args.seed + 36)
-    hyperbox_case(dev, timer, name="reach_11200x28_f32", bsz=11_200, n=28,
-                  dtype=torch.float32, data_seed=args.seed + 37)
+    # x 56 (helicopter, box) directions against one box (row stride 0).
+    hyperbox_case(dev, timer, name="reach_10000x5_f32_box", bsz=10_000, n=5,
+                  dtype=torch.float32, data_seed=args.seed + 36, box=True)
+    hyperbox_case(dev, timer, name="reach_11200x28_f32_box", bsz=11_200, n=28,
+                  dtype=torch.float32, data_seed=args.seed + 37, box=True)
     sweeps = {
         "five_dim": sweep_case(timer, dev, name="reach_sweep_five_dim_oct", kind="oct",
                                model=five_dim_model(), steps=reach_steps),
@@ -1335,6 +1410,8 @@ def run(args, pool) -> int:
           f"slice-2 launches {slice2} are not the sum of its rows'")
     check(slice2["revised"] > 0 and slice2["hyperbox"] > 0,
           f"a kernel of the slice-2 path was never launched: {slice2}")
+    check(slice2["revised.resident"] == slice2["revised"],
+          f"a slice-2 revised launch did not take the resident variant: {slice2}")
     emit("main_path_summary", path="slice2_shared_and_reach", launches=slice2, rows=len(rows2))
     # Wall times of the slice-2 rows beyond the counted run (one reading
     # of a sub-second row is not a rate), after the counts were read.
@@ -1450,6 +1527,14 @@ def run(args, pool) -> int:
     # The global variant's row: type 1's LPs, timed beside the cluster
     # variant in the same case (the same bits, so the same error and bound).
     s_glob = dict(s_main, kernel_ms=s_main["global_ms"])
+    r_glob = dict(r_main, kernel_ms=r_main["global_ms"])
+    revised_variants = [
+        entry("revised", "revised.cu", "revised_pallas.py:56", r_main,
+              launches["revised.resident"], variant="resident", cases=CASES["revised.resident"]),
+        entry("revised", "revised.cu", "revised_pallas.py:56", r_glob,
+              launches["revised.global"], variant="global", cases=CASES["revised.global"],
+              past_the_resident_budget_ms=r_global["kernel_ms"]),
+    ]
     simplex_variants = [
         entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_main,
               launches["simplex.cluster"], variant="cluster", cases=CASES["simplex.cluster"]),
@@ -1466,8 +1551,10 @@ def run(args, pool) -> int:
     print(json.dumps({"kernels": [
         entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_main, launches["simplex"],
               variants=simplex_variants),
-        entry("hyperbox", "hyperbox.cu", "hyperbox_pallas.py:20", h_main, launches["hyperbox"]),
-        entry("revised", "revised.cu", "revised_pallas.py:56", r_main, launches["revised"]),
+        entry("hyperbox", "hyperbox.cu", "hyperbox_pallas.py:20", h_main, launches["hyperbox"],
+              gb_per_s=h_main["gb_per_s"]),
+        entry("revised", "revised.cu", "revised_pallas.py:56", r_main, launches["revised"],
+              variants=revised_variants),
         entry("pdhg", "pdhg.cu", "pdhg_pallas.py:62", p_main, launches["pdhg"],
               variants=pdhg_variants),
     ]}), flush=True)

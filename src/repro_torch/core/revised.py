@@ -41,7 +41,8 @@ fixtures).
 The reference's while-loop becomes a Python loop with one host check per
 step, and its ``lax.scan`` sweep a Python loop over steps.  A finished LP
 is frozen by masking, so the kernel, which runs each LP in its own thread
-block until it stops, gives the same result.  Resumed rounds whose caps
+block until it stops (and a whole sweep's steps in one launch), gives the
+same result.  Resumed rounds whose caps
 sum to K end bit-identical to one solve at cap K.
 """
 
@@ -300,8 +301,8 @@ def iteration_step(a, b, c, sgn, feas_tol, elig, s: _RState, *, rule: str, tol: 
 def objective(basis, xb, c, status, fill: float = -float("inf")) -> torch.Tensor:
     """(B,) phase-II objective ``c_B . x_B`` at the terminal basis, ``fill`` where not OPTIMAL.
 
-    Summed in ascending row order (:func:`_contract`); the kernel's
-    wrapper calls this same function on the kernel's terminal state.
+    Summed in ascending row order (:func:`_contract`); the kernel sums
+    the same terms in the same order on its terminal state.
     """
     bsz, m = basis.shape
     n = c.shape[-1]

@@ -1,18 +1,22 @@
-"""Which variant of the simplex and PDHG kernels a launch takes, and at what cluster size.
+"""Which variant of the simplex, PDHG and revised kernels a launch takes.
 
-Each of the two kernels has a cluster variant, where one LP is one
-thread-block cluster of ``k`` CTAs that hold the LP's data in their
+The simplex and PDHG kernels each have a cluster variant, where one LP is
+one thread-block cluster of ``k`` CTAs that hold the LP's data in their
 shared memory for the whole solve (``csrc/cluster.cuh``), and a second
 variant for shapes past it: the simplex kernel's global-memory tableau,
-the PDHG kernel's streaming of ``A`` from device memory.
+the PDHG kernel's streaming of ``A`` from device memory.  The revised
+kernel has a resident variant, one CTA an LP holding ``binv`` and the
+per-step vectors in shared memory, and the global variant past it.
 
-:func:`plan_simplex` and :func:`plan_pdhg` are pure functions of the
-shape, the element type and the device's largest schedulable ``k``.  The
-wrappers call them before every launch; nothing tries a launch and falls
-back.  The byte counts mirror the kernels' layouts
-(``simplex.cu:cluster_smem``, ``pdhg.cu:cluster_elems``); the kernels
-export the same arithmetic (``*_cluster_smem``), and the tests on the
-card hold the two against each other.
+:func:`plan_simplex`, :func:`plan_pdhg` and :func:`plan_revised` are pure
+functions of the shape, the element type and (for the clusters) the
+device's largest schedulable ``k``.  The wrappers call them before every
+launch; nothing tries a launch and falls back.  The byte counts mirror
+the kernels' layouts (``simplex.cu:cluster_smem``,
+``pdhg.cu:cluster_elems``, ``revised.cu:resident_smem``); the kernels
+export the same arithmetic (``*_cluster_smem``,
+``revised_resident_smem``), and the tests on the card hold the two
+against each other.
 """
 
 from __future__ import annotations
@@ -32,14 +36,21 @@ STATIC_RESERVE = 2_048
 MAX_CLUSTER = 16
 #: The eight per-step partials of the PDHG kernel.
 PDHG_PARTS = 8
+#: Shared memory one SM holds, and the part the runtime keeps for each CTA.
+SM_SMEM = 233_472
+CTA_RESERVE = 1_024
+#: Threads of a revised CTA.
+THREADS = 256
 
 CLUSTER = "cluster"
+RESIDENT = "resident"
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch's variant: ``"cluster"`` with ``k`` CTAs an LP and ``smem``
-    bytes of dynamic shared memory a CTA, or the second variant (``k == 0``)."""
+    """One launch's variant: ``"cluster"`` with ``k`` CTAs an LP (or
+    ``"resident"``, one CTA) and ``smem`` bytes of dynamic shared memory a
+    CTA, or the second variant (``k == 0``)."""
 
     variant: str
     k: int = 0
@@ -64,6 +75,50 @@ def pdhg_smem(m: int, n: int, itemsize: int, k: int) -> int:
     four column vectors and the published and gathered partials."""
     mr, nc = _ceil(m, k), _ceil(n, k)
     return itemsize * (mr * n + 2 * n + 6 * mr + 4 * nc + PDHG_PARTS * (1 + MAX_CLUSTER))
+
+
+def binv_ld(m: int, itemsize: int) -> int:
+    """The row stride of the resident revised kernel's ``binv``: an odd
+    number of 16-byte vectors, at least ``m`` elements."""
+    vw = 16 // itemsize
+    ld = _ceil(m, vw) * vw
+    return ld if (ld // vw) % 2 else ld + vw
+
+
+def _revised_base(m: int, n: int, itemsize: int, rows: int) -> int:
+    vw = 16 // itemsize
+
+    def vec(k: int) -> int:
+        return _ceil(k, vw) * vw
+
+    span = vec(rows * n) + vw if rows else 0
+    return (itemsize * (m * binv_ld(m, itemsize) + 7 * vec(m) + vec(n) + vec(1 + n + m)
+                        + 2 * span) + 4 * m)
+
+
+def revised_stage_rows(m: int, n: int, itemsize: int) -> int:
+    """Rows of ``A`` each of the resident revised CTA's two staging buffers
+    holds: 0 where two CTAs share an SM (``A`` stays in L1 beside them) or
+    where the pricing has more columns than threads; else as many as the
+    CTA's budget leaves, a multiple of the 16-byte vector, at most the padded
+    ``m``."""
+    vw = 16 // itemsize
+    base = _revised_base(m, n, itemsize, 0)
+    if n > THREADS or 2 * (base + STATIC_RESERVE + CTA_RESERVE) <= SM_SMEM:
+        return 0
+    room = (SMEM_LIMIT - STATIC_RESERVE - base) // itemsize // 2 - 2 * vw
+    rows = min(room // n // vw * vw, _ceil(m, vw) * vw)
+    return rows if rows >= vw else 0
+
+
+def revised_smem(m: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one resident revised CTA: ``binv`` in ``m``
+    rows of stride :func:`binv_ld`, then each a whole number of 16-byte
+    vectors: seven vectors of ``m`` (sgn, c_B, w, the entering column, u,
+    the normalised pivot row, x_B), the LP's costs (``n``), the objective
+    row (``1 + n + m``) and two buffers of :func:`revised_stage_rows` rows of
+    ``A`` (with room to align each); then the basis (``m`` ints)."""
+    return _revised_base(m, n, itemsize, revised_stage_rows(m, n, itemsize))
 
 
 def fits(smem: int) -> bool:
@@ -111,6 +166,21 @@ def plan_pdhg(m: int, n: int, dtype: torch.dtype, max_k: int,
     item = torch.empty((), dtype=dtype).element_size()
     return _plan(lambda kk: pdhg_smem(m, n, item, kk), max_k, k, "streaming",
                  f"pdhg kernel ({m} x {n} {dtype})")
+
+
+def plan_revised(m: int, n: int, dtype: torch.dtype, variant: Optional[str] = None) -> Plan:
+    """The revised launch for an m x n shared ``A``: the resident variant
+    (one CTA an LP, ``k = 1``) wherever its shared memory fits, else
+    ``"global"``.  A forced ``variant`` that cannot run raises."""
+    smem = revised_smem(m, n, torch.empty((), dtype=dtype).element_size())
+    if variant not in (None, RESIDENT, "global"):
+        raise ValueError(f"revised kernel: unknown variant {variant!r}")
+    if variant == "global" or (variant is None and not fits(smem)):
+        return Plan("global")
+    if not fits(smem):
+        raise ValueError(f"revised kernel ({m} x {n} {dtype}): {smem} bytes of shared memory "
+                         f"a CTA exceed {SMEM_LIMIT - STATIC_RESERVE}")
+    return Plan(RESIDENT, 1, smem)
 
 
 _MAX_K: Dict[Tuple[str, int, int], int] = {}

@@ -1,10 +1,11 @@
 // Pieces shared by the cluster variants of the simplex and PDHG kernels
-// (simplex.cu, pdhg.cu): the shared-memory budget, the asynchronous copy of
-// an LP's slice into shared memory, the cluster launch and the occupancy
-// query.  One LP is one thread-block cluster of k CTAs on neighbouring SMs;
-// each CTA holds a slice of the LP's data in its shared memory for the whole
-// solve, and the CTAs read each other's slices through distributed shared
-// memory (cooperative_groups::this_cluster(), map_shared_rank).
+// (simplex.cu, pdhg.cu): the shared-memory budget (also the resident revised
+// kernel's, revised.cu), the asynchronous copy of an LP's slice into shared
+// memory, the cluster launch and the occupancy query.  One LP is one
+// thread-block cluster of k CTAs on neighbouring SMs; each CTA holds a slice
+// of the LP's data in its shared memory for the whole solve, and the CTAs
+// read each other's slices through distributed shared memory
+// (cooperative_groups::this_cluster(), map_shared_rank).
 //
 // The Python side (kernels/cluster.py) mirrors SMEM_LIMIT, STATIC_RESERVE and
 // MAX_CLUSTER and each kernel's layout arithmetic (the *_cluster_smem exports

@@ -7,9 +7,10 @@ CPU tensors with :func:`hyperbox_plain` (``core/hyperbox.py:support``).
 ``lo`` and ``hi`` are either (B, n) or one box, (n,) or (1, n), which
 the kernel reads with row stride 0 instead of materialising it.
 
-The kernel sums in another order than ``torch.sum``, so the two agree
-to rounding (rtol 1e-6 in float32, 1e-12 in float64, relative to the sum
-of the absolute terms), not bit for bit.
+The kernel sums each row in ascending order in double (one rounding to
+float32 at the end), ``torch.sum`` in its own order, so the two agree to
+rounding (rtol 1e-6 in float32, 1e-12 in float64, relative to the sum of
+the absolute terms), not bit for bit.
 """
 
 from __future__ import annotations

@@ -100,16 +100,15 @@ def _revised_launch(a, b, c, state: _revised.RevisedResumeState, cap: int, rule,
                     want_state: bool):
     """One revised-kernel launch on ``state``'s buffers, updated in place.
 
-    The objective is computed after the launch from the terminal
-    ``(basis, xb)`` by the same ascending sum as the plain loop.
+    The kernel writes the objective from the terminal ``(basis, xb)`` by
+    the same ascending sum as the plain loop's ``objective``.
     """
     binv, basis, xb, phase = (t.contiguous() for t in
                               (state.binv, state.basis, state.xb, state.phase))
     feas = engine.phase1_feasibility_tol(b).contiguous()
-    x, status, iters = revised_cuda.revised(a, b, c, binv, basis, xb, phase, feas, cap,
-                                            rule=rule, seed=seed, tol=tol)
-    sol = LPSolution(objective=_revised.objective(basis, xb, c, status), x=x, status=status,
-                     iterations=iters, basis=basis)
+    obj, x, status, iters = revised_cuda.revised(a, b, c, binv, basis, xb, phase, feas, cap,
+                                                 rule=rule, seed=seed, tol=tol)
+    sol = LPSolution(objective=obj, x=x, status=status, iterations=iters, basis=basis)
     if not want_state:
         return sol
     return sol, _revised.RevisedResumeState(binv, basis, xb, phase)
@@ -179,19 +178,18 @@ def revised_sweep(
     tol: float = 0.0,
     warm: bool = True,
 ):
-    """``core/revised.py:sweep_batched`` on the kernel: one launch per step.
+    """``core/revised.py:sweep_batched`` on the kernel: one launch for the whole sweep.
 
-    Each step launches on the state carried from the step before, with
-    the sweep's warm/cold overlay.  Returns ``(objective, x, status,
-    iterations)``, each with a leading (T, B).
+    Each LP restarts from its own terminal state where the step before
+    ended OPTIMAL (``warm``) and cold elsewhere, inside the kernel.
+    Returns ``(objective, x, status, iterations)``, each with a leading
+    (T, B).
     """
     cap, tol = _revised.resolve_cap_tol(a, max_iters, tol)
     a, b = a.contiguous(), b.contiguous()
-
-    def step(c_t, start):
-        return _revised_launch(a, b, c_t.contiguous(), start, cap, rule, seed, tol, True)
-
-    return _revised.sweep_loop(a, b, c_stack, step, warm)
+    feas = engine.phase1_feasibility_tol(b).contiguous()
+    return revised_cuda.revised_sweep(a, b, c_stack.contiguous(), feas, cap, rule=rule,
+                                      seed=seed, tol=tol, warm=warm)
 
 
 def _pdhg_launch(a, b, c, state: _pdhg.PDHGResumeState, cap: int, tol: float, restart: int,

@@ -1,9 +1,10 @@
-"""The cluster planning of the simplex and PDHG kernels (``kernels/cluster.py``).
+"""The variant planning of the simplex, PDHG and revised kernels (``kernels/cluster.py``).
 
 Pure functions of the shape, the element type and the device's largest
 schedulable cluster: they run here without a card.  The kernels' own
 layouts are held against these byte counts on the card
-(``tests/test_torch_gpu.py::test_cluster_layouts_match_the_kernels``).
+(``tests/test_torch_gpu.py::test_cluster_layouts_match_the_kernels`` and
+``::test_revised_past_the_resident_limit_takes_the_global_variant``).
 """
 
 import numpy as np
@@ -15,7 +16,8 @@ from repro_torch.core import lp as tlp
 from repro_torch.core import pdhg
 from repro_torch.core.simplex import phase2_costs
 from repro_torch.core.tableau import TableauSpec, build_tableau
-from repro_torch.kernels import cluster, pdhg_cuda, simplex_cuda
+from repro_torch.core import revised
+from repro_torch.kernels import cluster, pdhg_cuda, revised_cuda, simplex_cuda
 
 F32, F64 = torch.float32, torch.float64
 
@@ -165,3 +167,113 @@ def test_cpu_tensors_never_count_a_launch():
     assert (simplex_cuda.launches, simplex_cuda.variant_launches) == before
     assert set(simplex_cuda.variant_launches) == {"cluster", "global"}
     assert set(pdhg_cuda.variant_launches) == {"cluster", "streaming"}
+
+
+# The revised kernel's resident variant: the paper's shared types 1 and 2,
+# the two reach rows' canonical polytopes (5-dim: m = n = 10; helicopter:
+# m = n = 56), float32.
+@pytest.mark.parametrize("m,n,smem", [
+    (100, 100, 44_416), (200, 100, 228_848), (10, 10, 1_000), (56, 56, 15_920),
+])
+def test_revised_plan_for_the_main_paths(m, n, smem):
+    p = cluster.plan_revised(m, n, F32)
+    assert p == cluster.Plan("resident", 1, smem)
+    assert smem == cluster.revised_smem(m, n, 4)
+
+
+@pytest.mark.parametrize("m,n,dtype", [(300, 100, F32), (200, 100, F64), (235, 100, F32),
+                                       (164, 100, F64), (1000, 10, F32)])
+def test_revised_plan_past_the_resident_limit(m, n, dtype):
+    assert cluster.plan_revised(m, n, dtype) == cluster.Plan("global")
+    assert cluster.plan_revised(m, n, dtype, "global") == cluster.Plan("global")
+    with pytest.raises(ValueError, match="shared memory"):
+        cluster.plan_revised(m, n, dtype, "resident")
+
+
+def test_revised_resident_limit_is_the_largest_that_fits():
+    for dtype, last in [(F32, 234), (F64, 163)]:
+        item = dtype.itemsize
+        assert cluster.fits(cluster.revised_smem(last, 100, item))
+        assert not cluster.fits(cluster.revised_smem(last + 1, 100, item))
+        assert cluster.plan_revised(last, 100, dtype).variant == "resident"
+    with pytest.raises(ValueError, match="unknown variant"):
+        cluster.plan_revised(10, 10, F32, "cluster")
+
+
+def test_revised_layout_arithmetic():
+    # Type 1: binv in 100 rows of 100 floats (25 vectors of 16 bytes, an odd
+    # number), seven vectors of 100, the costs (100), the objective row (201,
+    # padded to 204), the basis (100 ints).
+    assert cluster.revised_smem(100, 100, 4) == 4 * (100 * 100 + 700 + 100 + 204) + 4 * 100
+    # The row stride is an odd number of 16-byte vectors, at least m.
+    assert [cluster.binv_ld(m, 4) for m in (1, 10, 55, 56, 100, 200)] == [4, 12, 60, 60, 100, 204]
+    assert [cluster.binv_ld(m, 8) for m in (1, 7, 28, 30, 163)] == [2, 10, 30, 30, 166]
+    for m in range(1, 300):
+        for item in (4, 8):
+            vw = 16 // item
+            ld = cluster.binv_ld(m, item)
+            assert ld >= m and ld % vw == 0 and (ld // vw) % 2 == 1 and ld - m < 2 * vw
+    # float64: 7 rows of stride 10, vectors padded to 8, costs to 4, the
+    # objective row (11) to 12.
+    assert cluster.revised_smem(7, 3, 8) == 8 * (7 * 10 + 7 * 8 + 4 + 12) + 4 * 7
+
+
+def test_revised_stages_a_only_where_a_cta_has_its_sm():
+    # Type 1: four CTAs an SM, A (40 KB) stays in L1 beside them.
+    assert cluster.revised_stage_rows(100, 100, 4) == 0
+    # Type 2: one CTA an SM; two buffers of 72 rows of A (28.8 KB each).
+    assert cluster.revised_stage_rows(200, 100, 4) == 72
+    assert cluster.revised_smem(200, 100, 4) == (
+        cluster._revised_base(200, 100, 4, 0) + 4 * 2 * (72 * 100 + 4))
+    # More columns than threads, or no room left: no staging.
+    assert cluster.revised_stage_rows(200, 300, 4) == 0
+    assert cluster.revised_stage_rows(234, 100, 4) == 0
+    for m in range(1, 240):
+        for n, item in [(100, 4), (37, 4), (100, 8), (5, 8)]:
+            rows = cluster.revised_stage_rows(m, n, item)
+            assert rows % (16 // item) == 0 and rows <= m + 16 // item
+            smem = cluster.revised_smem(m, n, item)
+            if cluster.fits(cluster._revised_base(m, n, item, 0)):
+                assert cluster.fits(smem)
+            if rows:  # one CTA an SM either way
+                assert 2 * (smem + cluster.STATIC_RESERVE + cluster.CTA_RESERVE) > cluster.SM_SMEM
+
+
+def _revised_inputs(m=12, n=6, bsz=4):
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(2), bsz, m, n, False, device="cpu")
+    state = revised.init_traced(sb.a, sb.b, None)
+    bufs = [t.clone() for t in (state.binv, state.basis, state.xb, state.phase)]
+    return sb, bufs, engine.phase1_feasibility_tol(sb.b).contiguous()
+
+
+def test_revised_wrapper_forces_a_variant_or_raises():
+    sb, bufs, feas = _revised_inputs()
+    want = revised_cuda.revised_plain(sb.a, sb.b, sb.c, *[t.clone() for t in bufs], feas, 100)
+    for variant in ("resident", "global"):
+        got = revised_cuda.revised(sb.a, sb.b, sb.c, *[t.clone() for t in bufs], feas, 100,
+                                   _variant=variant)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="unknown variant"):
+        revised_cuda.revised(sb.a, sb.b, sb.c, *bufs, feas, 100, _variant="cluster")
+    with pytest.raises(ValueError, match="c is"):  # a sweep's stack is not one cost row a LP
+        revised_cuda.revised(sb.a, sb.b, sb.c[None], *bufs, feas, 100)
+    with pytest.raises(ValueError, match="c is"):
+        revised_cuda.revised_sweep(sb.a, sb.b, sb.c, feas, 100)
+    big = tlp.random_shared_lp_batch(np.random.default_rng(3), 2, 300, 4, True, device="cpu")
+    state = revised.init_traced(big.a, big.b, None)
+    with pytest.raises(ValueError, match="shared memory"):
+        revised_cuda.revised(big.a, big.b, big.c, state.binv, state.basis, state.xb,
+                             state.phase, engine.phase1_feasibility_tol(big.b), 5,
+                             _variant="resident")
+    with pytest.raises(ValueError, match="shared memory"):
+        revised_cuda.revised_sweep(big.a, big.b, big.c[None], engine.phase1_feasibility_tol(big.b),
+                                   5, _variant="resident")
+
+
+def test_revised_cpu_tensors_never_count_a_launch():
+    sb, bufs, feas = _revised_inputs()
+    before = (revised_cuda.launches, dict(revised_cuda.variant_launches))
+    revised_cuda.revised(sb.a, sb.b, sb.c, *bufs, feas, 50)
+    revised_cuda.revised_sweep(sb.a, sb.b, torch.stack([sb.c, sb.c]), feas, 50)
+    assert (revised_cuda.launches, revised_cuda.variant_launches) == before
+    assert set(revised_cuda.variant_launches) == {"resident", "global"}

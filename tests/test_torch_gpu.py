@@ -9,13 +9,15 @@ Run them on a machine with an H100 with
 The simplex and revised kernels must be bit-identical to their plain
 versions in every output and in the terminal state; the hyperbox kernel
 agrees to rtol 1e-6 (float32) or 1e-12 (float64) relative to the sum of
-|terms|.  The PDHG kernel agrees with its plain version in status and
-step count per LP, and in the state within the tolerances of
-``tests/test_torch_pdhg.py``; against itself (reruns, resume chains) it
-is bit-identical.  The simplex and PDHG kernels are also run at a forced
-cluster size (``_k``: 0 for the second variant, else the CTAs of the
-cluster variant) and their shared-memory layouts held against
-``kernels/cluster.py``.
+|terms|, on offset views and on one box (row stride 0) too.  The PDHG
+kernel agrees with its plain version in status and step count per LP,
+and in the state within the tolerances of ``tests/test_torch_pdhg.py``;
+against itself (reruns, resume chains) it is bit-identical.  The
+simplex and PDHG kernels are also run at a forced cluster size (``_k``:
+0 for the second variant, else the CTAs of the cluster variant) and
+their shared-memory layouts held against ``kernels/cluster.py``; the
+revised kernel and its one-launch sweep in both variants (``_variant``:
+the resident default, or ``"global"``).
 """
 
 import numpy as np
@@ -93,6 +95,29 @@ def test_hyperbox_kernel_matches_plain(dtype, n):
     assert hyperbox_cuda.launches == before + 2
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 3, 5, 8, 28, 33, 100, 5000])
+def test_hyperbox_kernel_on_offset_views_and_boxes(dtype, n):
+    _need_card()
+    bsz = 37 if n == 5000 else 3001  # not a multiple of a tile's rows
+    lo, hi, d = tlp.random_hyperbox_batch(np.random.default_rng(n + 1), bsz, n, dtype=dtype)
+
+    def offset(t):  # the same values in a contiguous view one element past an aligned start
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    rtol = 1e-6 if dtype == np.float32 else 1e-12
+    cases = [(lo, hi, d), (offset(lo), offset(hi), offset(d)),
+             (lo[0].contiguous(), hi[0].contiguous(), d), (offset(lo[0]), hi[0:1], offset(d))]
+    for case_lo, case_hi, case_d in cases:
+        got = hyperbox_cuda.hyperbox(case_lo, case_hi, case_d)
+        ref = hyperbox_cuda.hyperbox_plain(case_lo, case_hi, case_d)
+        scale = (case_d * torch.where(case_d < 0, case_lo, case_hi)).abs().sum(dim=-1)
+        assert bool(((got - ref).abs() <= rtol * scale).all())
+
+
 def test_main_path_goes_through_the_kernels():
     _need_card()
     rng = np.random.default_rng(0)
@@ -109,7 +134,7 @@ def test_main_path_goes_through_the_kernels():
     assert (box.status == tlp.OPTIMAL).all()
 
 
-def _revised_both(sb, rule, seed, basis0=None, cap=None):
+def _revised_both(sb, rule, seed, basis0=None, cap=None, variant=None):
     m, n = sb.a.shape
     state = revised.init_traced(sb.a, sb.b, basis0)
     feas = engine.phase1_feasibility_tol(sb.b).contiguous()
@@ -117,8 +142,9 @@ def _revised_both(sb, rule, seed, basis0=None, cap=None):
     cap = cap or 50 * (m + n)
     bufs = [[t.clone() for t in (state.binv, state.basis, state.xb, state.phase)]
             for _ in range(2)]
-    outs = [fn(sb.a, sb.b, sb.c, *buf, feas, cap, rule=rule, seed=seed, tol=tol)
-            for fn, buf in zip((revised_cuda.revised, revised_cuda.revised_plain), bufs)]
+    kw = dict(rule=rule, seed=seed, tol=tol)
+    outs = [revised_cuda.revised(sb.a, sb.b, sb.c, *bufs[0], feas, cap, _variant=variant, **kw),
+            revised_cuda.revised_plain(sb.a, sb.b, sb.c, *bufs[1], feas, cap, **kw)]
     torch.cuda.synchronize()
     return outs, bufs
 
@@ -134,11 +160,54 @@ def test_revised_kernel_bit_identical_to_plain(rule, dtype, m, n, feasible, warm
     if warm:
         basis0 = revised.solve_batched(sb.a, sb.b, sb.c, rule=rule, seed=7).basis.clone()
         basis0[:3, 1] = basis0[:3, 0]  # singular: these rows start cold
-    before = revised_cuda.launches
+    before = revised_cuda.launches, revised_cuda.variant_launches["resident"]
     (kern, plain), (bk, bp) = _revised_both(sb, rule, 7, basis0)
-    assert revised_cuda.launches == before + 1
+    assert (revised_cuda.launches, revised_cuda.variant_launches["resident"]) == \
+        (before[0] + 1, before[1] + 1)
     for k, p in zip(list(kern) + bk, list(plain) + bp):
         assert _same(k, p)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("rule", ["lpc", "bland", "rpc"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,feasible", [(28, 28, True), (40, 20, False)])
+def test_revised_global_variant_bit_identical_to_plain(rule, dtype, m, n, feasible, warm):
+    _need_card()
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(m), 64, m, n, feasible, dtype=dtype)
+    basis0 = None
+    if warm:
+        basis0 = revised.solve_batched(sb.a, sb.b, sb.c, rule=rule, seed=7).basis.clone()
+        basis0[:3, 1] = basis0[:3, 0]  # singular: these rows start cold
+    before = revised_cuda.variant_launches["global"]
+    (kern, plain), (bk, bp) = _revised_both(sb, rule, 7, basis0, variant="global")
+    assert revised_cuda.variant_launches["global"] == before + 1
+    for k, p in zip(list(kern) + bk, list(plain) + bp):
+        assert _same(k, p)
+
+
+@pytest.mark.parametrize("m,n,dtype", [(300, 100, np.float32), (200, 60, np.float64)])
+def test_revised_past_the_resident_limit_takes_the_global_variant(m, n, dtype):
+    _need_card()
+    import ctypes
+
+    from repro_torch.kernels import build, cluster
+
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(m), 8, m, n, False, dtype=dtype)
+    assert cluster.plan_revised(m, n, sb.a.dtype).variant == "global"
+    before = revised_cuda.variant_launches["global"]
+    (kern, plain), (bk, bp) = _revised_both(sb, "lpc", 0, cap=80)
+    assert revised_cuda.variant_launches["global"] == before + 1
+    for k, p in zip(list(kern) + bk, list(plain) + bp):
+        assert _same(k, p)
+    with pytest.raises(ValueError, match="shared memory"):
+        _revised_both(sb, "lpc", 0, cap=10, variant="resident")
+    fn = build.load("revised").revised_resident_smem
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    for mm, nn in [(100, 100), (200, 100), (10, 10), (56, 56), (7, 3), (235, 100), (300, 100)]:
+        for item in (4, 8):
+            assert fn(mm, nn, item) == cluster.revised_smem(mm, nn, item), (mm, nn, item)
 
 
 def test_revised_resume_chain_bit_identical():
@@ -156,6 +225,56 @@ def test_revised_resume_chain_bit_identical():
         assert _same(getattr(rest_state, f), getattr(full_state, f))
 
 
+@pytest.mark.parametrize("m,n,dtype,feasible", [(200, 100, np.float32, False),
+                                                (170, 99, np.float32, True),
+                                                (120, 100, np.float64, True)])
+def test_revised_staged_pricing_bit_identical_to_plain(m, n, dtype, feasible):
+    # One resident CTA an SM: A is staged through shared memory for the pricing.
+    _need_card()
+    from repro_torch.kernels import cluster
+
+    item = np.dtype(dtype).itemsize
+    assert cluster.revised_stage_rows(m, n, item) > 0
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(m + n), 16, m, n, feasible,
+                                    dtype=dtype)
+    before = revised_cuda.variant_launches["resident"]
+    (kern, plain), (bk, bp) = _revised_both(sb, "lpc", 0)
+    assert revised_cuda.variant_launches["resident"] == before + 1
+    for k, p in zip(list(kern) + bk, list(plain) + bp):
+        assert _same(k, p)
+    rng = np.random.default_rng(1)
+    stack = sb.c.cpu().numpy()[None] + 0.3 * rng.normal(size=(3, 16, n))
+    c_stack = torch.as_tensor(stack.astype(dtype), device=sb.a.device)
+    got = ops.revised_sweep(sb.a, sb.b, c_stack)
+    want = revised.sweep_batched(sb.a, sb.b, c_stack)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+def test_revised_resume_chain_bit_identical_across_variants():
+    _need_card()
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(3), 64, 40, 20, False)
+    state = revised.init_traced(sb.a, sb.b, None)
+    feas = engine.phase1_feasibility_tol(sb.b).contiguous()
+    tol = engine.default_tolerance(sb.a.dtype)
+    results = []
+    for variant in ("resident", "global"):
+        one = [t.clone() for t in (state.binv, state.basis, state.xb, state.phase)]
+        chain = [t.clone() for t in one]
+        full = revised_cuda.revised(sb.a, sb.b, sb.c, *one, feas, 200, tol=tol, _variant=variant)
+        part = revised_cuda.revised(sb.a, sb.b, sb.c, *chain, feas, 25, tol=tol,
+                                    _variant=variant)
+        rest = revised_cuda.revised(sb.a, sb.b, sb.c, *chain, feas, 175, tol=tol,
+                                    _variant=variant)
+        torch.cuda.synchronize()
+        for got, want in zip(list(rest[:3]) + chain, list(full[:3]) + one):
+            assert _same(got, want)
+        assert torch.equal(part[3] + rest[3], full[3])
+        results.append(list(full) + one)
+    for r, g in zip(*results):
+        assert _same(r, g)
+
+
 @pytest.mark.parametrize("warm", [True, False])
 def test_revised_sweep_matches_plain(warm):
     _need_card()
@@ -164,12 +283,36 @@ def test_revised_sweep_matches_plain(warm):
     model = reach.helicopter_model()
     stack = reach.direction_stack(model, 0.02, 12).astype(np.float32)
     sb, c_stack = support.box_to_polytope(model.x0).shared_sweep_inputs(stack)
-    before = revised_cuda.launches
+    before = revised_cuda.launches, revised_cuda.variant_launches["resident"]
     got = ops.revised_sweep(sb.a, sb.b, c_stack, warm=warm)
-    assert revised_cuda.launches == before + 12
+    assert (revised_cuda.launches, revised_cuda.variant_launches["resident"]) == \
+        (before[0] + 1, before[1] + 1)
     want = revised.sweep_batched(sb.a, sb.b, c_stack, warm=warm)
     for g, w in zip(got, want):
         assert _same(g, w)
+
+
+@pytest.mark.parametrize("variant", ["resident", "global"])
+@pytest.mark.parametrize("warm", [True, False])
+@pytest.mark.parametrize("rule,dtype", [("lpc", np.float64), ("rpc", np.float32),
+                                        ("bland", np.float32)])
+def test_revised_sweep_variants_bit_identical_to_plain(variant, warm, rule, dtype):
+    _need_card()
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(8), 48, 24, 12, False, dtype=dtype)
+    rng = np.random.default_rng(9)
+    stack = sb.c.cpu().numpy()[None] + 0.3 * rng.normal(size=(6, 48, 12))
+    c_stack = torch.as_tensor(stack.astype(dtype), device=sb.a.device)
+    feas = engine.phase1_feasibility_tol(sb.b).contiguous()
+    tol = engine.default_tolerance(sb.a.dtype)
+    kw = dict(rule=rule, seed=5, tol=tol, warm=warm)
+    before = revised_cuda.variant_launches[variant]
+    got = revised_cuda.revised_sweep(sb.a, sb.b, c_stack, feas, 300, _variant=variant, **kw)
+    assert revised_cuda.variant_launches[variant] == before + 1
+    want = revised_cuda.revised_sweep_plain(sb.a, sb.b, c_stack, feas, 300, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert int(got[2].eq(tlp.OPTIMAL).sum()) > 0
 
 
 def test_shared_batch_default_options_launch_the_revised_kernel():

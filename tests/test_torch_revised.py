@@ -17,7 +17,7 @@ import torch
 from repro.core import lp as jlp
 from repro.core import revised as jrevised
 from repro.kernels import ops as jops
-from repro_torch.core import convert
+from repro_torch.core import convert, engine
 from repro_torch.core import lp as tlp
 from repro_torch.core import revised as trevised
 from repro_torch.kernels import ops as tops
@@ -150,6 +150,59 @@ def test_sweep_matches_reference(warm):
     for got, want in zip(tops.revised_sweep(tb.a, tb.b, torch.as_tensor(stack), warm=warm),
                          outs_t):
         assert torch.equal(got, want)
+
+
+def _recorded_sweep(tb, c_stack, warm, rule, seed):
+    """The plain sweep, keeping each step's terminal ``(basis, xb, status)``."""
+    cap, tol = trevised.resolve_cap_tol(tb.a, 0, 0.0)
+    feas = engine.phase1_feasibility_tol(tb.b)
+    states = []
+
+    def step(c_t, start):
+        sol, out = trevised._iterate(tb.a, tb.b, c_t, start, feas, cap, seed, rule=rule,
+                                     tol=tol)
+        states.append((out.basis.clone(), out.xb.clone(), sol.status.clone()))
+        return sol, out
+
+    trevised.sweep_loop(tb.a, tb.b, c_stack, step, warm)
+    return states
+
+
+@pytest.mark.parametrize("warm", [True, False])
+@pytest.mark.parametrize("rule,dtype", [("lpc", np.float32), ("rpc", np.float32),
+                                        ("bland", np.float64)])
+def test_ops_revised_sweep_matches_reference(warm, rule, dtype):
+    jb, tb = _shared(6, 12, 6, False, dtype)
+    rng = np.random.default_rng(11)
+    stack = (np.asarray(jb.c)[None] + 0.3 * rng.normal(size=(5, 6, 6))).astype(dtype)
+    outs_j = jrevised.sweep_batched(jb.a, jb.b, stack, rule=rule, seed=2, warm=warm)
+    c_stack = torch.as_tensor(stack)
+    before = revised_cuda.launches
+    outs_t = tops.revised_sweep(tb.a, tb.b, c_stack, rule=rule, seed=2, warm=warm)
+    assert revised_cuda.launches == before  # CPU tensors: the plain version
+    obj_j, x_j, status_j, iters_j = (np.asarray(v) for v in outs_j)
+    obj_t, x_t, status_t, iters_t = outs_t
+    assert np.array_equal(status_t.numpy(), status_j)
+    assert np.array_equal(iters_t.numpy(), iters_j)
+    ok = status_j == jlp.OPTIMAL
+    assert ok.any()
+    np.testing.assert_allclose(obj_t.numpy()[ok], obj_j[ok], rtol=RTOL[dtype])
+    assert np.isneginf(obj_t.numpy()[~ok]).all() and np.isneginf(obj_j[~ok]).all()
+    # Each step's objective in the bits of core/revised.py:objective at its
+    # terminal state (the sum the kernel computes).
+    for t, (basis, xb, status) in enumerate(_recorded_sweep(tb, c_stack, warm, rule, 2)):
+        assert torch.equal(obj_t[t], trevised.objective(basis, xb, c_stack[t], status))
+        assert torch.equal(x_t[t], trevised.primal(basis, xb, status, 6))
+
+
+def test_revised_wrapper_returns_the_objective_of_its_terminal_state():
+    _, tb = _shared(8, 12, 6, False, np.float32)
+    state = trevised.init_traced(tb.a, tb.b, None)
+    bufs = [t.clone() for t in (state.binv, state.basis, state.xb, state.phase)]
+    obj, x, status, iters = revised_cuda.revised(tb.a, tb.b, tb.c, *bufs,
+                                                 engine.phase1_feasibility_tol(tb.b), 200)
+    assert torch.equal(obj, trevised.objective(bufs[1], bufs[2], tb.c, status))
+    assert torch.equal(obj, trevised.solve_batched(tb.a, tb.b, tb.c, max_iters=200).objective)
 
 
 @pytest.mark.parametrize("feasible", [True, False])
