@@ -58,6 +58,21 @@ line is printed:
    through ``"auto"``; a 32-LP sample held against HiGHS in float64.
    After its counts are read, the same batch on the simplex kernel
    (``backend="cuda"``), for the routing frontier.
+   Slice 6, the round scheduler (``core/dispatch.py``): types 1 and 2
+   on ``cuda`` with ``compaction="every_k"`` + ``resume="basis"`` and
+   ``"chunked"`` + ``"scratch"``, shared type 1 on ``cuda-shared`` and
+   64 LPs of the slice-3 batch on ``pdhg`` (cap 400) with ``every_k`` +
+   ``basis``, each beside ``compaction="off"`` on the same LPs in the same
+   call: bit-equal to it, every round one launch of the main variant,
+   with the survivors of each round, the lockstep work, the wall times
+   and the peak memory; type 1 with the guardrails on and off
+   (bit-equal, timed), a NaN written into one carried row of a
+   basis-resume state (it retires NUMERICAL, the other rows stay
+   bit-equal, the quarantine resolves it on the oracle); three
+   ``SolveSession`` calls at the type-1 shape (``compiles`` stops moving);
+   and the two reach models' X0 supports as the dense warm sweep,
+   ``sweep_problems`` against the per-step loop (the same supports and
+   pivots, both timed).
 
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
@@ -1207,6 +1222,188 @@ def crossover_tiles(*, batch, sol, small):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the rounds phase: compaction, basis resume, guardrails, sessions, sweeps
+# ---------------------------------------------------------------------------
+
+
+class RoundSizes:
+    """Records the batch size of every dispatch round of ``core/dispatch.py``."""
+
+    def __init__(self):
+        from repro_torch.core import dispatch
+
+        self.dispatch = dispatch
+        self.real = dispatch.dispatch_round
+        self.sizes = []
+
+    def __enter__(self):
+        def recording(batch, options, stats=None, state=None, want_state=False):
+            self.sizes.append(batch.batch)
+            return self.real(batch, options, stats, state=state, want_state=want_state)
+
+        self.dispatch.dispatch_round = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.dispatch.dispatch_round = self.real
+
+
+def timed_solve(rt, problem, options, stats=None):
+    """``rt.solve`` with its wall ms and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol = rt.solve(problem, options, stats=stats)
+    torch.cuda.synchronize()
+    return sol, (time.perf_counter() - t0) * 1e3, int(torch.cuda.max_memory_allocated())
+
+
+def rounds_case(rt, *, name, problem, base, modes, counters, kernel, variant, fields):
+    """Compaction ``"off"`` and each ``(mode, resume)`` on the same LPs, in one call.
+
+    Every compacted result must equal ``"off"`` bit for bit in ``fields``,
+    and every round must be one launch of ``kernel``'s ``variant``.
+    """
+    rows = {}
+    off = None
+    for mode, resume in [("off", "scratch")] + list(modes):
+        stats = rt.SolveStats()
+        before = launch_counts(counters)
+        with RoundSizes() as rec:
+            sol, wall_ms, peak = timed_solve(rt, problem, base.replace(compaction=mode,
+                                                                       resume=resume), stats)
+        delta = count_delta(counters, before)
+        key = f"{mode}+{resume}" if mode != "off" else "off"
+        row = dict(case=name, mode=mode, resume=resume, compact_every=base.compact_every,
+                   rounds=len(rec.sizes), survivors=rec.sizes, wall_ms=wall_ms,
+                   max_memory_allocated=peak, launches=delta,
+                   simplex_iterations=stats.simplex_iterations,
+                   lockstep_iterations=stats.lockstep_iterations, resumed=stats.resumed,
+                   status_counts=np.bincount(sol.status.cpu().numpy(), minlength=6).tolist())
+        check(delta[kernel] == len(rec.sizes) and delta[f"{kernel}.{variant}"] == delta[kernel],
+              f"rounds {name} {key}: {delta} launches for {len(rec.sizes)} rounds "
+              f"(each round one {variant} {kernel} launch expected)")
+        if off is None:
+            off = (sol, row)
+        else:
+            same = {f: torch.equal(bits(getattr(sol, f)), bits(getattr(off[0], f)))
+                    for f in fields}
+            row.update(bit_equal_to_off=same, lockstep_vs_off=[row["lockstep_iterations"],
+                                                               off[1]["lockstep_iterations"]])
+            check(all(same.values()), f"rounds {name} {key} differ from compaction='off': {same}")
+            check(len(rec.sizes) > 1, f"rounds {name} {key} ran one round only")
+        emit("rounds", **row)
+        rows[key] = row
+    return off[0], rows
+
+
+def guardrail_cases(rt, *, name, problem, off, counters, poison_lps, k):
+    """Type 1 with the guardrails on and off (bit-equal, timed), then a NaN
+    written into one carried row of a basis-resume state on the card."""
+    from repro_torch.core import dispatch
+
+    times = {True: [], False: []}
+    for flag in (True, False, True, False):
+        sol, wall_ms, _ = timed_solve(rt, problem, rt.SolveOptions(guardrails=flag))
+        times[flag].append(wall_ms)
+        for f in ("status", "iterations", "basis", "objective", "x"):
+            check(torch.equal(bits(getattr(sol, f)), bits(getattr(off, f))),
+                  f"guardrails={flag} changed {f} on a healthy batch")
+        del sol
+    emit("guardrails", case=name, on_ms=times[True], off_ms=times[False],
+         cost_ms=min(times[True]) - min(times[False]), bit_equal=True)
+
+    sub = problem.take(slice(0, poison_lps))
+    survivors = (off.iterations[:poison_lps] > k).nonzero().flatten()
+    check(survivors.numel() > 0, f"no LP of {name}'s first {poison_lps} survives round 0")
+    row = int(survivors[0])
+    real = dispatch.dispatch_round
+
+    def poisoning(batch, options, stats=None, state=None, want_state=False):
+        sol, out = real(batch, options, stats, state=state, want_state=want_state)
+        if out is not None and state is None:
+            out.tab[row, 0, 0] = float("nan")  # round 0's carried tableau
+        return sol, out
+
+    opts = rt.SolveOptions(compaction="every_k", compact_every=k, resume="basis")
+    dispatch.dispatch_round = poisoning
+    try:
+        flagged = rt.solve(sub, opts)
+        qstats = rt.SolveStats()
+        fixed = rt.solve(sub, opts.replace(quarantine=True), stats=qstats)
+    finally:
+        dispatch.dispatch_round = real
+    rest = torch.arange(poison_lps, device=off.status.device) != row
+    same = {f: torch.equal(bits(getattr(flagged, f)[rest]),
+                           bits(getattr(off, f)[:poison_lps][rest]))
+            for f in ("status", "iterations", "objective", "x")}
+    ref_obj = float(off.objective[row])
+    rel = abs(float(fixed.objective[row]) - ref_obj) / max(1.0, abs(ref_obj))
+    out = dict(case=f"{name}_first_{poison_lps}", row=row,
+               poisoned_status=int(flagged.status[row]), others_bit_equal=same, quarantined=qstats.quarantined,
+               resolved_status=int(fixed.status[row]), off_status=int(off.status[row]),
+               resolved_rel_obj_err=rel)
+    emit("poisoned_row", **out)
+    check(out["poisoned_status"] == rt.NUMERICAL, "the poisoned row did not retire NUMERICAL")
+    check(all(same.values()), f"rows beside the poisoned one changed: {same}")
+    check(qstats.quarantined == 1 and out["resolved_status"] == out["off_status"]
+          and rel <= 1e-4, f"the quarantine did not resolve the poisoned row: {out}")
+
+
+def session_case(rt, dev, *, problem, calls=3):
+    """``SolveSession`` calls at one shape: ``compiles`` must stop moving after the first."""
+    sess = rt.SolveSession(rt.SolveOptions(), device=dev)
+    seen = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.solve(problem)
+        torch.cuda.synchronize()
+        seen.append(dict(compiles=sess.stats.compiles, cache_hits=sess.stats.cache_hits,
+                         wall_ms=(time.perf_counter() - t0) * 1e3))
+    emit("sessions", shape=[problem.m, problem.n], lps=problem.batch, calls=seen)
+    check(all(c["compiles"] == seen[0]["compiles"] for c in seen),
+          f"session compiles moved after the first call: {seen}")
+
+
+def dense_sweep_case(rt, dev, *, name, model, kind, steps, counters):
+    """The reach model's X0 supports as the dense warm sweep: ``sweep_problems``
+    (one simplex launch a step, read back once) against the per-step loop."""
+    from repro_torch.core import reach, support
+
+    dirs = support.template_directions(model.dim, kind)
+    stack = reach.direction_stack(model, 0.02, steps, dirs).astype(np.float32)
+    poly = support.box_to_polytope(model.x0)
+    opts = rt.SolveOptions()
+    out = {}
+    for how, fn in (("sweep_problems", poly.support_sweep), ("per_step_loop", poly.step_sweep)):
+        fn(stack, opts, device=dev)  # warm-up: the first call pays the library load
+        before = launch_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sup = fn(stack, opts, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        delta = count_delta(counters, before)
+        stats = rt.SolveStats()
+        fn(stack, opts, stats=stats, device=dev)
+        out[how] = dict(support=sup, wall_ms=wall_ms, launches=delta,
+                        pivots=stats.simplex_iterations, warm_started=stats.warm_started)
+    same = torch.equal(bits(out["sweep_problems"]["support"]),
+                       bits(out["per_step_loop"]["support"]))
+    row = dict(case=name, steps=steps, directions=len(dirs), supports_bit_equal=same,
+               **{f"{h}_{k}": v[k] for h, v in out.items()
+                  for k in ("wall_ms", "pivots", "warm_started", "launches")})
+    emit("dense_sweep", **row)
+    check(same, f"dense sweep {name}: sweep_problems and the per-step loop differ")
+    check(row["sweep_problems_pivots"] == row["per_step_loop_pivots"],
+          f"dense sweep {name}: pivots differ")
+    check(out["sweep_problems"]["launches"]["simplex"] == steps,
+          f"dense sweep {name}: {out['sweep_problems']['launches']} for {steps} steps")
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of every generated input")
@@ -1270,11 +1467,19 @@ def run(args, pool) -> int:
 
     # Type 1 and type 2 also run the global variant on the same LPs: the
     # same bits, and its time in this call.
+    # Both stay on the card for the rounds phase (slice 6).
+    type1 = paper_batch(50_000, 100, 100, True, args.seed)
     s_main = simplex_case(timer, name="type1_50000x100x100_f32_lpc", want="cluster",
-                          batch=paper_batch(50_000, 100, 100, True, args.seed),
-                          beside_global=True)
-    simplex_case(timer, name="type2_10000x200x100_f32_lpc", want="cluster",
-                 batch=paper_batch(10_000, 200, 100, False, args.seed + 1), beside_global=True)
+                          batch=type1, beside_global=True)
+    type2 = paper_batch(10_000, 200, 100, False, args.seed + 1)
+    s_type2 = simplex_case(timer, name="type2_10000x200x100_f32_lpc", want="cluster",
+                           batch=type2, beside_global=True)
+    # The tableau's rank-1 update rounds once in float32 (core/engine.py:
+    # rank1_update); both variants stay bit-identical to the plain version.
+    emit("a1_rank1_update", type1_kernel_ms=s_main["kernel_ms"],
+         type1_global_ms=s_main["global_ms"], type2_kernel_ms=s_type2["kernel_ms"],
+         type2_global_ms=s_type2["global_ms"],
+         bit_identical=s_main["bit_identical"] and s_type2["bit_identical"])
     torch.cuda.empty_cache()
     for bucket in bucket_problems(hetero_problems(rt, args.seed + 4, HETERO_PER_CLASS)[0]):
         m, n = bucket.key[:2]
@@ -1308,9 +1513,9 @@ def run(args, pool) -> int:
 
     # Shared types 1 and 2 also run the global variant on the same LPs: the
     # same bits, and its time in this call.
+    shared1 = shared_batch(50_000, 100, 100, True, args.seed + 30)
     r_main = revised_case(timer, name="shared_type1_50000x100x100_f32_lpc", want="resident",
-                          sb=shared_batch(50_000, 100, 100, True, args.seed + 30),
-                          beside_global=True)
+                          sb=shared1, beside_global=True)
     torch.cuda.empty_cache()
     revised_case(timer, name="shared_type2_10000x200x100_f32_lpc", want="resident",
                  sb=shared_batch(10_000, 200, 100, False, args.seed + 31), beside_global=True)
@@ -1514,8 +1719,52 @@ def run(args, pool) -> int:
     del tile
     crossover_tiles(batch=pdhg_batch, sol=auto_sol, small=8)
     del auto_sol
+    torch.cuda.empty_cache()
 
-    launches = {k: slice1[k] + slice2[k] + slice3[k] for k in slice1}
+    # Slice 6, the round scheduler: compaction "off" and the compacted
+    # solves on the same LPs in one call, each bit-equal to "off" and each
+    # round one kernel launch; then the guardrails, sessions and the dense
+    # warm sweep.
+    reset_counts()
+    k_rounds = 128
+    simplex_fields = ("status", "iterations", "basis", "objective", "x")
+    type1_off, _ = rounds_case(
+        rt, name="type1_50000x100x100_f32_lpc", problem=type1,
+        base=rt.SolveOptions(compact_every=k_rounds), counters=counters, kernel="simplex",
+        variant="cluster", fields=simplex_fields,
+        modes=[("every_k", "basis"), ("chunked", "scratch")])
+    rounds_case(rt, name="type2_10000x200x100_f32_lpc", problem=type2,
+                base=rt.SolveOptions(compact_every=k_rounds), counters=counters,
+                kernel="simplex", variant="cluster", fields=simplex_fields,
+                modes=[("every_k", "basis"), ("chunked", "scratch")])
+    rounds_case(rt, name="shared_type1_50000x100x100_f32_lpc", problem=shared1,
+                base=rt.SolveOptions(backend="cuda-shared", compact_every=k_rounds),
+                counters=counters, kernel="revised", variant="resident", fields=simplex_fields,
+                modes=[("every_k", "basis")])
+    rounds_case(rt, name=f"pdhg_64x{PDHG_DIM}x{PDHG_DIM}_f32_cap400",
+                problem=pdhg_batch.take(slice(0, 64)),
+                base=rt.SolveOptions(backend="pdhg", max_iters=400, compact_every=50),
+                counters=counters, kernel="pdhg", variant="cluster",
+                fields=("status", "iterations", "x", "y"), modes=[("every_k", "basis")])
+    guardrail_cases(rt, name="type1_50000x100x100_f32_lpc", problem=type1, off=type1_off,
+                    counters=counters, poison_lps=5000, k=k_rounds)
+    session_case(rt, dev, problem=type1)
+    for name, model, kind in [("five_dim", five_dim_model(), "oct"),
+                              ("helicopter", helicopter_model(), "box")]:
+        dense_sweep_case(rt, dev, name=f"reach_{name}", model=model, kind=kind,
+                         steps=reach_steps, counters=counters)
+    slice6 = launch_counts(counters)
+    check(slice6["simplex"] > 0 and slice6["revised"] > 0 and slice6["pdhg"] > 0,
+          f"a kernel of the rounds phase was never launched: {slice6}")
+    check(slice6["simplex.cluster"] == slice6["simplex"] and
+          slice6["revised.resident"] == slice6["revised"] and
+          slice6["pdhg.cluster"] == slice6["pdhg"],
+          f"a rounds-phase launch did not take the main variant: {slice6}")
+    emit("main_path_summary", path="slice6_rounds_sessions_sweeps", launches=slice6)
+    del type1, type2, shared1, type1_off, pdhg_batch
+    torch.cuda.empty_cache()
+
+    launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

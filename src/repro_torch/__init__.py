@@ -2,9 +2,9 @@
 
 The public surface follows ``repro/__init__.py``: ``solve``,
 ``solve_hyperbox``, ``LPProblem``, ``LPBatch``, ``SharedLPBatch``,
-``canonicalize_shared``, ``SolveOptions``, ``SolveStats`` and the status
-codes.  The default backend is ``"cuda"``:
-hand-written kernels for NVIDIA Hopper (``kernels/csrc``), built with
+``canonicalize_shared``, ``SolveOptions``, ``SolveStats``,
+``SolveSession``, ``TableauSpec`` and the status codes.  The default
+backend is ``"cuda"``: hand-written kernels for NVIDIA Hopper (``kernels/csrc``), built with
 ``nvcc`` at first use.  ``"pdhg"`` is the first-order backend for large
 LPs (restarted PDHG on its own kernel; ``crossover=True`` polishes its
 answers into exact vertices), and ``"auto"`` routes each batch by
@@ -38,10 +38,12 @@ from .core.lp import (
     SharedLPBatch,
 )
 from .core.problem import LPProblem, canonicalize_shared
+from .core.session import SolveSession
+from .core.tableau import TableauSpec
 
 __all__ = [
     "solve", "solve_hyperbox", "LPProblem", "LPBatch", "SharedLPBatch", "canonicalize_shared",
-    "LPSolution", "ResumeState",
+    "LPSolution", "ResumeState", "SolveSession", "TableauSpec",
     "SolveOptions", "SolveStats", "Backend", "available_backends", "get_backend",
     "register_backend", "RUNNING", "OPTIMAL", "UNBOUNDED", "INFEASIBLE", "ITER_LIMIT",
     "NUMERICAL", "STATUS_NAMES",

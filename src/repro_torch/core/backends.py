@@ -7,11 +7,19 @@ callables
     solve_canonical(LPBatch, SolveOptions)      -> LPSolution
     solve_hyperbox(lo, hi, dirs, SolveOptions)  -> LPSolution
 
-(the shared backends' ``solve_canonical`` takes a ``SharedLPBatch``).
+(the shared backends' ``solve_canonical`` takes a ``SharedLPBatch``),
+plus the reference's exact-state hooks, which the round scheduler
+(``core/dispatch.py``) and the sessions (``core/session.py``) drive:
 
-(The reference's exact-state hooks, start / resume / init, arrive with
-the round-scheduler slice; the state-carrying entry points exist below
-this layer, in ``core/simplex.py`` and ``kernels/ops.py``.)
+    start_canonical(batch, SolveOptions)         -> (LPSolution, state)
+    resume_canonical(batch, state, SolveOptions) -> (LPSolution, state)
+    init_canonical(batch, SolveOptions)          -> state
+
+``cuda``, ``torch``, ``cuda-shared``, ``torch-shared`` and ``pdhg``
+carry them (the kernels' resume entry points ``kernels/ops.py:
+simplex_resume``/``revised_resume``/``pdhg_resume``, or the plain
+loops); ``reference`` has none, and its compaction rounds run from
+scratch.
 
 Built-ins:
 
@@ -57,8 +65,14 @@ from . import hyperbox as _hyperbox
 from . import pdhg as _pdhg
 from . import revised as _revised
 from . import simplex as _simplex
-from .lp import OPTIMAL, LPBatch, LPSolution, SharedLPBatch
+from .lp import OPTIMAL, LPBatch, LPSolution, ResumeState, SharedLPBatch
 from .tableau import DEFAULT_LAYOUT, LAYOUTS
+
+#: Valid values of :attr:`SolveOptions.compaction`.
+COMPACTION_MODES = ("off", "chunked", "every_k")
+
+#: Valid values of :attr:`SolveOptions.resume`.
+RESUME_MODES = ("scratch", "basis")
 
 #: The port's default backend: the CUDA kernels.
 DEFAULT_BACKEND = "cuda"
@@ -81,7 +95,10 @@ class SolveOptions:
     """Solver configuration — one frozen record instead of loose knobs.
 
     Only the fields this port honours so far are here; the reference's
-    other knobs arrive with the slices that port them.
+    other knobs (retry, speculation, autotuning, meshes) arrive with the
+    slices that port them, and ``unroll``/``dynamic_caps``/``tile_b``
+    have no meaning in the port (``ROADMAP.md``, "TPU mechanics not
+    carried over").
 
     Parameters
     ----------
@@ -106,6 +123,33 @@ class SolveOptions:
     chunk_size : int, optional
         Split a dispatch into chunks of at most this many LPs (None = one
         chunk); bounds the tableau memory of one launch.
+    first_cap : int, optional
+        Legacy adaptive two-pass cap.  None disables the two-pass solve; 0
+        enables it with the auto cap ``8 (m + n)``; a positive value is
+        the explicit pass-1 cap.  Iteration counts continue across the
+        two passes.  Ignored when ``compaction`` is on.
+    compaction : str, default "off"
+        Convergence compaction (:data:`COMPACTION_MODES`):
+
+        * ``"off"``: one round; every LP of a launch runs until it stops.
+        * ``"chunked"``: a round at a small cap, then the LPs still
+          running, gathered into one dense sub-batch, at the full cap.
+        * ``"every_k"``: rounds at a doubling cap (k, 2k, 4k, ...); after
+          each, the finished LPs drop out and the survivors are gathered.
+
+        Both return results identical to ``"off"`` under the
+        deterministic rules (lpc, bland), on every backend.
+    compact_every : int, default 0
+        The first round's cap ``k``; 0 means ``8 (m + n)``.
+    resume : str, default "scratch"
+        How survivors continue (:data:`RESUME_MODES`): ``"scratch"``
+        re-solves them from iteration 0 at the larger cap; ``"basis"``
+        continues each from the exact state its round stopped at (the
+        tableau, the revised record or the PDHG iterates), so the
+        rounds' budgets sum to one full solve and the results, iteration
+        counts included, are bit-identical to ``"off"`` under lpc and
+        bland.  Backends without the state hooks (``reference``) run
+        scratch rounds instead.
     layout : str, optional
         Tableau layout, ``"compact"`` (None means this) or ``"dense"``;
         results are bit-identical.  ``pdhg`` rejects ``"dense"``.
@@ -122,6 +166,17 @@ class SolveOptions:
     route_frontier : int, default 0
         The ``"auto"`` frontier: ``max(m, n)`` at or above it routes to
         ``pdhg``; 0 means :data:`DEFAULT_ROUTE_FRONTIER`.
+    guardrails : bool, default True
+        Per-round numerical health mask
+        (``core/dispatch.py:apply_guardrails``): a row whose solution
+        claims OPTIMAL with a non-finite objective or point, or whose
+        carried state went non-finite, retires ``NUMERICAL``.  On a
+        healthy batch the results are bit-identical with it on or off.
+    quarantine : bool, default False
+        Re-solve the ``NUMERICAL`` rows with finite inputs on the float64
+        oracle under a ``max(400, 2 (m + n))`` pivot budget after the
+        rounds; the oracle's verdict replaces the flag where it reaches
+        one.
     """
 
     backend: str = DEFAULT_BACKEND
@@ -135,8 +190,23 @@ class SolveOptions:
     pdhg_restart: int = 0
     crossover: bool = False
     route_frontier: int = 0
+    first_cap: Optional[int] = None
+    compaction: str = "off"
+    compact_every: int = 0
+    resume: str = "scratch"
+    guardrails: bool = True
+    quarantine: bool = False
 
     def __post_init__(self):
+        if self.compaction not in COMPACTION_MODES:
+            raise ValueError(
+                f"unknown compaction mode {self.compaction!r}; "
+                f"expected one of {COMPACTION_MODES}"
+            )
+        if self.resume not in RESUME_MODES:
+            raise ValueError(
+                f"unknown resume mode {self.resume!r}; expected one of {RESUME_MODES}"
+            )
         if self.rule not in _engine.RULES:
             raise ValueError(
                 f"unknown pivot rule {self.rule!r}; expected one of {_engine.RULES}"
@@ -194,22 +264,56 @@ class SolveStats:
     simplex_iterations : int
         Total simplex pivots (PDHG steps on ``pdhg``) across the recorded
         LPs.
+    lockstep_iterations : int
+        ``max(iterations) * size`` summed per dispatch: the lockstep cost
+        model, in which every LP of a launch pays its slowest LP's count.
+        Compaction shrinks it toward ``simplex_iterations``.
     tableau_bytes : int
         Peak solver-state bytes of one dispatch (chunk size x bytes per
         LP: the tableau, the revised engine's basis state, or PDHG's
-        problem data and iterates).
+        problem data and iterates).  A compaction round counts its real
+        survivors; the reference pads them to a power of two first.
     warm_started : int
         LPs that entered a solve with a carried basis (support sweeps).
+    resumed : int
+        LPs that entered a round carrying exact mid-solve state
+        (``resume="basis"``).
+    quarantined : int
+        ``NUMERICAL`` rows re-solved on the float64 oracle
+        (``SolveOptions.quarantine``).
+    compiles : int
+        Kernel specialisations, one per (kernel source, dtype, variant),
+        that the recorded backend calls used for the first time in this
+        process (on CPU tensors a wrapper's plain version counts as the
+        variant ``"plain"``): the torch meaning of the reference's
+        new-executable count.  Nothing is compiled per shape or per cap
+        in the port, so this stops moving after the first call of each.
+    cache_hits : int
+        Recorded backend calls that used only specialisations launched
+        before.
     """
 
     lps: int = 0
     rounds: int = 0
     simplex_iterations: int = 0
+    lockstep_iterations: int = 0
     tableau_bytes: int = 0
     warm_started: int = 0
+    resumed: int = 0
+    quarantined: int = 0
+    compiles: int = 0
+    cache_hits: int = 0
 
     def record_tableau(self, nbytes: int) -> None:
         self.tableau_bytes = max(self.tableau_bytes, int(nbytes))
+
+    def record_cache(self, before: int, after: int) -> None:
+        """Book one backend call's specialisation delta: growth as ``compiles``,
+        none as one ``cache_hits``."""
+        if after > before:
+            self.compiles += after - before
+        else:
+            self.cache_hits += 1
 
     def record(self, sol: LPSolution) -> None:
         iters = sol.iterations
@@ -218,15 +322,42 @@ class SolveStats:
         self.lps += int(iters.numel())
         self.rounds += 1
         self.simplex_iterations += int(iters.sum())
+        self.lockstep_iterations += int(iters.max()) * int(iters.numel())
 
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """A named solver implementation over the canonical problem protocol."""
+    """A named solver implementation over the canonical problem protocol.
+
+    ``start_canonical`` solves like ``solve_canonical`` and also returns
+    the exact terminal state; ``resume_canonical`` continues a carried
+    state for ``options.max_iters`` ADDITIONAL steps (``batch.b``/``c``,
+    and ``a`` for the shared and PDHG engines, come back in);
+    ``init_canonical`` is the iteration-0 state, whose resume for K steps
+    is bit-identical to a cold solve at cap K.  ``cache_size`` counts the
+    specialisations the backend has used (``SolveStats.compiles``), and
+    ``auto_cap`` is the backend's cap for ``max_iters=0`` when it is not
+    ``50 (m + n)``.
+    """
 
     name: str
     solve_canonical: Callable[[LPBatch, SolveOptions], LPSolution]
     solve_hyperbox: Callable[..., LPSolution]
+    start_canonical: Optional[Callable[..., Tuple[LPSolution, object]]] = None
+    resume_canonical: Optional[Callable[..., Tuple[LPSolution, object]]] = None
+    init_canonical: Optional[Callable[..., object]] = None
+    cache_size: Optional[Callable[[], int]] = None
+    auto_cap: Optional[Callable[[int, int], int]] = None
+
+    @property
+    def supports_resume(self) -> bool:
+        """True when the backend implements the exact-state round protocol."""
+        return self.start_canonical is not None and self.resume_canonical is not None
+
+    @property
+    def supports_init(self) -> bool:
+        """True when new LPs can be materialised as iteration-0 states (the splice)."""
+        return self.supports_resume and self.init_canonical is not None
 
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -282,26 +413,59 @@ def route_shape(m: int, n: int, options: Optional[SolveOptions] = None,
 # ---------------------------------------------------------------------------
 
 
-def _torch_solve(batch: LPBatch, options: SolveOptions) -> LPSolution:
-    return _simplex.solve_batched(
-        batch.a, batch.b, batch.c, rule=options.rule, max_iters=options.max_iters,
-        seed=options.seed, tol=options.tolerance, basis0=batch.basis0,
-        layout=options.effective_layout,
-    )
+def kernel_cache_size() -> int:
+    """Kernel specialisations launched so far (``kernels/build.py:SPECIALIZATIONS``)."""
+    from ..kernels import build
+
+    return len(build.SPECIALIZATIONS)
+
+
+def _simplex_kw(options: SolveOptions) -> dict:
+    return dict(rule=options.rule, max_iters=options.max_iters, seed=options.seed,
+                tol=options.tolerance)
+
+
+def _torch_solve(batch: LPBatch, options: SolveOptions, want_state: bool = False):
+    return _simplex.solve_batched(batch.a, batch.b, batch.c, basis0=batch.basis0,
+                                  want_state=want_state, layout=options.effective_layout,
+                                  **_simplex_kw(options))
+
+
+def _torch_start(batch: LPBatch, options: SolveOptions):
+    return _torch_solve(batch, options, want_state=True)
+
+
+def _torch_resume(batch: LPBatch, state: ResumeState, options: SolveOptions):
+    return _simplex.resume_batched(batch.b, batch.c, state, **_simplex_kw(options))
+
+
+def _simplex_init(batch: LPBatch, options: SolveOptions) -> ResumeState:
+    # One tableau builder for both simplex backends: the kernel continues
+    # the plain version's iteration-0 state.
+    return _simplex.init_batched(batch.a, batch.b, batch.c, basis0=batch.basis0,
+                                 layout=options.effective_layout)
 
 
 def _torch_hyperbox(lo, hi, directions, options: SolveOptions) -> LPSolution:
     return _hyperbox.solve_batched(lo, hi, directions)
 
 
-def _cuda_solve(batch: LPBatch, options: SolveOptions) -> LPSolution:
+def _cuda_solve(batch: LPBatch, options: SolveOptions, want_state: bool = False):
     from ..kernels import ops as kernel_ops
 
-    return kernel_ops.simplex_solve(
-        batch.a, batch.b, batch.c, rule=options.rule, max_iters=options.max_iters,
-        seed=options.seed, tol=options.tolerance, basis0=batch.basis0,
-        layout=options.effective_layout,
-    )
+    return kernel_ops.simplex_solve(batch.a, batch.b, batch.c, basis0=batch.basis0,
+                                    want_state=want_state, layout=options.effective_layout,
+                                    **_simplex_kw(options))
+
+
+def _cuda_start(batch: LPBatch, options: SolveOptions):
+    return _cuda_solve(batch, options, want_state=True)
+
+
+def _cuda_resume(batch: LPBatch, state: ResumeState, options: SolveOptions):
+    from ..kernels import ops as kernel_ops
+
+    return kernel_ops.simplex_resume(batch.b, batch.c, state, **_simplex_kw(options))
 
 
 def _cuda_hyperbox(lo, hi, directions, options: SolveOptions) -> LPSolution:
@@ -319,32 +483,67 @@ def _cuda_hyperbox(lo, hi, directions, options: SolveOptions) -> LPSolution:
     )
 
 
-def _torch_shared_solve(batch: SharedLPBatch, options: SolveOptions) -> LPSolution:
-    return _revised.solve_batched(
-        batch.a, batch.b, batch.c, rule=options.rule, max_iters=options.max_iters,
-        seed=options.seed, tol=options.tolerance, basis0=batch.basis0,
-    )
+def _torch_shared_solve(batch: SharedLPBatch, options: SolveOptions, want_state: bool = False):
+    return _revised.solve_batched(batch.a, batch.b, batch.c, basis0=batch.basis0,
+                                  want_state=want_state, **_simplex_kw(options))
 
 
-def _cuda_shared_solve(batch: SharedLPBatch, options: SolveOptions) -> LPSolution:
+def _torch_shared_start(batch: SharedLPBatch, options: SolveOptions):
+    return _torch_shared_solve(batch, options, want_state=True)
+
+
+def _torch_shared_resume(batch: SharedLPBatch, state, options: SolveOptions):
+    # The revised engine prices against the shared A every step: it comes back.
+    return _revised.resume_batched(batch.a, batch.b, batch.c, state, **_simplex_kw(options))
+
+
+def _shared_init(batch: SharedLPBatch, options: SolveOptions):
+    return _revised.init_batched(batch.a, batch.b, batch.c, basis0=batch.basis0)
+
+
+def _cuda_shared_solve(batch: SharedLPBatch, options: SolveOptions, want_state: bool = False):
     from ..kernels import ops as kernel_ops
 
-    return kernel_ops.revised_solve(
-        batch.a, batch.b, batch.c, rule=options.rule, max_iters=options.max_iters,
-        seed=options.seed, tol=options.tolerance, basis0=batch.basis0,
-    )
+    return kernel_ops.revised_solve(batch.a, batch.b, batch.c, basis0=batch.basis0,
+                                    want_state=want_state, **_simplex_kw(options))
 
 
-def _pdhg_solve(batch: LPBatch, options: SolveOptions) -> LPSolution:
+def _cuda_shared_start(batch: SharedLPBatch, options: SolveOptions):
+    return _cuda_shared_solve(batch, options, want_state=True)
+
+
+def _cuda_shared_resume(batch: SharedLPBatch, state, options: SolveOptions):
+    from ..kernels import ops as kernel_ops
+
+    return kernel_ops.revised_resume(batch.a, batch.b, batch.c, state, **_simplex_kw(options))
+
+
+def _pdhg_kw(options: SolveOptions, want_state: bool) -> dict:
+    return dict(tol=options.pdhg_tol, restart=options.pdhg_restart,
+                max_iters=options.max_iters, want_state=want_state)
+
+
+def _pdhg_solve(batch: LPBatch, options: SolveOptions, want_state: bool = False):
     # basis0 is a simplex warm-start hint; a first-order method ignores it.
     from ..kernels import ops as kernel_ops
 
-    return kernel_ops.pdhg_solve(
-        batch.a, batch.b, batch.c, tol=options.pdhg_tol, restart=options.pdhg_restart,
-        max_iters=options.max_iters,
-    )
+    return kernel_ops.pdhg_solve(batch.a, batch.b, batch.c, **_pdhg_kw(options, want_state))
 
 
+def _pdhg_start(batch: LPBatch, options: SolveOptions):
+    return _pdhg_solve(batch, options, want_state=True)
+
+
+def _pdhg_resume(batch: LPBatch, state, options: SolveOptions):
+    # The matvecs read a every step: the full batch comes back.
+    from ..kernels import ops as kernel_ops
+
+    return kernel_ops.pdhg_resume(batch.a, batch.b, batch.c, state, **_pdhg_kw(options, True))
+
+
+def _pdhg_init(batch: LPBatch, options: SolveOptions):
+    # The cold solve is a resume of the all-zeros state.
+    return _pdhg.init_state(batch.batch, batch.m, batch.n, batch.a.dtype, batch.a.device)
 def _reference_solve(batch: LPBatch, options: SolveOptions) -> LPSolution:
     # The oracle has no warm-start path; basis0 is ignored (a hint).
     from . import oracle
@@ -378,11 +577,18 @@ def _reference_hyperbox(lo, hi, directions, options: SolveOptions) -> LPSolution
     )
 
 
-register_backend(Backend("cuda", _cuda_solve, _cuda_hyperbox))
-register_backend(Backend("torch", _torch_solve, _torch_hyperbox))
+register_backend(Backend("cuda", _cuda_solve, _cuda_hyperbox, _cuda_start, _cuda_resume,
+                         _simplex_init, kernel_cache_size))
+register_backend(Backend("torch", _torch_solve, _torch_hyperbox, _torch_start, _torch_resume,
+                         _simplex_init))
+# The float64 oracle carries no mid-solve state: resume="basis" on it runs
+# scratch rounds.
 register_backend(Backend("reference", _reference_solve, _reference_hyperbox))
-register_backend(Backend("cuda-shared", _cuda_shared_solve, _cuda_hyperbox))
-register_backend(Backend("torch-shared", _torch_shared_solve, _torch_hyperbox))
+register_backend(Backend("cuda-shared", _cuda_shared_solve, _cuda_hyperbox, _cuda_shared_start,
+                         _cuda_shared_resume, _shared_init, kernel_cache_size))
+register_backend(Backend("torch-shared", _torch_shared_solve, _torch_hyperbox,
+                         _torch_shared_start, _torch_shared_resume, _shared_init))
 # Box LPs are closed-form: the first-order backend's box leg is the
 # hyperbox kernel (the reference's is its plain xla closed form).
-register_backend(Backend("pdhg", _pdhg_solve, _cuda_hyperbox))
+register_backend(Backend("pdhg", _pdhg_solve, _cuda_hyperbox, _pdhg_start, _pdhg_resume,
+                         _pdhg_init, kernel_cache_size, _pdhg.auto_cap_pdhg))

@@ -1,41 +1,87 @@
-"""Chunked dispatch of LP batches to a backend.
+"""Round-scheduled, chunked dispatch of LP batches to a backend.
 
-Follows the plain path of ``repro/core/dispatch.py``: a solve is one
-round at the full iteration cap (the reference's one-round plan), and
-the round is split into ``SolveOptions.chunk_size`` chunks by slicing —
-the paper's device-capacity bound (Sec. 4.4).  Chunks are launched in
-order on the current stream; torch's asynchronous launches keep the card
-busy while the host slices the next chunk.
+Follows ``repro/core/dispatch.py``.  A solve is a *round plan*, a short
+list of per-round iteration caps (:func:`_round_plan`), run by one
+gather/dispatch/scatter loop (:func:`solve_canonical`):
+
+  * plain solving                -> one round at the full cap;
+  * ``SolveOptions.first_cap``   -> rounds ``[first_cap, full]``, with the
+    iteration counts continued across them (the legacy two-pass);
+  * ``compaction="chunked"``     -> rounds ``[k, full]``;
+  * ``compaction="every_k"``     -> rounds ``[k, 2k, 4k, ..., full]``.
+
+Round 0 dispatches the whole batch; each later round reads the status
+vector back (the one host sync per round), gathers the rows that hit the
+previous cap (``ITER_LIMIT``) into a dense sub-batch in ascending row
+order, dispatches only those, and scatters the results back in input
+order.  With ``resume="scratch"`` survivors restart from iteration 0;
+with ``resume="basis"`` they continue from the exact state the previous
+round stopped at, through the backend's state hooks
+(``kernels/ops.py:simplex_resume``, ``revised_resume``, ``pdhg_resume``
+on the card), so the rounds' budgets sum to one full solve.  Both are
+bit-identical to ``compaction="off"`` under lpc and bland.  A plain
+one-round solve reads nothing back.
+
+Each round is split into ``SolveOptions.chunk_size`` chunks by slicing,
+the paper's device-capacity bound (Sec. 4.4); torch's asynchronous
+launches keep the card busy while the host slices the next chunk.  The
+reference pads every later round to a power-of-two size class, so that
+XLA reuses one executable; a CUDA launch takes any batch size, so the
+port dispatches the survivors as they are (``ROADMAP.md``, "TPU
+mechanics not carried over").
+
+After every round the guardrails (:func:`apply_guardrails`) retire rows
+whose solution or carried state went non-finite as ``NUMERICAL``.  The
+post-passes run once, on the merged solution, in the reference's order:
+on ``pdhg`` the divergence certificates are confirmed on the float64
+oracle, then (``crossover=True``) the OPTIMAL rows are polished into
+vertices (``core/pdhg.py``); last, with ``quarantine=True``, the
+``NUMERICAL`` rows are re-solved on the oracle (:func:`_quarantine_resolve`).
 
 A :class:`~repro_torch.core.lp.SharedLPBatch` runs on the shared
 backends: ``cuda`` and ``torch`` promote to ``cuda-shared`` and
 ``torch-shared`` (:func:`resolve_backend`), another backend (such as
 ``reference`` or ``pdhg``) gets the densified batch, and a plain
-``LPBatch`` on a shared backend raises.  Shared chunks slice only
-``b``/``c``: the one ``A`` is never copied.
+``LPBatch`` on a shared backend raises.  Shared gathers take only
+``b``/``c``: the one ``A`` is never copied.  ``backend="auto"`` is
+resolved once per batch, by shape (``core/backends.py:route_shape``),
+so every round of a solve runs one backend.
 
-``backend="auto"`` is resolved once per batch, by shape
-(``core/backends.py:route_shape``).  On ``pdhg`` two post-passes run on
-the merged solution: every divergence certificate is confirmed on the
-float64 oracle, then, with ``crossover=True``, the OPTIMAL rows are
-polished into exact vertices (``core/pdhg.py``).
-
-Not here yet (later slices): convergence compaction and its round
-plans, exact round resume between rounds, guardrails and quarantine,
-fault injection and retry, speculation, and mesh sharding.
+Not here yet (later slices): fault injection and retry, speculation and
+mesh sharding.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import pdhg as _pdhg
 from . import revised as _revised
-from .backends import SHARED_BACKENDS, SolveOptions, SolveStats, get_backend, route_shape
+from .backends import (
+    SHARED_BACKENDS,
+    Backend,
+    SolveOptions,
+    SolveStats,
+    get_backend,
+    route_shape,
+)
 from .engine import LPC
-from .lp import LPBatch, LPSolution, SharedLPBatch, _tensor, resolve_device
+from .lp import (
+    ITER_LIMIT,
+    NUMERICAL,
+    OPTIMAL,
+    LPBatch,
+    LPSolution,
+    SharedLPBatch,
+    _tensor,
+    auto_cap,
+    concat_states,
+    resolve_device,
+)
 from .tableau import TableauSpec
 
 
@@ -62,6 +108,97 @@ def _concat_solutions(parts: Sequence[LPSolution]) -> LPSolution:
         basis=cat_optional("basis"),
         y=cat_optional("y"),
     )
+
+
+def _scatter_solution(full: LPSolution, idx: torch.Tensor, part: LPSolution,
+                      iter_offset: int = 0, accumulate: bool = False) -> LPSolution:
+    """``full`` with rows ``idx`` overwritten by ``part`` (the compaction scatter).
+
+    ``accumulate`` adds the part's iteration counts onto the rows'
+    totals (a resumed round reports only its own pivots) instead of
+    replacing them; ``iter_offset`` is added to replaced counts (the
+    legacy two-pass).  A ``basis``/``y`` present in only one of the two
+    is dropped rather than fabricated.
+    """
+    def put(dst, src):
+        out = dst.clone()
+        out[idx] = src
+        return out
+
+    basis = full.basis
+    if basis is not None and part.basis is not None:
+        basis = put(basis, part.basis)
+    elif part.basis is not None:
+        basis = None
+    y = full.y
+    if y is not None and part.y is not None:
+        y = put(y, part.y)
+    elif part.y is not None:
+        y = None
+    if accumulate:
+        iterations = full.iterations.clone()
+        iterations[idx] += part.iterations
+    else:
+        iterations = put(full.iterations, part.iterations + iter_offset)
+    return LPSolution(
+        objective=put(full.objective, part.objective),
+        x=put(full.x, part.x),
+        status=put(full.status, part.status),
+        iterations=iterations,
+        basis=basis,
+        y=y,
+    )
+
+
+def _full_cap(batch, options: SolveOptions, backend: Optional[Backend] = None) -> int:
+    """The effective iteration cap: ``max_iters``, or the backend's auto rule.
+
+    ``pdhg`` has its own (``core/pdhg.py:auto_cap_pdhg``), the simplex
+    backends ``50 (m + n)``.  The round plan and a plain solve must agree
+    on it: that keeps compaction identical to ``compaction="off"``.
+    """
+    if options.max_iters > 0:
+        return options.max_iters
+    cap_fn = (backend.auto_cap if backend is not None else None) or auto_cap
+    return cap_fn(batch.m, batch.n)
+
+
+def _round_cap(batch, options: SolveOptions, backend: Optional[Backend] = None) -> int:
+    """The first compaction round's budget (``compact_every``, 0 -> ``8 (m + n)``)."""
+    k = options.compact_every if options.compact_every > 0 else 8 * (batch.m + batch.n)
+    return min(k, _full_cap(batch, options, backend))
+
+
+def _round_plan(batch, options: SolveOptions, incremental: bool = False,
+                backend: Optional[Backend] = None) -> Tuple[Sequence[int], bool]:
+    """Lower ``options`` to per-round caps: ``(caps, carry_iters)``.
+
+    Round 0 dispatches the whole batch at ``caps[0]``; round r > 0 the
+    rows that hit round r-1's cap, at ``caps[r]``.  Without
+    ``incremental`` (scratch rounds) each cap counts from iteration 0;
+    with it (basis resume) each is the round's ADDITIONAL budget, and the
+    budgets sum to the full cap.  ``carry_iters`` is True only for the
+    legacy two-pass, whose counts continue across its rounds.
+    """
+    full_cap = _full_cap(batch, options, backend)
+    if options.compaction == "chunked":
+        cap = _round_cap(batch, options, backend)
+        if cap >= full_cap:
+            return [cap], False
+        return ([cap, full_cap - cap] if incremental else [cap, full_cap]), False
+    if options.compaction == "every_k":
+        cap = _round_cap(batch, options, backend)
+        caps = [cap]
+        cum = cap
+        while cum < full_cap:
+            inc = min(cum, full_cap - cum)  # the cumulative budget doubles
+            caps.append(inc if incremental else cum + inc)
+            cum += inc
+        return caps, False
+    if options.first_cap is not None:
+        first = options.first_cap or 8 * (batch.m + batch.n)
+        return [first, full_cap], True
+    return [full_cap], False
 
 
 def resolve_backend(options: SolveOptions, shared: bool = False,
@@ -92,17 +229,113 @@ def resolve_backend(options: SolveOptions, shared: bool = False,
     return options
 
 
+def _finite_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-row all-finite mask over the trailing axes: ``(B, ...) -> (B,)``."""
+    return torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=-1)
+
+
+def state_health(state) -> Optional[torch.Tensor]:
+    """(B,) bool: the rows of a carried state whose floating tensors are all finite.
+
+    Covers every state record (the tableau of a
+    :class:`~repro_torch.core.lp.ResumeState`, ``binv``/``xb`` of the
+    revised record, the PDHG iterates).  None for a state with no
+    floating tensor.
+    """
+    ok = None
+    for f in dataclasses.fields(state):
+        leaf = getattr(state, f.name)
+        if not leaf.is_floating_point():
+            continue
+        rows = _finite_rows(leaf)
+        ok = rows if ok is None else ok & rows
+    return ok
+
+
+def apply_guardrails(sol: LPSolution, state=None) -> LPSolution:
+    """Retire non-finite rows with the ``NUMERICAL`` status.
+
+    A row is flagged when it claims OPTIMAL with a non-finite objective
+    or point, or when its carried state (row-aligned with ``sol``) holds
+    a non-finite value.  Other non-OPTIMAL rows carry -inf objectives by
+    design and pass.  Flagged rows report ``NUMERICAL``, objective NaN
+    and a zero point.  On a healthy batch every select is the identity,
+    so results are bit-identical with the guardrails on or off; the mask
+    is a few element-wise launches and no host sync.
+    """
+    bad = (sol.status == OPTIMAL) & ~(torch.isfinite(sol.objective) & _finite_rows(sol.x))
+    if state is not None:
+        healthy = state_health(state)
+        if healthy is not None:
+            bad = bad | ~healthy
+    return LPSolution(
+        objective=torch.where(bad, torch.full_like(sol.objective, float("nan")), sol.objective),
+        x=torch.where(bad[:, None], torch.zeros_like(sol.x), sol.x),
+        status=torch.where(bad, torch.full_like(sol.status, NUMERICAL), sol.status),
+        iterations=sol.iterations,
+        basis=sol.basis,
+        y=sol.y,
+    )
+
+
+def _quarantine_resolve(batch, sol: LPSolution, options: SolveOptions,
+                        stats: Optional[SolveStats] = None) -> LPSolution:
+    """Re-solve the ``NUMERICAL`` rows on the float64 oracle (``quarantine=True``).
+
+    Rows whose inputs are not finite are left flagged (no verdict is
+    possible); the rest run through ``core/oracle.py:solve_batch`` under
+    a ``max(400, 2 (m + n))`` pivot budget, as the certificate
+    confirmation does.  A row takes the oracle's verdict where it
+    reaches one (OPTIMAL, UNBOUNDED, INFEASIBLE) and stays ``NUMERICAL``
+    otherwise: no certificate is fabricated.
+    """
+    status = sol.status.cpu().numpy()
+    flagged = np.nonzero(status == NUMERICAL)[0]
+    if flagged.size == 0:
+        return sol
+    from . import oracle as _oracle
+
+    dev = sol.status.device
+    sub = batch.take(torch.as_tensor(flagged, device=batch.b.device))
+    if isinstance(sub, SharedLPBatch):
+        sub = sub.densify()
+    a, b, c = (t.cpu().double().numpy() for t in (sub.a, sub.b, sub.c))
+    finite = np.isfinite(a).all(axis=(1, 2)) & np.isfinite(b).all(axis=1) & np.isfinite(c).all(axis=1)
+    keep = np.nonzero(finite)[0]
+    if keep.size == 0:
+        return sol
+    obj, xs, ostatus, iters = _oracle.solve_batch(
+        a[keep], b[keep], c[keep], max_iters=max(400, 2 * (batch.m + batch.n)))
+    if stats is not None:
+        stats.quarantined += int(keep.size)
+    confirmed = np.nonzero(ostatus != ITER_LIMIT)[0]
+    if confirmed.size == 0:
+        return sol
+    rows = torch.as_tensor(flagged[keep[confirmed]], device=dev)
+    part = LPSolution(
+        objective=torch.as_tensor(obj[confirmed], device=dev).to(sol.objective.dtype),
+        x=torch.as_tensor(xs[confirmed], device=dev).to(sol.x.dtype),
+        status=torch.as_tensor(ostatus[confirmed], dtype=torch.int32, device=dev),
+        iterations=torch.as_tensor(iters[confirmed], dtype=torch.int32, device=dev),
+    )
+    return _scatter_solution(sol, rows, part)
+
+
 def solve_canonical(
     batch: Union[LPBatch, SharedLPBatch],
     options: Optional[SolveOptions] = None,
     stats: Optional[SolveStats] = None,
 ) -> LPSolution:
-    """Solve a canonical batch (``max c.x, Ax <= b, x >= 0``) in one round.
+    """Solve a canonical batch (``max c.x, Ax <= b, x >= 0``): the round scheduler.
 
-    Runs where the batch's tensors live.  A ``SharedLPBatch`` runs on the
-    shared backends, or densified on an explicitly named other backend;
-    an ``LPBatch`` on a shared backend raises ``ValueError``.  Returns one
-    result row per input LP, in input order.
+    ``options`` picks the round plan (:func:`_round_plan`: one round, the
+    legacy ``first_cap`` two-pass, or ``compaction`` with scratch or
+    basis ``resume``; compaction wins over ``first_cap``).  Runs where
+    the batch's tensors live.  A ``SharedLPBatch`` runs on the shared
+    backends, or densified on an explicitly named other backend; an
+    ``LPBatch`` on a shared backend raises ``ValueError``.  ``stats``
+    accumulates the counters of every dispatch (one sync each).  Returns
+    one result row per input LP, in input order.
     """
     options = options or SolveOptions()
     if batch.batch == 0:
@@ -119,7 +352,48 @@ def solve_canonical(
             "this batch carries a per-LP constraint matrix: solve it on a tableau "
             "backend, or build a SharedLPBatch"
         )
-    sol = dispatch_round(batch, options, stats)
+    backend = get_backend(options.backend)
+    use_resume = (options.resume == "basis" and options.compaction != "off"
+                  and backend.supports_resume)
+    caps, carry_iters = _round_plan(batch, options, incremental=use_resume, backend=backend)
+    base = options.replace(compaction="off", first_cap=None, resume="scratch")
+
+    sol: Optional[LPSolution] = None
+    state = None
+    state_idx: Optional[np.ndarray] = None  # the rows `state` holds (None: all)
+    iter_offset = 0
+    for r, cap in enumerate(caps):
+        want_state = use_resume and r < len(caps) - 1
+        if sol is None:
+            idx, active, sub, sub_state = None, None, batch, None
+        else:
+            # The round's one host sync: which rows hit the last cap.
+            active = torch.nonzero(sol.status == ITER_LIMIT).flatten().cpu().numpy()
+            if active.size == 0:
+                break
+            idx = torch.as_tensor(active, device=batch.b.device)
+            sub = batch.take(idx)  # a shared batch gathers b/c, never A
+            sub_state = None
+            if state is not None:
+                # Survivors are a subset of the rows the last round held.
+                local = active if state_idx is None else np.searchsorted(state_idx, active)
+                sub_state = state.take(torch.as_tensor(local, device=batch.b.device))
+                state = None  # the round's gathered copy is all that is needed
+        part, part_state = dispatch_round(sub, base.replace(max_iters=cap), stats,
+                                          state=sub_state, want_state=want_state)
+        if options.guardrails:
+            part = apply_guardrails(part, part_state)
+        if stats is not None and sub_state is not None:
+            stats.resumed += sub.batch
+        if idx is None:
+            sol = part
+        else:
+            sol = _scatter_solution(sol, idx, part, iter_offset=iter_offset,
+                                    accumulate=use_resume)
+            state_idx = active
+        state = part_state
+        if carry_iters:
+            iter_offset += cap
     if options.backend == "pdhg":
         # Both post-passes run once, on the merged solution.  Confirmation
         # first: it may revoke a heuristic flag, and crossover polishes
@@ -127,16 +401,24 @@ def solve_canonical(
         sol = _pdhg.confirm_certificates(batch, sol, options)
         if options.crossover:
             sol = _pdhg.crossover(batch, sol, options)
+    if options.quarantine:
+        # Last: it reads only NUMERICAL rows, which neither post-pass touches.
+        sol = _quarantine_resolve(batch, sol, options, stats)
     return sol
 
 
 def dispatch_round(
     batch: Union[LPBatch, SharedLPBatch], options: SolveOptions,
-    stats: Optional[SolveStats] = None,
-) -> LPSolution:
-    """One dispatch round: chunk, solve, concatenate, record.
+    stats: Optional[SolveStats] = None, state=None, want_state: bool = False,
+):
+    """One dispatch round: chunk, solve, concatenate, record -> ``(LPSolution, state)``.
 
-    The only place that talks to a backend for canonical batches.
+    The only place that talks to a backend for canonical batches (the
+    round scheduler above and ``SolveSession.resume_round``).
+    ``options.max_iters`` is the round's budget and ``options.backend``
+    a concrete name.  ``state`` continues a carried state (row-aligned
+    with ``batch``); ``want_state`` returns the terminal state, else
+    ``None``.
     """
     backend = get_backend(options.backend)
     bsz = batch.batch
@@ -150,13 +432,26 @@ def dispatch_round(
             per_lp = TableauSpec(batch.m, batch.n, options.effective_layout).bytes_per_lp(
                 batch.a.dtype)
         stats.record_tableau(min(chunk, bsz) * per_lp)
-    parts = []
+    parts, state_parts = [], []
     for lo in range(0, bsz, chunk):
-        out = backend.solve_canonical(batch.take(slice(lo, min(lo + chunk, bsz))), options)
+        rows = slice(lo, min(lo + chunk, bsz))
+        cur = batch.take(rows)
+        before = backend.cache_size() if stats is not None and backend.cache_size else None
+        if state is not None:
+            out, out_state = backend.resume_canonical(cur, state.take(rows), options)
+        elif want_state:
+            out, out_state = backend.start_canonical(cur, options)
+        else:
+            out, out_state = backend.solve_canonical(cur, options), None
+        if before is not None:
+            stats.record_cache(before, backend.cache_size())
         if stats is not None:
             stats.record(out)
         parts.append(out)
-    return parts[0] if len(parts) == 1 else _concat_solutions(parts)
+        if out_state is not None:
+            state_parts.append(out_state)
+    sol = parts[0] if len(parts) == 1 else _concat_solutions(parts)
+    return sol, (concat_states(state_parts) if want_state else None)
 
 
 def solve_hyperbox(

@@ -9,7 +9,9 @@ the CUDA simplex kernel (``kernels/csrc/simplex.cu``) is held against
 bit for bit on the card.  The determinism rules that make that hold:
 
 * every product and sum is its own rounded operation (no fused
-  multiply-add; the kernel is built with ``-fmad=false``);
+  multiply-add; the kernel is built with ``-fmad=false``), except the
+  float32 rank-1 update (:func:`rank1_update`), which rounds once as
+  XLA's contracted loop does;
 * the phase-II pricing ``c_ext - c_B . T`` and the phase-I value
   (:func:`phase1_value`) sum over the m rows in ascending order, one
   multiply and one add per row (no ``bmm``);
@@ -61,6 +63,25 @@ def default_tolerance(dtype) -> float:
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` rounded to ``like``'s dtype, as a 0-dim tensor."""
     return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def rank1_update(tab: torch.Tensor, col: torch.Tensor, npr: torch.Tensor) -> torch.Tensor:
+    """``tab - col[:, :, None] * npr[:, None, :]``, in float32 rounded once.
+
+    The reference's jitted loop contracts this update into a fused
+    multiply-add (``repro/core/engine.py:pivot_update``), and at the
+    paper's 100x100 size twice-rounded float32 updates change pivot
+    trajectories.  So float32 computes the product (exact in float64)
+    and the difference in float64 and rounds once to float32; the CUDA
+    kernel takes the same route (``csrc/common.cuh:Arith::fms``), bit for
+    bit.  It can differ from a true FMA by a double rounding in rare last
+    bits.  float64 stays one multiply and one subtract.
+    """
+    if tab.dtype == torch.float32:
+        wide = torch.float64
+        prod = col.to(wide)[:, :, None] * npr.to(wide)[:, None, :]
+        return (tab.to(wide) - prod).to(tab.dtype)
+    return tab - col[:, :, None] * npr[:, None, :]
 
 
 def phase1_feasibility_tol(b: torch.Tensor) -> torch.Tensor:
@@ -253,8 +274,8 @@ def pivot_update(tab, basis, e, l, full_col, do_pivot, spec: TableauSpec, tol: f
     """Masked rank-1 Gauss-Jordan step around pivot ``(l, e)``.
 
     ``tab[l] /= tab[l, e]``; every other row subtracts its pivot-column
-    multiple of the normalized row, as one multiply and one subtract.
-    LPs with ``do_pivot`` False keep their tableau and basis.
+    multiple of the normalized row (:func:`rank1_update`).  LPs with
+    ``do_pivot`` False keep their tableau and basis.
     """
     m = spec.m
     bsz = tab.shape[0]
@@ -264,7 +285,7 @@ def pivot_update(tab, basis, e, l, full_col, do_pivot, spec: TableauSpec, tol: f
     pe = full_col[ar, l64]  # (B,)
     pe_safe = torch.where(pe.abs() > _const(tol, tab), pe, torch.ones_like(pe))
     npr = pr / pe_safe[:, None]
-    updated = tab - full_col[:, :, None] * npr[:, None, :]
+    updated = rank1_update(tab, full_col, npr)
     updated[ar, l64, :] = npr
     tab = torch.where(do_pivot[:, None, None], updated, tab)
     row_ids = torch.arange(m, device=tab.device)[None, :]

@@ -194,6 +194,24 @@ class ResumeState:
     def batch(self) -> int:
         return self.tab.shape[0]
 
+    def take(self, idx) -> "ResumeState":
+        """Gather state rows (a slice or an index tensor): the compaction gather."""
+        return ResumeState(self.tab[idx], self.basis[idx], self.phase[idx])
+
+
+def concat_states(parts):
+    """Row-wise concatenation of resume states of one flavor (the chunks of a round).
+
+    Works for every state record of the library (:class:`ResumeState`,
+    the revised and PDHG records): each is a frozen dataclass of
+    batch-leading tensors, as the reference's pytree concatenation
+    assumes.
+    """
+    first = parts[0]
+    if len(parts) == 1:
+        return first
+    return type(first)(*(torch.cat([getattr(p, f.name) for p in parts])
+                         for f in dataclasses.fields(first)))
 
 
 @dataclasses.dataclass(frozen=True)

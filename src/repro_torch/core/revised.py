@@ -76,6 +76,10 @@ class RevisedResumeState:
     def batch(self) -> int:
         return self.basis.shape[0]
 
+    def take(self, idx) -> "RevisedResumeState":
+        """Gather state rows (a slice or an index tensor)."""
+        return RevisedResumeState(self.binv[idx], self.basis[idx], self.xb[idx], self.phase[idx])
+
 
 @dataclasses.dataclass(frozen=True)
 class _RState:

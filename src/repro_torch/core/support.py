@@ -28,6 +28,7 @@ import torch
 from . import dispatch as _dispatch
 from . import hyperbox as _hyperbox
 from . import revised as _revised
+from . import session as _session
 from .backends import SHARED_BACKENDS, SolveOptions, SolveStats
 from .lp import OPTIMAL, LPBatch, LPSolution, SharedLPBatch, _tensor, resolve_device
 from .problem import LPProblem, canonicalize, uncanonicalize
@@ -135,17 +136,37 @@ class Polytope:
         feasible for step s: with ``warm_start`` each step starts from it
         and skips phase I.  ``shared`` (default: whether ``options`` names
         a shared backend) runs the sweep on the revised engine over one
-        stored ``[A | -A]``; otherwise each step is a dense solve that
-        carries ``LPSolution.basis``.  ``stats`` accumulates the per-step
-        counters, ``warm_started`` among them.  Returns the (S, K) support
-        values; a warm search may stop at another vertex of a non-unique
-        optimum, never at another optimum value.
+        stored ``[A | -A]``.  Otherwise each step is a dense solve that
+        carries ``LPSolution.basis``: through ``core/session.py:
+        sweep_problems`` where it applies (a warm sweep on ``cuda``,
+        ``torch`` or ``auto``, one round a step: a device loop read back
+        once, at the end), else the loop :meth:`step_sweep`.  ``stats``
+        accumulates the per-step counters, ``warm_started`` among them.
+        Returns the (S, K) support values; a warm search may stop at
+        another vertex of a non-unique optimum, never at another optimum
+        value.
         """
         opts = options or SolveOptions()
         if shared is None:
             shared = opts.backend in SHARED_BACKENDS
         if shared:
             return self._shared_sweep(direction_stack, opts, warm_start, stats, device)
+        if warm_start and _session.sweep_supported(opts):
+            template = self.to_problem(direction_stack[0], device=device)
+            return _session.sweep_problems(template, direction_stack, opts, stats=stats)
+        return self.step_sweep(direction_stack, options, warm_start, stats, device)
+
+    def step_sweep(self, direction_stack, options: Optional[SolveOptions] = None,
+                   warm_start: bool = True, stats: Optional[SolveStats] = None,
+                   device=None) -> torch.Tensor:
+        """The dense sweep as a loop of solves, one solve a step.
+
+        :meth:`support_sweep` takes it where ``core/session.py:
+        sweep_problems`` does not apply (a cold sweep, chunking,
+        compaction, another backend).  With ``warm_start`` each step
+        passes the last step's bases of the LPs that ended OPTIMAL as
+        ``basis0``.  Every step reads its results back.
+        """
         outs = []
         basis = None
         for dirs in direction_stack:

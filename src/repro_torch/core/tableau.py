@@ -90,6 +90,7 @@ def build_tableau(
     c: torch.Tensor,
     basis0: Optional[torch.Tensor] = None,
     spec: Optional[TableauSpec] = None,
+    phase1_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The batched two-phase tableau, basis and phase for ``(a, b, c)``.
 
@@ -97,6 +98,9 @@ def build_tableau(
     ``phase`` (B,) int32: 1 where some ``b_i < 0`` needs phase I, else 2.
     Rows of a usable warm basis ``basis0`` start from ``B^-1 [b | A | I]``
     in phase II; the others fall back to the cold start.
+    ``phase1_rows`` are the indices of the LPs with some ``b_i < 0`` where
+    the caller knows them already (a sweep, whose ``b`` never changes):
+    finding them here reads the device back.
     """
     bsz, m, n = a.shape
     if spec is None:
@@ -122,7 +126,7 @@ def build_tableau(
     # Phase-I objective row (maximize -sum of artificials), priced out
     # over the artificial rows in ascending row order; built only for the
     # LPs that need it.
-    p1 = need_phase1.nonzero().flatten()
+    p1 = need_phase1.nonzero().flatten() if phase1_rows is None else phase1_rows
     if p1.numel():
         negf = neg[p1].to(dtype)
         obj1 = torch.zeros((p1.numel(), q), dtype=dtype, device=dev)

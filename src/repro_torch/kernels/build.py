@@ -27,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Set, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -43,6 +43,18 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+#: Kernel specialisations launched so far in this process: one
+#: ``(source, dtype, variant)`` key per kernel variant and dtype, where a
+#: wrapper's plain version on CPU tensors counts as the variant
+#: ``"plain"``.  ``SolveStats.compiles``/``cache_hits`` diff its size
+#: around each backend call (``core/backends.py:kernel_cache_size``).
+SPECIALIZATIONS: Set[Tuple[str, str, str]] = set()
+
+
+def note_specialization(source: str, dtype, variant: str) -> None:
+    """Record that a launch used ``source``'s ``variant`` in ``dtype``."""
+    SPECIALIZATIONS.add((source, str(dtype), variant))
 
 
 def build_dir() -> Path:

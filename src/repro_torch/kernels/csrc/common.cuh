@@ -25,7 +25,11 @@ constexpr int WARPS = THREADS / 32;
 
 // Every multiply, add, subtract and divide as one IEEE-rounded operation
 // (the library is also built -fmad=false), as the plain PyTorch versions
-// compute them.
+// compute them.  fms(a, b, c) = a - b * c is the tableau's rank-1 update:
+// in float it takes the float64 route of core/engine.py:rank1_update (the
+// product is exact in double, the difference rounds once there and once to
+// float), which follows the reference's contracted update; in double it is
+// one multiply and one subtract.
 template <typename T> struct Arith;
 
 template <> struct Arith<float> {
@@ -33,6 +37,9 @@ template <> struct Arith<float> {
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+  static __device__ __forceinline__ float fms(float a, float b, float c) {
+    return __double2float_rn(__dsub_rn((double)a, __dmul_rn((double)b, (double)c)));
+  }
 };
 
 template <> struct Arith<double> {
@@ -40,6 +47,9 @@ template <> struct Arith<double> {
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
+  static __device__ __forceinline__ double fms(double a, double b, double c) {
+    return __dsub_rn(a, __dmul_rn(b, c));
+  }
 };
 
 // lowbias32 finalizer, as src/repro/core/engine.py:_mix32.

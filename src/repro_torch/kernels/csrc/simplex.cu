@@ -143,7 +143,7 @@ simplex_kernel(T* __restrict__ tab, int* __restrict__ basis, int* __restrict__ p
     for (int k = tid; k < total; k += THREADS) {
       const int i = k / q;
       const int j = k - i * q;
-      t[k] = i == l ? npr[j] : A::sub(t[k], A::mul(col[i], npr[j]));
+      t[k] = i == l ? npr[j] : A::fms(t[k], col[i], npr[j]);
     }
     if (tid == 0) bas[l] = e;
     ++iters;
@@ -338,10 +338,10 @@ simplex_cluster_kernel(T* __restrict__ tab, int* __restrict__ basis, int* __rest
         for (int j = lane; j < q; j += 32) row[j] = npr[j];
       } else {
         const T ci = col[li];
-        for (int j = lane; j < q; j += 32) row[j] = A::sub(row[j], A::mul(ci, npr[j]));
+        for (int j = lane; j < q; j += 32) row[j] = A::fms(row[j], ci, npr[j]);
       }
     }
-    for (int j = tid; j < q; j += THREADS) obj[j] = A::sub(obj[j], A::mul(col_obj, npr[j]));
+    for (int j = tid; j < q; j += THREADS) obj[j] = A::fms(obj[j], col_obj, npr[j]);
     if (tid == 0 && rank == owner) bas[ll] = e;
     ++iters;
     __syncthreads();

@@ -51,7 +51,10 @@ def hyperbox_plain(lo, hi, directions) -> torch.Tensor:
 def hyperbox(lo, hi, directions) -> torch.Tensor:
     """Box support values (B,) of ``directions`` (B, n)."""
     global launches
+    from . import build  # the library is built at first launch, never at import
+
     if not directions.is_cuda:
+        build.note_specialization("hyperbox", directions.dtype, "plain")
         return hyperbox_plain(lo, hi, directions)
     d = directions
     if d.dim() != 2 or d.dtype not in _SYMBOLS or not d.is_contiguous():
@@ -62,8 +65,6 @@ def hyperbox(lo, hi, directions) -> torch.Tensor:
     out = torch.empty((d.shape[0],), dtype=d.dtype, device=d.device)
     if d.shape[0] == 0:
         return out
-    from . import build  # the library is built at first launch, never at import
-
     lib = build.load("hyperbox")
     fn = getattr(lib, _SYMBOLS[d.dtype])
     fn.restype = ctypes.c_int
@@ -81,4 +82,5 @@ def hyperbox(lo, hi, directions) -> torch.Tensor:
         msg = lib.hyperbox_error_string(err).decode()
         raise RuntimeError(f"hyperbox kernel launch failed: CUDA error {err} ({msg})")
     launches += 1
+    build.note_specialization("hyperbox", d.dtype, "kernel")
     return out

@@ -113,10 +113,12 @@ def pdhg(a, b, c, state: _pdhg.PDHGResumeState, tau, sigma, scales, cap: int, *,
     global launches
     if _k is not None and a.dim() == 3:
         plan(a.shape[1], a.shape[2], a.dtype, a.device, _k)
+    from . import build  # the library is built at first launch, never at import
+
     if not a.is_cuda:
+        build.note_specialization("pdhg", a.dtype, "plain")
         return pdhg_plain(a, b, c, state, tau, sigma, scales, cap, tol=tol, restart=restart)
     _check(a, b, c, state, tau, sigma, scales)
-    from . import build  # the library is built at first launch, never at import
 
     lib = build.load("pdhg")
     bsz, m, n = a.shape
@@ -149,4 +151,5 @@ def pdhg(a, b, c, state: _pdhg.PDHGResumeState, tau, sigma, scales, cap: int, *,
                            f"CUDA error {err} ({msg})")
     launches += 1
     variant_launches[how.variant] += 1
+    build.note_specialization("pdhg", a.dtype, how.variant)
     return status, iters

@@ -124,10 +124,13 @@ def _raise(lib, err: int, how: cluster.Plan, what: str):
     raise RuntimeError(f"revised {what} ({how.variant}) launch failed: CUDA error {err} ({msg})")
 
 
-def _count(how: cluster.Plan):
+def _count(how: cluster.Plan, entry: str, dtype):
     global launches
+    from . import build
+
     launches += 1
     variant_launches[how.variant] += 1
+    build.note_specialization(entry, dtype, how.variant)
 
 
 def revised(a, b, c, binv, basis, xb, phase, feas, cap: int, *, rule: str = LPC,
@@ -142,6 +145,9 @@ def revised(a, b, c, binv, basis, xb, phase, feas, cap: int, *, rule: str = LPC,
     m, n = a.shape
     how = cluster.plan_revised(m, n, a.dtype, _variant)
     if not a.is_cuda:
+        from . import build
+
+        build.note_specialization("revised", a.dtype, "plain")
         return revised_plain(a, b, c, binv, basis, xb, phase, feas, cap, rule=rule, seed=seed,
                              tol=tol)
     _check(a, b, c, feas, (binv, basis, xb, phase))
@@ -170,7 +176,7 @@ def revised(a, b, c, binv, basis, xb, phase, feas, cap: int, *, rule: str = LPC,
         )
     if err != 0:
         _raise(lib, err, how, "kernel")
-    _count(how)
+    _count(how, "revised", a.dtype)
     return obj, x, status, iters
 
 
@@ -186,6 +192,9 @@ def revised_sweep(a, b, c_stack, feas, cap: int, *, rule: str = LPC, seed: int =
     m, n = a.shape
     how = cluster.plan_revised(m, n, a.dtype, _variant)
     if not a.is_cuda:
+        from . import build
+
+        build.note_specialization("revised_sweep", a.dtype, "plain")
         return revised_sweep_plain(a, b, c_stack, feas, cap, rule=rule, seed=seed, tol=tol,
                                    warm=warm)
     _check(a, b, c_stack, feas, steps=c_stack.shape[0])
@@ -216,5 +225,5 @@ def revised_sweep(a, b, c_stack, feas, cap: int, *, rule: str = LPC, seed: int =
         )
     if err != 0:
         _raise(lib, err, how, "sweep")
-    _count(how)
+    _count(how, "revised_sweep", a.dtype)
     return obj, x, status, iters

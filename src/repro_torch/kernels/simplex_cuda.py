@@ -115,16 +115,17 @@ def simplex(tab, basis, phase, c_ext, feas, cap: int, *, spec: TableauSpec,
     the global variant; a cluster the device cannot schedule raises.
     """
     global launches
+    from . import build  # the library is built at first launch, never at import
+
     if _k is not None:
         plan(spec, tab.dtype, tab.device, _k)
     if not tab.is_cuda:
+        build.note_specialization("simplex", tab.dtype, "plain")
         return simplex_plain(tab, basis, phase, c_ext, feas, cap, spec=spec,
                              rule=rule, seed=seed, tol=tol)
     _check(tab, basis, phase, c_ext, feas, spec)
     if rule not in _RULE_CODES:
         raise ValueError(f"unknown pivot rule {rule!r}")
-    from . import build  # the library is built at first launch, never at import
-
     lib = build.load("simplex")
     how = plan(spec, tab.dtype, tab.device, _k)
     on_cluster = how.variant == cluster.CLUSTER
@@ -157,4 +158,5 @@ def simplex(tab, basis, phase, c_ext, feas, cap: int, *, spec: TableauSpec,
                            f"CUDA error {err} ({msg})")
     launches += 1
     variant_launches[how.variant] += 1
+    build.note_specialization("simplex", tab.dtype, how.variant)
     return obj, x, status, iters

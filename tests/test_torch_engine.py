@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.core import engine as jengine
 from repro.core.tableau import TableauSpec as JSpec
@@ -92,7 +93,13 @@ def test_ratio_test_and_pivot_update(dtype, layout):
     assert np.array_equal(r_t.numpy(), np.asarray(r_j))
     assert np.array_equal(col_t.numpy(), np.asarray(col_j))
 
-    tab_j, basis_j = jengine.pivot_update(
+    # float32: the port rounds the rank-1 update once, as XLA's jitted
+    # block contracts it into a fused multiply-add; float64 stays unfused,
+    # as the un-jitted block computes it.
+    update = jengine.pivot_update
+    if dtype == np.float32:
+        update = jax.jit(update, static_argnames=("spec", "tol", "gather"))
+    tab_j, basis_j = update(
         jnp.asarray(tab), jnp.asarray(basis), jnp.asarray(e), l_j, col_j,
         jnp.asarray(do_pivot), js, 1e-5, gather=True,
     )

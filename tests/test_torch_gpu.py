@@ -635,3 +635,83 @@ def test_wrappers_raise_on_a_cluster_the_card_cannot_take():
     spec = TableauSpec(500, 500)
     with pytest.raises(ValueError, match="shared memory"):
         _simplex_at_k(batch, spec, "lpc", 10, 2)
+
+
+# ---------------------------------------------------------------------------
+# compaction rounds on the card: every round a kernel launch
+# ---------------------------------------------------------------------------
+
+
+def _rounds_bit_equal(batch, backend, counter, fields, **kw):
+    base = repro_torch.SolveOptions(backend=backend, **kw)
+    off = repro_torch.solve(batch, base)
+    for mode, resume in (("every_k", "basis"), ("chunked", "scratch"), ("every_k", "scratch")):
+        before = counter.launches
+        stats = repro_torch.SolveStats()
+        sol = repro_torch.solve(batch, base.replace(compaction=mode, resume=resume,
+                                                    compact_every=16), stats=stats)
+        torch.cuda.synchronize()
+        assert counter.launches - before == stats.rounds > 1, (mode, resume)
+        for f in fields:
+            assert _same(getattr(sol, f), getattr(off, f)), (mode, resume, f)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_compaction_rounds_on_the_simplex_kernel(dtype):
+    _need_card()
+    batch = tlp.random_lp_batch(np.random.default_rng(61), 96, 40, 20, False, dtype=dtype,
+                                device="cuda")
+    _rounds_bit_equal(batch, "cuda", simplex_cuda,
+                      ("status", "iterations", "basis", "objective", "x"))
+
+
+def test_compaction_rounds_on_the_revised_kernel():
+    _need_card()
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(62), 96, 40, 20, False,
+                                    device="cuda")
+    _rounds_bit_equal(sb, "cuda-shared", revised_cuda,
+                      ("status", "iterations", "basis", "objective", "x"))
+
+
+def test_compaction_rounds_on_the_pdhg_kernel():
+    _need_card()
+    batch = tlp.random_lp_batch(np.random.default_rng(63), 32, 50, 50, True, device="cuda")
+    base = repro_torch.SolveOptions(backend="pdhg", max_iters=400)
+    off = repro_torch.solve(batch, base)
+    before = pdhg_cuda.launches
+    stats = repro_torch.SolveStats()
+    sol = repro_torch.solve(batch, base.replace(compaction="every_k", compact_every=50,
+                                                resume="basis"), stats=stats)
+    torch.cuda.synchronize()
+    assert pdhg_cuda.launches - before == stats.rounds > 1
+    for f in ("status", "iterations", "x", "y"):
+        assert _same(getattr(sol, f), getattr(off, f)), f
+
+
+def test_a_poisoned_carried_row_retires_numerical_on_the_card():
+    _need_card()
+    from repro_torch.core import dispatch
+
+    batch = tlp.random_lp_batch(np.random.default_rng(64), 64, 40, 20, False, device="cuda")
+    off = repro_torch.solve(batch)
+    row = int((off.iterations > 16).nonzero()[0])
+    real = dispatch.dispatch_round
+
+    def poisoning(b, options, stats=None, state=None, want_state=False):
+        sol, out = real(b, options, stats, state=state, want_state=want_state)
+        if out is not None and state is None:
+            out.tab[row, 0, 0] = float("nan")
+        return sol, out
+
+    dispatch.dispatch_round = poisoning
+    try:
+        opts = repro_torch.SolveOptions(compaction="every_k", compact_every=16, resume="basis")
+        sol = repro_torch.solve(batch, opts)
+        fixed = repro_torch.solve(batch, opts.replace(quarantine=True))
+    finally:
+        dispatch.dispatch_round = real
+    assert int(sol.status[row]) == tlp.NUMERICAL
+    rest = torch.arange(batch.batch, device="cuda") != row
+    for f in ("status", "iterations", "objective", "x"):
+        assert _same(getattr(sol, f)[rest], getattr(off, f)[rest]), f
+    assert int(fixed.status[row]) == int(off.status[row])

@@ -438,3 +438,19 @@ def test_options_pdhg_knobs_accepted():
     opts = repro_torch.SolveOptions(backend="auto", crossover=True, route_frontier=100)
     assert opts.route_frontier == 100
     assert "pdhg" in repro_torch.available_backends()
+
+
+@pytest.mark.parametrize("mode", ["every_k", "chunked"])
+def test_pdhg_compaction_with_basis_resume_equals_off(mode):
+    # The PDHG state resumes exactly, so basis-resumed rounds equal one
+    # uninterrupted solve: statuses and steps, and x and y bit for bit.
+    # Held against the reference's compacted solve as the plain loop is.
+    jb, tb = _fixture(np.float32)
+    kw = dict(max_iters=400, compaction=mode, compact_every=64, resume="basis")
+    off = repro_torch.solve(tb, repro_torch.SolveOptions(backend="pdhg", max_iters=400))
+    stats = repro_torch.SolveStats()
+    sol = repro_torch.solve(tb, repro_torch.SolveOptions(backend="pdhg", **kw), stats=stats)
+    _assert_same_bits(sol, off, ("status", "iterations", "x", "y", "objective"))
+    assert stats.rounds > 1 and stats.resumed > 0
+    ref = repro.solve(jb, JAX_PDHG.replace(**kw))
+    assert np.array_equal(sol.status.numpy(), np.asarray(ref.status))

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro
+import repro_torch
 from repro.core import lp as jlp
 from repro.core import revised as jrevised
 from repro.kernels import ops as jops
@@ -243,3 +245,104 @@ def test_state_bytes_match_reference():
         assert trevised.state_bytes_per_lp(m, n, torch.float64) == jrevised.state_bytes_per_lp(
             m, n, np.float64)
         assert trevised.stored_bytes_per_lp(m, n, 64) == jrevised.stored_bytes_per_lp(m, n, 64)
+
+
+# ---------------------------------------------------------------------------
+# the round protocol on the shared backends
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["torch-shared", "cuda-shared"])
+def test_shared_compaction_bit_identical(backend):
+    from repro_torch.core import dispatch as tdispatch
+
+    sb = tlp.random_shared_lp_batch(np.random.default_rng(11), 24, 12, 6, False, device="cpu")
+    plain = tdispatch.solve_canonical(sb, repro_torch.SolveOptions(backend=backend))
+    compacted = tdispatch.solve_canonical(sb, repro_torch.SolveOptions(
+        backend=backend, compaction="every_k", compact_every=3, resume="basis"))
+    _assert_bit_equal(plain, compacted, ("objective", "x", "status", "iterations", "basis"))
+    jb = jlp.random_shared_lp_batch(np.random.default_rng(11), 24, 12, 6, False)
+    ref = repro.solve(jb, repro.SolveOptions(backend="xla-shared", autotune="off",
+                                             compaction="every_k", compact_every=3,
+                                             resume="basis"))
+    assert_matches_reference(compacted, ref, np.float32)
+
+
+@pytest.mark.parametrize("backend", ["torch-shared", "cuda-shared"])
+def test_shared_serve_protocol_splice_bitwise(backend):
+    # init_state, capped resume_round quanta and a mid-flight splice land
+    # bit-identical to the one-shot solve.
+    rng = np.random.default_rng(21)
+    first = tlp.random_shared_lp_batch(rng, 6, 10, 5, False, device="cpu")
+    second = tlp.SharedLPBatch(
+        first.a, torch.from_numpy(rng.uniform(0.5, 2.0, size=(4, 10)).astype(np.float32)),
+        torch.from_numpy(rng.normal(size=(4, 5)).astype(np.float32)))
+    merged = tlp.SharedLPBatch(first.a, torch.cat([first.b, second.b]),
+                               torch.cat([first.c, second.c]))
+    opts = repro_torch.SolveOptions(backend=backend)
+    oneshot = repro_torch.solve(merged, opts)
+    sess = repro_torch.SolveSession(opts, device="cpu")
+    batch, state, sol = first, sess.init_state(first, opts), None
+    for step in range(64):
+        if step == 2:
+            batch = merged
+            state = tlp.concat_states([state, sess.init_state(second, opts)])
+        sol, state = sess.resume_round(batch, state, cap=3, options=opts)
+        if not bool((sol.status == tlp.ITER_LIMIT).any()):
+            break
+    assert batch.batch == merged.batch
+    _assert_bit_equal(sol, oneshot, ("objective", "x", "status"))
+
+
+# ---------------------------------------------------------------------------
+# float32 at the paper's sizes: known differences from the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,bsz,m,n,ref_iters,port_iters", [
+    (1301, 8, 40, 30, [125, 138, 98, 115, 128, 110, 121, 120],
+     [123, 111, 96, 115, 116, 109, 121, 118]),
+    (1791, 4, 100, 100, [1688, 1633, 1592, 1126], [1513, 1527, 1476, 1000]),
+])
+def test_float32_revised_trajectories_past_16x16_are_known_differences(
+        seed, bsz, m, n, ref_iters, port_iters):
+    """Float32 pivot parity on the revised path holds on this file's fixtures
+    (up to 16x16) and not at 40x30 or 100x100, bland, seed 3.
+
+    Attributed contraction by contraction on a scratch copy of the port
+    (``ROADMAP.md``, "Kept divergences and guards"): the port matches the
+    reference on both fixtures only when it takes, all at once, XLA's
+    results for the three contractions (y = c_B B^-1, the pricing against
+    A, u = B^-1 me), XLA's fused binv/xb update and the reference's
+    pricing of basic columns (which the port zeroes by design).  XLA's
+    CPU dot order is its vectorised, ISA-dependent one, which the kernel
+    cannot follow cheaply, so both fixtures are pinned here: the same
+    statuses and optimal objectives, other pivot counts.
+    """
+    jb = jlp.random_shared_lp_batch(np.random.default_rng(seed), bsz, m, n, True)
+    tb = tlp.random_shared_lp_batch(np.random.default_rng(seed), bsz, m, n, True, device="cpu")
+    sol_j = jrevised.solve_batched(jb.a, jb.b, jb.c, rule="bland", seed=3)
+    sol_t = trevised.solve_batched(tb.a, tb.b, tb.c, rule="bland", seed=3)
+    assert np.asarray(sol_j.iterations).tolist() == ref_iters
+    assert sol_t.iterations.tolist() == port_iters
+    assert np.array_equal(sol_t.status.numpy(), np.asarray(sol_j.status))
+    assert (sol_t.status.numpy() == jlp.OPTIMAL).all()
+    np.testing.assert_allclose(sol_t.objective.numpy(), np.asarray(sol_j.objective),
+                               rtol=RTOL[np.float32])
+
+
+def test_float32_status_at_100x100_follows_the_oracle_not_the_reference():
+    # The reference prices basic columns afresh; in float32 one enters and
+    # it ends ITER_LIMIT after 10,000 pivots on all 4 LPs.  The port zeroes
+    # them and ends UNBOUNDED, as the float64 oracle does.
+    from repro_torch.core import oracle
+
+    tb = tlp.random_shared_lp_batch(np.random.default_rng(1808), 4, 100, 100, True,
+                                    device="cpu")
+    sol_t = trevised.solve_batched(tb.a, tb.b, tb.c, rule="bland", seed=3)
+    dense = tb.densify()
+    _, _, status, _ = oracle.solve_batch(*(t.double().numpy() for t in
+                                           (dense.a, dense.b, dense.c)))
+    assert (status == jlp.UNBOUNDED).all()
+    assert np.array_equal(sol_t.status.numpy(), status)
+    assert sol_t.iterations.tolist() == [913, 922, 1175, 979]
