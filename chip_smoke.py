@@ -73,10 +73,35 @@ line is printed:
    and the two reach models' X0 supports as the dense warm sweep,
    ``sweep_problems`` against the per-step loop (the same supports and
    pivots, both timed).
+   Slice 7, the serve loop (``serve/engine.py:LPEngine``): first the
+   PDHG and hyperbox kernels against their plain versions at the shapes
+   the loop launches them (64 LPs of the slice-3 batch padded to their
+   512x512 class, at cap 400; the box requests padded to n = 32); 4,096
+   requests of ``lp_request_mix([(28, 28), (100, 100)], seed=11)`` and
+   64 boxlike requests of n = 28, answered first by one
+   ``repro_torch.solve`` of the list; the continuous mode's throughput
+   with the whole trace at t = 0 (the calibration R); then, counted, the
+   continuous mode (``max_inflight=1024``, ``step_iters=64``) and the
+   flush mode (``flush_every=512``) replayed open-loop on one Poisson
+   trace at 0.5 R (``serve/loadgen.py``, seed 17) after a warm-up, and 64
+   LPs of the slice-3 batch served on ``"auto"`` at cap 400 (four rounds
+   of 100, admitted 16 a round, on the variant and ``k`` of the kernel
+   case at its class): every request bit-identical to the one-shot solve, p50/p99 latency, throughput, splices, no compile
+   after the warm-up.  After the counts were read: the fault cases
+   (``runtime/chaos.py``: a failed round and a shard crash retried from
+   the carried state, a poisoned row and a dead-lettered group in the
+   serve loop, a shared-A retry; each bit-equal where it must be) and
+   type 1 in chunks of 6,250 with ``speculation`` on and off (bit-equal,
+   timed).  A dispatch round that raises outside the fault cases fails
+   the run: no clean phase leans on recovery.  The slice-3 row
+   ``pdhg_auto`` also confirms its flags sequentially, once, beside the
+   confirmation on host threads (``confirmation``).
 
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
-revised launch the resident variant.
+revised launch the resident variant.  The ``kernels`` line counts the
+launches of every path, and each entry's ``serve_path_launches`` those
+of slice 7.
 
 Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
 entries list their variants with their case names), the ``nvidia-smi``
@@ -88,6 +113,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -119,6 +145,11 @@ HIGHS_SAMPLE = 32
 PDHG_XTOL = {torch.float32: 1e-4, torch.float64: 1e-9}
 PDHG_STATE_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 PDHG_FIELDS = ("x", "y", "ax", "x_sum", "y_sum", "ax_sum", "inner", "x_grow", "y_grow")
+#: The serve phase's traffic: SERVE_REQUESTS single-LP requests of the
+#: request mix, and SERVE_BOXES boxlike requests of n = SERVE_BOX_N.
+SERVE_REQUESTS = 4096
+SERVE_BOXES = 64
+SERVE_BOX_N = 28
 
 
 def emit(phase: str, **fields) -> None:
@@ -348,13 +379,18 @@ def simplex_case(timer, *, name, batch, rule="lpc", seed=0, layout="compact", ch
     return row
 
 
-def hyperbox_case(dev, timer, *, name, bsz, n, dtype, data_seed, reps=20, box=False):
+def hyperbox_case(dev, timer, *, name, bsz, n, dtype, data_seed, reps=20, box=False,
+                  data=None):
     """The hyperbox kernel against its plain version; ``box`` reads one box
     (row 0 of the data) for every direction, with row stride 0, as the
-    reach rows do."""
+    reach rows do.  ``data`` gives ``(lo, hi, d)`` on the card instead of
+    random boxes (a main path's own inputs)."""
     from repro_torch.kernels import hyperbox_cuda
 
-    lo, hi, d = chunked_hyperbox(np.random.default_rng(data_seed), bsz, n, dtype, dev)
+    if data is None:
+        lo, hi, d = chunked_hyperbox(np.random.default_rng(data_seed), bsz, n, dtype, dev)
+    else:
+        lo, hi, d = data
     if box:
         lo, hi = lo[0].contiguous(), hi[0].contiguous()
     k = hyperbox_cuda.hyperbox(lo, hi, d)
@@ -1081,7 +1117,8 @@ def pdhg_row(rt, *, name, batch, options, counters, highs, rtol, base_iters=None
     before = launch_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with Spans([(ops, "pdhg_solve"), (pdhg, "confirm_certificates"), (pdhg, "crossover")]) as sp:
+    with Spans([(ops, "pdhg_solve"), (pdhg, "confirm_certificates"), (pdhg, "crossover")]) as sp, \
+            ConfirmRecorder() as confirm:
         t0 = time.perf_counter()
         sol = rt.solve(batch, options)
         torch.cuda.synchronize()
@@ -1097,7 +1134,9 @@ def pdhg_row(rt, *, name, batch, options, counters, highs, rtol, base_iters=None
                status_counts=np.bincount(status, minlength=6).tolist(),
                max_memory_allocated=int(torch.cuda.max_memory_allocated()),
                finite_objective_share=float(np.isfinite(sol.objective.cpu().numpy()).mean()),
-               spans_s=sp.seconds, span_calls=sp.calls,
+               spans_s=sp.seconds, span_calls=sp.calls, cpu_count=os.cpu_count(),
+               confirm_flagged=[c["rows"] for c in confirm.calls],
+               confirm_workers=[c["workers"] for c in confirm.calls],
                highs=highs_compare(status, sol.objective.cpu().numpy(), highs, rtol))
     if base_iters is not None:
         polish = iters - base_iters
@@ -1110,7 +1149,52 @@ def pdhg_row(rt, *, name, batch, options, counters, highs, rtol, base_iters=None
     h = row["highs"]
     check(h["status_agreement_on_decided"] == 1.0, f"row {name}: statuses off HiGHS: {h}")
     check(h["max_rel_obj_err"] <= rtol, f"row {name}: objectives off HiGHS: {h}")
-    return row, sol
+    return row, sol, confirm.calls
+
+
+class ConfirmRecorder:
+    """Records each call of ``core/pdhg.py:oracle_statuses`` (the confirmation's
+    oracle solves on host threads): its inputs, workers, seconds and result."""
+
+    def __init__(self):
+        from repro_torch.core import pdhg
+
+        self.pdhg = pdhg
+        self.calls = []
+
+    def __enter__(self):
+        self.real = self.pdhg.oracle_statuses
+
+        def recording(a, b, c, max_iters, workers=1):
+            t0 = time.perf_counter()
+            out = self.real(a, b, c, max_iters, workers)
+            self.calls.append(dict(a=a, b=b, c=c, max_iters=max_iters, workers=workers,
+                                   rows=int(a.shape[0]), seconds=time.perf_counter() - t0,
+                                   status=out))
+            return out
+
+        self.pdhg.oracle_statuses = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.pdhg.oracle_statuses = self.real
+
+
+def confirmation_case(calls, row):
+    """The slice-3 row's confirmation on host threads beside the same flagged
+    rows confirmed sequentially, once, in this run: the same statuses."""
+    from repro_torch.core import pdhg
+
+    check(len(calls) == 1, f"{row}: {len(calls)} confirmation calls")
+    call = calls[0]
+    t0 = time.perf_counter()
+    seq = pdhg.oracle_statuses(call["a"], call["b"], call["c"], call["max_iters"], workers=1)
+    seq_s = time.perf_counter() - t0
+    same = bool(np.array_equal(seq, call["status"]))
+    emit("confirmation", row=row, flagged=call["rows"], workers=call["workers"],
+         cpu_count=os.cpu_count(), parallel_s=call["seconds"], sequential_s=seq_s,
+         statuses=np.bincount(seq, minlength=6).tolist(), statuses_equal=same)
+    check(same, f"{row}: the parallel confirmation's statuses differ from the sequential ones")
 
 
 def auto_list_row(rt, dev, *, seed, counters, per_class):
@@ -1228,7 +1312,8 @@ def crossover_tiles(*, batch, sol, small):
 
 
 class RoundSizes:
-    """Records the batch size of every dispatch round of ``core/dispatch.py``."""
+    """Records the batch size of every dispatch round of ``core/dispatch.py``,
+    and the set of the rounds' ``(m, n)``."""
 
     def __init__(self):
         from repro_torch.core import dispatch
@@ -1236,10 +1321,12 @@ class RoundSizes:
         self.dispatch = dispatch
         self.real = dispatch.dispatch_round
         self.sizes = []
+        self.shapes = set()
 
     def __enter__(self):
         def recording(batch, options, stats=None, state=None, want_state=False):
             self.sizes.append(batch.batch)
+            self.shapes.add((batch.m, batch.n))
             return self.real(batch, options, stats, state=state, want_state=want_state)
 
         self.dispatch.dispatch_round = recording
@@ -1403,6 +1490,336 @@ def dense_sweep_case(rt, dev, *, name, model, kind, steps, counters):
           f"dense sweep {name}: {out['sweep_problems']['launches']} for {steps} steps")
 
 
+# ---------------------------------------------------------------------------
+# the serve phase (slice 7): the LP serve loop, faults, speculation
+# ---------------------------------------------------------------------------
+
+
+class FaultWatch:
+    """Counts the dispatch rounds that raised, for the whole run.
+
+    Every retry follows a round that raised, so a phase that is not a
+    fault case must leave the count where it found it: no clean phase
+    leans on recovery.
+    """
+
+    def __init__(self):
+        from repro_torch.core import dispatch
+
+        self.dispatch = dispatch
+        self.real = dispatch.dispatch_round
+        self.raised = 0
+
+    def __enter__(self):
+        def watched(*args, **kw):
+            try:
+                return self.real(*args, **kw)
+            except Exception:
+                self.raised += 1
+                raise
+
+        self.dispatch.dispatch_round = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.dispatch.dispatch_round = self.real
+
+
+def check_clean(eng, where):
+    """A clean serve phase: no retry, no dead letter."""
+    st = eng.stats
+    check(st.retries == 0 and st.dead_lettered == 0 and eng.dead_letters == [],
+          f"{where}: the clean phase leaned on recovery (retries {st.retries}, "
+          f"dead-lettered {st.dead_lettered})")
+
+
+def serve_requests(rt):
+    """The serve traffic: SERVE_REQUESTS LPs of ``lp_request_mix([(28, 28),
+    (100, 100)], seed=11)`` in float32, and SERVE_BOXES boxlike requests of
+    n = SERVE_BOX_N, one after every SERVE_REQUESTS / SERVE_BOXES LPs.  The
+    requests arrive on the host; the engine moves each admitted wave."""
+    from repro_torch.core.lp import random_hyperbox_batch
+    from repro_torch.serve.loadgen import lp_request_mix
+
+    make = lp_request_mix([(28, 28), (100, 100)], seed=11, device="cpu")
+    lo, hi, d = random_hyperbox_batch(np.random.default_rng(12), SERVE_BOXES, SERVE_BOX_N,
+                                      device="cpu")
+    every = SERVE_REQUESTS // SERVE_BOXES
+    out = []
+    for k in range(SERVE_BOXES):
+        out += [make(i) for i in range(k * every, (k + 1) * every)]
+        out.append(rt.LPProblem.make(d[k], lo=lo[k], hi=hi[k], device="cpu"))
+    return out
+
+
+def same_solutions(sols, refs) -> dict:
+    """Per field, whether every request's solution equals the reference's bit for bit."""
+    out = {}
+    for f in ("objective", "status", "iterations"):
+        out[f] = torch.equal(bits(torch.cat([getattr(s, f) for s in sols])),
+                             bits(torch.cat([getattr(r, f) for r in refs])))
+    by_width = {}
+    for s, r in zip(sols, refs):
+        by_width.setdefault(s.x.shape[-1], ([], []))
+        by_width[s.x.shape[-1]][0].append(s.x)
+        by_width[s.x.shape[-1]][1].append(r.x)
+    out["x"] = all(torch.equal(bits(torch.cat(a)), bits(torch.cat(b)))
+                   for a, b in by_width.values())
+    return out
+
+
+def drain(eng, problems):
+    """Submit ``problems`` at once and step the engine until it is empty."""
+    tickets = [eng.submit(p) for p in problems]
+    while eng.pending_count or eng.inflight_count:
+        eng.step()
+    return [eng.result(t) for t in tickets]
+
+
+def serve_mode_case(rt, dev, *, mode, problems, trace, oneshot, counters, engine_kw, warm):
+    """One serve mode replayed open-loop on ``trace`` after a warm-up."""
+    from repro_torch.serve.engine import LPEngine
+    from repro_torch.serve.loadgen import replay
+
+    eng = LPEngine(rt.SolveOptions(), device=dev, **engine_kw)
+    if mode == "continuous":
+        drain(eng, warm)
+    else:
+        tickets = [eng.submit(p) for p in warm]
+        eng.flush()
+        for t in tickets:
+            eng.result(t)
+    compiles0, spliced0, resumed0 = eng.stats.compiles, eng.stats.spliced, eng.stats.resumed
+    before = launch_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = replay(eng, trace, mode=mode)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    delta = count_delta(counters, before)
+    same = same_solutions(res.solutions, oneshot)
+    lat_ms = res.latencies * 1e3
+    row = dict(requests=len(trace), offered_per_s=len(trace) / trace[-1].t,
+               p50_ms=float(np.percentile(lat_ms, 50)), p99_ms=float(np.percentile(lat_ms, 99)),
+               throughput_per_s=len(trace) / res.makespan, makespan_s=res.makespan,
+               wall_ms=wall_ms, spliced=eng.stats.spliced - spliced0,
+               resumed=eng.stats.resumed - resumed0, steady_compiles=eng.stats.compiles - compiles0,
+               steps=eng._step_count, launches=delta, bit_equal_to_oneshot=same,
+               status_counts=np.bincount(torch.cat([s.status for s in res.solutions]).cpu().numpy(),
+                                         minlength=6).tolist(),
+               retries=eng.stats.retries, dead_lettered=eng.stats.dead_lettered, **engine_kw)
+    emit(f"serve_{mode}", **row)
+    check(all(same.values()), f"serve_{mode}: requests differ from the one-shot solve: {same}")
+    check(row["steady_compiles"] == 0, f"serve_{mode}: {row['steady_compiles']} compiles after "
+          "the warm-up")
+    check_clean(eng, f"serve_{mode}")
+    return row
+
+
+def serve_class(problems, dev):
+    """The stacked problem of one serve-loop wave on ``dev``: each request
+    padded to its shape class (``core/bucketing.py:shape_class``), as
+    ``LPEngine._admit`` pads it, and stacked (one class, one dtype and one
+    set of flags)."""
+    from repro_torch.core.bucketing import shape_class
+    from repro_torch.core.problem import stack_problems
+
+    cm, cn = shape_class(problems[0].m, problems[0].n)
+    p = stack_problems([p.pad_to(cm, cn) for p in problems])
+    return dataclasses.replace(p, **{f.name: getattr(p, f.name).to(dev)
+                                     for f in dataclasses.fields(p)
+                                     if isinstance(getattr(p, f.name), torch.Tensor)})
+
+
+def serve_kernel_cases(rt, dev, timer, *, problems, pdhg_batch, lps=64):
+    """The kernels of the serve path against their plain versions at the
+    shapes the serve loop launches them: the PDHG kernel on the 512x512
+    canonical class of ``lps`` of the slice-3 LPs (cap 400, as
+    ``serve_pdhg`` solves them), and the hyperbox kernel on the boxlike
+    requests padded to their class width.  Returns the PDHG row (its
+    ``variant`` and ``k``)."""
+    from repro_torch.core.lp import LPBatch
+    from repro_torch.core.problem import canonicalize
+
+    reqs = [rt.LPProblem.from_batch(pdhg_batch.take(slice(i, i + 1))) for i in range(lps)]
+    cb = canonicalize(serve_class(reqs, dev)).batch
+    row, *_ = pdhg_case(timer, name=f"serve_class_{lps}x{cb.m}x{cb.n}_f32_cap400",
+                        batch=LPBatch(cb.a, cb.b, cb.c), cap=400, full=False, reps=3,
+                        want="cluster")
+    boxes = serve_class([p for p in problems if p.boxlike], dev)
+    hyperbox_case(dev, timer, name=f"serve_class_{boxes.batch}x{boxes.n}_f32_box",
+                  bsz=boxes.batch, n=boxes.n, dtype=torch.float32, data_seed=None,
+                  data=(boxes.lo.contiguous(), boxes.hi.contiguous(), boxes.c.contiguous()))
+    return row
+
+
+def serve_pdhg_case(rt, dev, *, batch, counters, plan_row, per_step=16, step_iters=100):
+    """LPs of the slice-3 batch as requests on ``"auto"`` (cap 400), admitted
+    ``per_step`` a round, so each resume round's batch differs in size.
+    ``plan_row`` is the kernel case of the same class: the engine's rounds
+    must take its variant and ``k``."""
+    from repro_torch.kernels import pdhg_cuda
+    from repro_torch.serve.engine import LPEngine
+
+    opts = rt.SolveOptions(backend="auto", max_iters=400)
+    problems = [rt.LPProblem.from_batch(batch.take(slice(i, i + 1))) for i in range(batch.batch)]
+    oneshot = rt.SolveSession(opts, device=dev).solve(problems)
+    eng = LPEngine(opts, device=dev, flush_every=1 << 30, step_iters=step_iters)
+    before = launch_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets, done = [], {}
+    with RoundSizes() as rec:
+        for lo in range(0, len(problems), per_step):
+            tickets += [eng.submit(p) for p in problems[lo:lo + per_step]]
+            for t in eng.step():
+                done[t] = eng.result(t)
+        while len(done) < len(problems):
+            for t in eng.step():
+                done[t] = eng.result(t)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    delta = count_delta(counters, before)
+    sols = [done[t] for t in tickets]
+    same = same_solutions(sols, oneshot)
+    (cm, cn), = rec.shapes
+    how = pdhg_cuda.plan(cm, cn, batch.a.dtype, batch.a.device)
+    row = dict(requests=len(problems), shape=[batch.m, batch.n],
+               class_shape=[cm, cn], variant=how.variant, k=how.k,
+               max_iters=400, step_iters=step_iters, admitted_per_step=per_step,
+               round_batches=rec.sizes,
+               wall_ms=wall_ms, spliced=eng.stats.spliced, resumed=eng.stats.resumed,
+               launches=delta, bit_equal_to_oneshot=same,
+               status_counts=np.bincount(torch.cat([s.status for s in sols]).cpu().numpy(),
+                                         minlength=6).tolist())
+    emit("serve_pdhg", **row)
+    check(all(same.values()), f"serve_pdhg: requests differ from the one-shot solve: {same}")
+    check(delta["pdhg"] == len(rec.sizes) and delta["simplex"] == 0,
+          f"serve_pdhg: {delta} launches for {len(rec.sizes)} rounds")
+    check(delta["pdhg.cluster"] == delta["pdhg"] and how.variant == plan_row["variant"]
+          and how.k == plan_row["k"] and [cm, cn] == [plan_row["m"], plan_row["n"]],
+          f"serve_pdhg: rounds at class {row['class_shape']} took {how.variant} k={how.k} "
+          f"({delta}), the kernel case {plan_row['variant']} k={plan_row['k']} at "
+          f"{plan_row['m']}x{plan_row['n']}")
+    check(len(set(rec.sizes)) > 1, f"serve_pdhg: every round had {rec.sizes[0]} rows")
+    check_clean(eng, "serve_pdhg")
+    return row
+
+
+def faults_case(rt, dev, *, type1, shared1, lps=5000):
+    """The recovery paths on the card: a failed round retried, a shard crash
+    mid-round, a poisoned carried row in the serve loop, a group dead-lettered
+    with ``retry_budget=0`` while the other completes, a shared-A retry."""
+    from repro_torch.runtime import chaos
+    from repro_torch.serve.engine import LPEngine
+    from repro_torch.serve.loadgen import lp_request_mix
+
+    fields = ("status", "iterations", "basis", "objective", "x")
+
+    def equal(a, b, rows=slice(None), fs=fields):
+        return all(torch.equal(bits(getattr(a, f)[rows]), bits(getattr(b, f)[rows])) for f in fs)
+
+    out = {}
+    sub = type1.take(slice(0, lps))
+    clean = rt.solve(sub)
+    for case, monkey, opts in [
+            ("fail_round_0", chaos.ChaosMonkey(fail_rounds=[0], max_faults=1), rt.SolveOptions()),
+            ("shard_crash_chunk_1250", chaos.ChaosMonkey(crash_rounds=[0], max_faults=1),
+             rt.SolveOptions(chunk_size=1250))]:
+        stats = rt.SolveStats()
+        with chaos.inject(monkey):
+            sol, wall_ms, _ = timed_solve(rt, sub, opts, stats)
+        out[case] = dict(retries=stats.retries, faults_injected=stats.faults_injected,
+                         wall_ms=wall_ms, bit_equal=equal(sol, clean))
+        check(stats.retries == 1 and stats.faults_injected == 1 and out[case]["bit_equal"],
+              f"faults {case}: {out[case]}")
+
+    problems = [rt.LPProblem.from_batch(sub.take(slice(i, i + 1))) for i in range(256)]
+    oneshot = rt.SolveSession(device=dev).solve(problems)
+    eng = LPEngine(rt.SolveOptions(), device=dev, flush_every=1 << 30, step_iters=64)
+    with chaos.inject(chaos.ChaosMonkey(poison_rows={0: [5]})) as mk:
+        sols = drain(eng, problems)
+    rest = [i for i in range(len(problems)) if i != 5]
+    out["serve_poisoned_row"] = dict(
+        rows_poisoned=mk.rows_poisoned, poisoned_status=int(sols[5].status[0]),
+        others_bit_equal=all(same_solutions([sols[i] for i in rest],
+                                            [oneshot[i] for i in rest]).values()),
+        retries=eng.stats.retries, dead_lettered=eng.stats.dead_lettered)
+    check(out["serve_poisoned_row"]["poisoned_status"] == rt.NUMERICAL and
+          out["serve_poisoned_row"]["others_bit_equal"] and mk.rows_poisoned == 1,
+          f"faults serve_poisoned_row: {out['serve_poisoned_row']}")
+
+    make = lp_request_mix([(28, 28), (100, 100)], seed=13, device="cpu")
+    problems = [make(i) for i in range(64)]
+    oneshot = rt.SolveSession(device=dev).solve(problems)
+    eng = LPEngine(rt.SolveOptions(retry_budget=0), device=dev, flush_every=1 << 30,
+                   step_iters=64)
+    with chaos.inject(chaos.ChaosMonkey(fail_rounds=[0], max_faults=1)):
+        tickets = [eng.submit(p) for p in problems]
+        while eng.pending_count or eng.inflight_count:
+            eng.step()
+    sols = [eng.result(t) for t in tickets]
+    dead = sorted(tickets.index(t) for t in eng.dead_letters)
+    alive = [i for i in range(len(problems)) if i not in set(dead)]
+    later = eng.result(eng.submit(make(64)))
+    out["serve_dead_letter"] = dict(
+        dead_lettered=eng.stats.dead_lettered, dead_shape=sorted({problems[i].m for i in dead}),
+        dead_all_numerical=all(int(sols[i].status[0]) == rt.NUMERICAL for i in dead),
+        others_bit_equal=all(same_solutions([sols[i] for i in alive],
+                                            [oneshot[i] for i in alive]).values()),
+        later_request_status=int(later.status[0]))
+    check(len(dead) == len(problems) // 2 and out["serve_dead_letter"]["dead_all_numerical"]
+          and out["serve_dead_letter"]["others_bit_equal"]
+          and out["serve_dead_letter"]["later_request_status"] == rt.OPTIMAL,
+          f"faults serve_dead_letter: {out['serve_dead_letter']}")
+
+    ssub = shared1.take(slice(0, lps))
+    sclean = rt.solve(ssub)
+    stats = rt.SolveStats()
+    with chaos.inject(chaos.ChaosMonkey(fail_rounds=[0], max_faults=1)):
+        sol = rt.solve(ssub, stats=stats)
+    out["shared_retry"] = dict(retries=stats.retries, bit_equal=equal(sol, sclean))
+    check(stats.retries == 1 and out["shared_retry"]["bit_equal"],
+          f"faults shared_retry: {out['shared_retry']}")
+    emit("faults", lps=lps, **out)
+
+
+def speculation_case(rt, *, batch, chunk):
+    """``speculation=True`` against ``False`` on one batch in chunks: bit-equal,
+    each timed, with the speculative re-dispatches of each run."""
+    from repro_torch.runtime import straggler
+
+    real = straggler.run_with_speculation
+    reports = []
+
+    def recording(*args, **kw):
+        reports.append(real(*args, **kw))
+        return reports[-1]
+
+    runs = {False: [], True: []}
+    ref = None
+    straggler.run_with_speculation = recording
+    try:
+        for flag in (False, True, True, False):
+            n = len(reports)
+            sol, wall_ms, peak = timed_solve(rt, batch, rt.SolveOptions(chunk_size=chunk,
+                                                                        speculation=flag))
+            if ref is None:
+                ref = sol
+            same = all(torch.equal(bits(getattr(sol, f)), bits(getattr(ref, f)))
+                       for f in ("status", "iterations", "basis", "objective", "x"))
+            check(same, f"speculation={flag} differs from the serial chunk loop")
+            check(len(reports) - n == int(flag), f"speculation={flag}: "
+                  f"{len(reports) - n} speculative rounds")
+            runs[flag].append(dict(wall_ms=wall_ms, max_memory_allocated=peak,
+                                   respawned=reports[-1].respawned if flag else 0))
+            del sol
+    finally:
+        straggler.run_with_speculation = real
+    emit("speculation", lps=batch.batch, chunk_size=chunk, chunks=-(-batch.batch // chunk),
+         off=runs[False], on=runs[True], bit_equal=True)
+
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1436,6 +1853,9 @@ def run(args, pool) -> int:
         raise SystemExit(f"chip_smoke: FAILED: the port is not beside this script: {exc}")
     dev = torch.device("cuda")
     timer = Timer(dev)
+    # Every dispatch round that raises is counted from here on: only the
+    # fault cases may raise (no clean phase leans on a retry).
+    watch = FaultWatch().__enter__()
 
     # -- 1. environment (after the build, which the cluster occupancy needs)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1678,12 +2098,13 @@ def run(args, pool) -> int:
 
     highs = [f.result() for f in highs_futures]
     reset_counts()
-    auto_row, auto_sol = pdhg_row(rt, name=f"pdhg_auto_{PDHG_DIM}x{PDHG_DIM}", batch=pdhg_batch,
+    auto_row, auto_sol, auto_confirm = pdhg_row(rt, name=f"pdhg_auto_{PDHG_DIM}x{PDHG_DIM}",
+                                                batch=pdhg_batch,
                                   options=rt.SolveOptions(backend="auto"), counters=counters,
                                   highs=highs, rtol=5e-3)
     check(auto_row["launches"]["pdhg"] == 1 and auto_row["launches"]["simplex"] == 0,
           f"pdhg_auto launched {auto_row['launches']} (one pdhg launch, no simplex expected)")
-    cross_row, _ = pdhg_row(rt, name=f"pdhg_crossover_{PDHG_DIM}x{PDHG_DIM}", batch=pdhg_batch,
+    cross_row, *_ = pdhg_row(rt, name=f"pdhg_crossover_{PDHG_DIM}x{PDHG_DIM}", batch=pdhg_batch,
                             options=rt.SolveOptions(backend="auto", crossover=True),
                             counters=counters, highs=highs, rtol=1e-4,
                             base_iters=auto_sol.iterations.cpu().numpy().astype(np.int64))
@@ -1701,6 +2122,10 @@ def run(args, pool) -> int:
           slice3["simplex.cluster"] == slice3["simplex"],
           f"a slice-3 launch did not take the cluster variant: {slice3}")
     emit("main_path_summary", path="slice3_first_order", launches=slice3, rows=len(rows3))
+    # The confirmation of pdhg_auto's flags ran on host threads; the same
+    # flags confirmed sequentially, once, beside it.
+    confirmation_case(auto_confirm, auto_row["row"])
+    del auto_confirm
     # The routing frontier: the same batch on the simplex kernel, after the
     # counts were read.
     frontier_row(rt, batch=pdhg_batch, pdhg_row_=auto_row, highs=highs,
@@ -1761,17 +2186,72 @@ def run(args, pool) -> int:
           slice6["pdhg.cluster"] == slice6["pdhg"],
           f"a rounds-phase launch did not take the main variant: {slice6}")
     emit("main_path_summary", path="slice6_rounds_sessions_sweeps", launches=slice6)
-    del type1, type2, shared1, type1_off, pdhg_batch
+    del type2, type1_off
     torch.cuda.empty_cache()
 
-    launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] for k in slice1}
+    # Slice 7, the serve loop: the traffic's one-shot answers, a warm-up, the
+    # calibration (the whole trace at t = 0), then both modes replayed
+    # open-loop at half the calibrated rate and the PDHG requests; then,
+    # after the counts were read, the fault cases and speculation.
+    from repro_torch.serve.engine import LPEngine
+    from repro_torch.serve.loadgen import Arrival, poisson_trace, replay
+
+    serve_problems = serve_requests(rt)
+    serve_plan = serve_kernel_cases(rt, dev, timer, problems=serve_problems,
+                                    pdhg_batch=pdhg_batch)
+    oneshot = rt.SolveSession(device=dev).solve(serve_problems)
+    warm = serve_problems[:256]
+    cont_kw = dict(flush_every=1 << 30, max_inflight=1024, step_iters=64)
+    cal = LPEngine(rt.SolveOptions(), device=dev, **cont_kw)
+    drain(cal, warm)
+    torch.cuda.synchronize()
+    res = replay(cal, [Arrival(0.0, p) for p in serve_problems], mode="continuous")
+    rate = len(serve_problems) / res.makespan
+    same = same_solutions(res.solutions, oneshot)
+    emit("serve_calibration", requests=len(serve_problems), throughput_per_s=rate,
+         makespan_s=res.makespan, p50_ms=float(np.percentile(res.latencies, 50) * 1e3),
+         p99_ms=float(np.percentile(res.latencies, 99) * 1e3), spliced=cal.stats.spliced,
+         bit_equal_to_oneshot=same, offered_per_s=0.5 * rate, **cont_kw)
+    check(all(same.values()), f"serve calibration differs from the one-shot solve: {same}")
+    check_clean(cal, "serve_calibration")
+    del cal, res
+    trace = poisson_trace(0.5 * rate, len(serve_problems), lambda i: serve_problems[i], seed=17)
+    reset_counts()
+    serve_mode_case(rt, dev, mode="continuous", problems=serve_problems, trace=trace,
+                    oneshot=oneshot, counters=counters, engine_kw=cont_kw, warm=warm)
+    serve_mode_case(rt, dev, mode="flush", problems=serve_problems, trace=trace,
+                    oneshot=oneshot, counters=counters, engine_kw=dict(flush_every=512),
+                    warm=warm)
+    serve_pdhg_case(rt, dev, batch=pdhg_batch.take(slice(0, 64)), counters=counters,
+                    plan_row=serve_plan)
+    slice7 = launch_counts(counters)
+    check(slice7["simplex"] > 0 and slice7["hyperbox"] > 0 and slice7["pdhg"] > 0,
+          f"a kernel of the serve path was never launched: {slice7}")
+    check(slice7["simplex.cluster"] == slice7["simplex"] and
+          slice7["pdhg.cluster"] == slice7["pdhg"],
+          f"a serve-path launch did not take the cluster variant: {slice7}")
+    emit("main_path_summary", path="slice7_serve", launches=slice7)
+    del serve_problems, oneshot, warm, trace
+    raised = watch.raised
+    faults_case(rt, dev, type1=type1, shared1=shared1)
+    fault_raised = watch.raised - raised
+    speculation_case(rt, batch=type1, chunk=6250)
+    watch.__exit__()
+    check(watch.raised == fault_raised,
+          f"{watch.raised - fault_raised} dispatch rounds raised outside the fault cases")
+    del type1, shared1, pdhg_batch
+    torch.cuda.empty_cache()
+
+    launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=f"src/repro/kernels/{replaces}", launches=n,
                     max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=None, **extra)
+                    bound_by=row["bound_by"], library_ms=None,
+                    serve_path_launches=slice7[f"{name}.{extra['variant']}" if "variant" in extra
+                                               else name], **extra)
 
     # The global variant's row: type 1's LPs, timed beside the cluster
     # variant in the same case (the same bits, so the same error and bound).

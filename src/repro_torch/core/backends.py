@@ -95,10 +95,9 @@ class SolveOptions:
     """Solver configuration — one frozen record instead of loose knobs.
 
     Only the fields this port honours so far are here; the reference's
-    other knobs (retry, speculation, autotuning, meshes) arrive with the
-    slices that port them, and ``unroll``/``dynamic_caps``/``tile_b``
-    have no meaning in the port (``ROADMAP.md``, "TPU mechanics not
-    carried over").
+    other knobs (autotuning, meshes) arrive with the slices that port
+    them, and ``unroll``/``dynamic_caps``/``tile_b`` have no meaning in
+    the port (``ROADMAP.md``, "TPU mechanics not carried over").
 
     Parameters
     ----------
@@ -177,6 +176,20 @@ class SolveOptions:
         oracle under a ``max(400, 2 (m + n))`` pivot budget after the
         rounds; the oracle's verdict replaces the flag where it reaches
         one.
+    retry_budget : int, default 2
+        Re-dispatches of a failed round from its carried state before the
+        error propagates (``core/dispatch.py:dispatch_round_safe``).  A
+        retry stays on the same backend; errors in
+        ``runtime/chaos.py:NON_TRANSIENT`` (bad arguments, a kernel that
+        did not build, load or launch) are never retried.
+    retry_backoff : float, default 0.05
+        Base of the capped exponential sleep before retry k:
+        ``min(retry_backoff * 2**k, RETRY_BACKOFF_CAP)`` seconds.
+    speculation : bool, default False
+        Run the chunks of a multi-chunk round on worker threads, each on
+        its own CUDA stream, and re-dispatch a chunk that misses the
+        straggler deadline (``runtime/straggler.py``); the first result
+        wins.  Results are bit-identical to the serial chunk loop.
     """
 
     backend: str = DEFAULT_BACKEND
@@ -196,6 +209,9 @@ class SolveOptions:
     resume: str = "scratch"
     guardrails: bool = True
     quarantine: bool = False
+    retry_budget: int = 2
+    retry_backoff: float = 0.05
+    speculation: bool = False
 
     def __post_init__(self):
         if self.compaction not in COMPACTION_MODES:
@@ -223,6 +239,10 @@ class SolveOptions:
             raise ValueError(f"pdhg_restart must be >= 0, got {self.pdhg_restart!r}")
         if self.route_frontier < 0:
             raise ValueError(f"route_frontier must be >= 0, got {self.route_frontier!r}")
+        if self.retry_budget < 0:
+            raise ValueError(f"retry_budget must be >= 0, got {self.retry_budget!r}")
+        if self.retry_backoff < 0.0:
+            raise ValueError(f"retry_backoff must be >= 0, got {self.retry_backoff!r}")
         if self.backend == "pdhg":
             # A first-order method pivots nothing and stores no tableau.
             if self.rule != _engine.LPC:
@@ -277,7 +297,11 @@ class SolveStats:
         LPs that entered a solve with a carried basis (support sweeps).
     resumed : int
         LPs that entered a round carrying exact mid-solve state
-        (``resume="basis"``).
+        (``resume="basis"``, and every continuation round of the serve
+        loop).
+    spliced : int
+        LPs the continuous serve loop admitted into a group that already
+        carried survivors (``serve/engine.py``).
     quarantined : int
         ``NUMERICAL`` rows re-solved on the float64 oracle
         (``SolveOptions.quarantine``).
@@ -291,6 +315,16 @@ class SolveStats:
     cache_hits : int
         Recorded backend calls that used only specialisations launched
         before.
+    retries : int
+        Rounds re-dispatched after a transient failure
+        (``core/dispatch.py:dispatch_round_safe``).
+    dead_lettered : int
+        Serve-loop tickets retired ``NUMERICAL`` because their group's
+        round exhausted ``retry_budget``.
+    faults_injected : int
+        Injected faults the recovery layer saw: each raised
+        ``ChaosError`` it retried, and each state row poisoned
+        (``runtime/chaos.py``).
     """
 
     lps: int = 0
@@ -300,9 +334,13 @@ class SolveStats:
     tableau_bytes: int = 0
     warm_started: int = 0
     resumed: int = 0
+    spliced: int = 0
     quarantined: int = 0
     compiles: int = 0
     cache_hits: int = 0
+    retries: int = 0
+    dead_lettered: int = 0
+    faults_injected: int = 0
 
     def record_tableau(self, nbytes: int) -> None:
         self.tableau_bytes = max(self.tableau_bytes, int(nbytes))
@@ -355,8 +393,13 @@ class Backend:
         return self.start_canonical is not None and self.resume_canonical is not None
 
     @property
-    def supports_init(self) -> bool:
-        """True when new LPs can be materialised as iteration-0 states (the splice)."""
+    def supports_splice(self) -> bool:
+        """True when new LPs can join an in-flight resume round mid-solve.
+
+        Needs the resume protocol and the iteration-0 init hook: what the
+        continuous serve loop uses to splice arrivals into the next round
+        beside the carried survivors.
+        """
         return self.supports_resume and self.init_canonical is not None
 
 

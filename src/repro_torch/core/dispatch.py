@@ -47,18 +47,34 @@ backends: ``cuda`` and ``torch`` promote to ``cuda-shared`` and
 resolved once per batch, by shape (``core/backends.py:route_shape``),
 so every round of a solve runs one backend.
 
-Not here yet (later slices): fault injection and retry, speculation and
-mesh sharding.
+Every round of :func:`solve_canonical` (and of the serve loop, through
+``SolveSession.resume_round``) goes through :func:`dispatch_round_safe`:
+a transient failure re-dispatches the same round from the same carried
+state, on the same backend, up to ``SolveOptions.retry_budget`` times
+with capped exponential backoff; errors in
+``runtime/chaos.py:NON_TRANSIENT`` (bad arguments, a kernel that did not
+build or load) propagate at once.  :func:`dispatch_round` consults an
+installed ``runtime/chaos.py:ChaosMonkey`` before the round, before each
+chunk and on the outgoing carried state.  With
+``SolveOptions.speculation`` a round of several chunks runs them on
+worker threads, each on its own CUDA stream, and re-dispatches a chunk
+that misses the straggler deadline (:func:`_speculative_chunks`);
+:func:`admission_order` is the serve loop's admission policy.
+
+Not here yet (a later slice): mesh sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..runtime import chaos as _chaos
 from . import pdhg as _pdhg
 from . import revised as _revised
 from .backends import (
@@ -83,6 +99,10 @@ from .lp import (
     resolve_device,
 )
 from .tableau import TableauSpec
+
+#: Ceiling on the retry backoff sleep (seconds): retry k of a round sleeps
+#: ``min(retry_backoff * 2**k, RETRY_BACKOFF_CAP)``.
+RETRY_BACKOFF_CAP = 1.0
 
 
 def empty_solution(n: int, dtype=torch.float32, device=None) -> LPSolution:
@@ -208,7 +228,11 @@ def resolve_backend(options: SolveOptions, shared: bool = False,
     ``"auto"`` resolves through :func:`~repro_torch.core.backends.route_shape`
     (``shape`` is needed for a dense batch); a batch routed to ``pdhg``
     gets ``rule``/``layout`` reset to their defaults, since those knobs
-    configure the simplex leg and ``pdhg`` rejects them.  On a shared
+    configure the simplex leg and ``pdhg`` rejects them; a batch routed
+    to the simplex leg drops ``crossover``, which polishes first-order
+    answers only (the reference raises there, so ``"auto"`` with
+    ``crossover=True`` could not serve traffic on both sides of the
+    frontier).  On a shared
     batch the simplex names promote to their shared counterparts
     (``"cuda"`` -> ``"cuda-shared"``, ``"torch"`` -> ``"torch-shared"``):
     the revised engine is the simplex solver for that container.  Every
@@ -221,12 +245,35 @@ def resolve_backend(options: SolveOptions, shared: bool = False,
         resolved = route_shape(m, n, options, shared=shared)
         if resolved == "pdhg":
             return options.replace(backend=resolved, rule=LPC, layout=None)
-        return options.replace(backend=resolved)
+        # The simplex leg returns vertices already: nothing to polish.
+        return options.replace(backend=resolved, crossover=False)
     if shared:
         promote = {"cuda": "cuda-shared", "torch": "torch-shared"}
         if options.backend in promote:
             return options.replace(backend=promote[options.backend])
     return options
+
+
+def admission_order(requests: Sequence[Tuple[int, Optional[float], int, int]],
+                    now: int = 0, starvation_rounds: int = 8) -> list:
+    """Admission order of the serve loop: EDF with a starvation bound.
+
+    Each request is ``(ticket, deadline, priority, submitted_round)``:
+    ``deadline`` is an absolute time on any monotone clock (None sorts
+    last), a larger ``priority`` wins among equal deadlines, and
+    ``submitted_round`` is the scheduler round the request arrived in.
+    A request that has waited ``starvation_rounds`` rounds is aged: it
+    outranks every request that is not, and the aged drain FIFO.  The
+    rest go by earliest deadline, then descending priority, then ticket.
+    Returns the indices into ``requests`` in admission order.
+    """
+    def key(i):
+        ticket, deadline, priority, submitted = requests[i]
+        aged = (now - submitted) >= starvation_rounds
+        deadline = math.inf if deadline is None else float(deadline)
+        return (0 if aged else 1, submitted if aged else 0, deadline, -priority, ticket)
+
+    return sorted(range(len(requests)), key=key)
 
 
 def _finite_rows(x: torch.Tensor) -> torch.Tensor:
@@ -379,8 +426,8 @@ def solve_canonical(
                 local = active if state_idx is None else np.searchsorted(state_idx, active)
                 sub_state = state.take(torch.as_tensor(local, device=batch.b.device))
                 state = None  # the round's gathered copy is all that is needed
-        part, part_state = dispatch_round(sub, base.replace(max_iters=cap), stats,
-                                          state=sub_state, want_state=want_state)
+        part, part_state = dispatch_round_safe(sub, base.replace(max_iters=cap), stats,
+                                               state=sub_state, want_state=want_state)
         if options.guardrails:
             part = apply_guardrails(part, part_state)
         if stats is not None and sub_state is not None:
@@ -407,19 +454,67 @@ def solve_canonical(
     return sol
 
 
+def dispatch_round_safe(
+    batch: Union[LPBatch, SharedLPBatch], options: SolveOptions,
+    stats: Optional[SolveStats] = None, state=None, want_state: bool = False,
+):
+    """:func:`dispatch_round` with retry from the carried state.
+
+    ``dispatch_round`` mutates neither ``batch`` nor ``state``, so after a
+    transient failure (an injected ``ChaosError``, a device runtime
+    error) the same round is dispatched again from the same state, and
+    the exact-resume protocol makes the retry bit-identical to a round
+    that did not fail.  The retry stays on the same backend: no plain
+    version stands in for a kernel.  Retry k sleeps
+    ``min(options.retry_backoff * 2**k, RETRY_BACKOFF_CAP)`` first.  After
+    ``options.retry_budget`` failed retries, or at once on an error in
+    ``runtime/chaos.py:NON_TRANSIENT``, the exception propagates.  The
+    clean path is one ``try``.  Counters booked by an aborted attempt's
+    finished chunks are not rolled back.
+    """
+    budget = options.retry_budget
+    for attempt in range(budget + 1):
+        try:
+            return dispatch_round(batch, options, stats, state=state, want_state=want_state)
+        except Exception as exc:
+            if attempt >= budget or not _chaos.is_transient(exc):
+                raise
+            if stats is not None:
+                stats.retries += 1
+                if isinstance(exc, _chaos.ChaosError):
+                    stats.faults_injected += 1
+            delay = min(options.retry_backoff * (2 ** attempt), RETRY_BACKOFF_CAP)
+            if delay > 0:
+                time.sleep(delay)
+    raise AssertionError("unreachable")  # pragma: no cover
+
+
+def _solve_chunk(backend: Backend, cur, cur_state, options: SolveOptions, want_state: bool):
+    if cur_state is not None:
+        return backend.resume_canonical(cur, cur_state, options)
+    if want_state:
+        return backend.start_canonical(cur, options)
+    return backend.solve_canonical(cur, options), None
+
+
 def dispatch_round(
     batch: Union[LPBatch, SharedLPBatch], options: SolveOptions,
     stats: Optional[SolveStats] = None, state=None, want_state: bool = False,
 ):
     """One dispatch round: chunk, solve, concatenate, record -> ``(LPSolution, state)``.
 
-    The only place that talks to a backend for canonical batches (the
-    round scheduler above and ``SolveSession.resume_round``).
-    ``options.max_iters`` is the round's budget and ``options.backend``
-    a concrete name.  ``state`` continues a carried state (row-aligned
-    with ``batch``); ``want_state`` returns the terminal state, else
-    ``None``.
+    The only place that talks to a backend for canonical batches (through
+    :func:`dispatch_round_safe`: the round scheduler above and
+    ``SolveSession.resume_round``).  ``options.max_iters`` is the round's
+    budget and ``options.backend`` a concrete name.  ``state`` continues
+    a carried state (row-aligned with ``batch``); ``want_state`` returns
+    the terminal state, else ``None``.  An active
+    ``runtime/chaos.py:ChaosMonkey`` is consulted before the round, before
+    each chunk and on the outgoing state.  With ``options.speculation``
+    a round of several chunks goes through :func:`_speculative_chunks`.
     """
+    monkey = _chaos.active()
+    chaos_round = monkey.on_round(options.backend) if monkey is not None else None
     backend = get_backend(options.backend)
     bsz = batch.batch
     chunk = options.chunk_size or bsz
@@ -432,26 +527,108 @@ def dispatch_round(
             per_lp = TableauSpec(batch.m, batch.n, options.effective_layout).bytes_per_lp(
                 batch.a.dtype)
         stats.record_tableau(min(chunk, bsz) * per_lp)
-    parts, state_parts = [], []
-    for lo in range(0, bsz, chunk):
-        rows = slice(lo, min(lo + chunk, bsz))
+    ranges = [slice(lo, min(lo + chunk, bsz)) for lo in range(0, bsz, chunk)]
+    if options.speculation and len(ranges) > 1:
+        parts, state_parts = _speculative_chunks(batch, state, options, backend, want_state,
+                                                 stats, ranges, monkey, chaos_round)
+    else:
+        parts, state_parts = [], []
+        for k, rows in enumerate(ranges):
+            if monkey is not None:
+                monkey.on_chunk(chaos_round, k)
+            before = backend.cache_size() if stats is not None and backend.cache_size else None
+            out, out_state = _solve_chunk(backend, batch.take(rows),
+                                          None if state is None else state.take(rows),
+                                          options, want_state)
+            if before is not None:
+                stats.record_cache(before, backend.cache_size())
+            if stats is not None:
+                stats.record(out)
+            parts.append(out)
+            if out_state is not None:
+                state_parts.append(out_state)
+    sol = parts[0] if len(parts) == 1 else _concat_solutions(parts)
+    out_state = concat_states(state_parts) if want_state else None
+    if monkey is not None and out_state is not None:
+        # NaN in scheduled rows of the OUTGOING state: the corruption the
+        # next guardrail check must catch.
+        out_state, poisoned = monkey.poison_state(chaos_round, out_state)
+        if poisoned and stats is not None:
+            stats.faults_injected += poisoned
+    return sol, out_state
+
+
+def _cross_streams(value, stream: "torch.cuda.Stream") -> None:
+    """``record_stream`` on every CUDA tensor of a batch, state or solution."""
+    if value is None:
+        return
+    for f in dataclasses.fields(value):
+        t = getattr(value, f.name)
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            t.record_stream(stream)
+
+
+def _speculative_chunks(batch, state, options: SolveOptions, backend: Backend,
+                        want_state: bool, stats: Optional[SolveStats], ranges, monkey,
+                        chaos_round):
+    """The chunks of one round as straggler-mitigated work units (``speculation``).
+
+    Each chunk is a unit of ``runtime/straggler.py:run_with_speculation``:
+    worker threads solve the chunks, and a chunk past the deadline
+    ``alpha * median(finished chunk times)`` is dispatched again on an
+    idle worker; the first result wins, and since a solve is
+    deterministic the twin's answer is the same bits.  On the card each
+    attempt launches on a stream of its own (the kernels launch on the
+    current stream): the worker's stream waits on the caller's before it
+    reads the inputs, the attempt blocks on its stream before it reports
+    (so the deadline sees real durations), and the caller's stream waits
+    on the winners' before it reads the outputs.  ``record_stream`` marks
+    each tensor that crosses streams, so the allocator does not hand its
+    memory out again while another stream may still use it (a losing
+    attempt may still run when the round returns).  Specialisations are
+    booked once for the whole round; results and counters equal the
+    serial loop's.
+    """
+    from ..runtime.straggler import run_with_speculation
+
+    dev = batch.a.device
+    caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    before = backend.cache_size() if stats is not None and backend.cache_size else None
+
+    def solve_unit(payload, worker):
+        k, rows = payload
+        if monkey is not None:
+            monkey.on_chunk(chaos_round, k)
         cur = batch.take(rows)
-        before = backend.cache_size() if stats is not None and backend.cache_size else None
-        if state is not None:
-            out, out_state = backend.resume_canonical(cur, state.take(rows), options)
-        elif want_state:
-            out, out_state = backend.start_canonical(cur, options)
-        else:
-            out, out_state = backend.solve_canonical(cur, options), None
-        if before is not None:
-            stats.record_cache(before, backend.cache_size())
+        cur_state = None if state is None else state.take(rows)
+        if caller is None:
+            return _solve_chunk(backend, cur, cur_state, options, want_state)
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(caller)
+        _cross_streams(cur, stream)
+        _cross_streams(cur_state, stream)
+        with torch.cuda.stream(stream):
+            out, out_state = _solve_chunk(backend, cur, cur_state, options, want_state)
+        stream.synchronize()
+        return out, out_state, stream
+
+    report = run_with_speculation(list(enumerate(ranges)), solve_unit,
+                                  n_workers=min(4, len(ranges)))
+    parts, state_parts = [], []
+    for unit in report.results:
+        out, out_state = unit.value[:2]
+        if caller is not None:
+            caller.wait_stream(unit.value[2])
+            _cross_streams(out, caller)
+            _cross_streams(out_state, caller)
         if stats is not None:
             stats.record(out)
         parts.append(out)
         if out_state is not None:
             state_parts.append(out_state)
-    sol = parts[0] if len(parts) == 1 else _concat_solutions(parts)
-    return sol, (concat_states(state_parts) if want_state else None)
+    if before is not None:
+        stats.record_cache(before, backend.cache_size())
+    return parts, state_parts
 
 
 def solve_hyperbox(

@@ -232,6 +232,48 @@ class LPSolution:
     y: Optional[torch.Tensor] = None  # (B, m) dual point (pdhg only)
 
 
+def row_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by a fixed pairwise tree: ``(..., n) -> (...)``.
+
+    The axis is zero-padded to a power of two and halved until one entry
+    is left, each level one element-wise add.  The order is fixed by
+    ``n`` alone, so each row's bits are a function of that row, whatever
+    the batch around it.  ``Tensor.sum`` does not promise that: on the
+    card its reduction spreads a row over more threads when there are
+    few rows (below 16 rows of 100 or 500 entries a row's bits differed
+    from the same row's in a batch of 2048, on an H100), which a serve
+    loop that retires rows a few at a time would see.
+    """
+    n = v.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        v = torch.nn.functional.pad(v, (0, width - n))
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def row_tiles(rows: torch.Tensor, tile: int):
+    """``rows`` as index tiles of exactly ``tile`` entries: yields ``(idx, real)``.
+
+    Consecutive slices of ``rows``, the last padded with replicas of its
+    first entry; ``real`` counts the entries that are not padding.  A
+    library batched routine (``einsum``) or a launch whose plan depends
+    on the batch, called on ``x[idx]`` tile by tile, sees one batch size
+    whatever the number of rows, so each row's bits are a function of
+    that row and ``tile`` alone.  This and :func:`row_sum` are the port's
+    two ways to make a row's bits independent of its batch: sum a row's
+    entries by :func:`row_sum`; call a batched routine on tiles.
+    """
+    for lo in range(0, rows.numel(), tile):
+        idx = rows[lo:lo + tile]
+        real = idx.numel()
+        if real < tile:
+            idx = torch.cat([idx, idx[:1].expand(tile - real)])
+        yield idx, real
+
+
 def auto_cap(m: int, n: int) -> int:
     """The library-wide auto iteration cap for ``max_iters <= 0``."""
     return 50 * (m + n)

@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Tuple
 
 import numpy as np
@@ -52,6 +54,8 @@ from .lp import (
     UNBOUNDED,
     LPBatch,
     LPSolution,
+    row_sum,
+    row_tiles,
 )
 
 #: Default relative KKT tolerance when ``SolveOptions.pdhg_tol`` is 0.
@@ -187,8 +191,7 @@ def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.tensor(num, dtype=den.dtype, device=den.device), den)
 
 
-def spectral_norm(a: torch.Tensor, iters: int = POWER_ITERS, mv: Callable = matvec,
-                  rmv: Callable = rmatvec) -> torch.Tensor:
+def spectral_norm(a: torch.Tensor, iters: int = POWER_ITERS) -> torch.Tensor:
     """Per-LP ||A||_2 estimate by power iteration on ``A'A``.
 
     Deterministic (all-ones start), so every solve and every resumed
@@ -197,30 +200,50 @@ def spectral_norm(a: torch.Tensor, iters: int = POWER_ITERS, mv: Callable = matv
     bsz, _, n = a.shape
     v = torch.full((bsz, n), 1.0 / np.sqrt(n), dtype=a.dtype, device=a.device)
     for _ in range(iters):
-        w = rmv(a, mv(a, v))
+        w = rmatvec(a, matvec(a, v))
         v = w / torch.clamp(_l2(w), min=_TINY)[:, None]
-    return _l2(mv(a, v))
+    return _l2(matvec(a, v))
 
 
-def step_sizes(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, mv: Callable = matvec,
-               rmv: Callable = rmatvec):
-    """Per-LP ``(tau, sigma, (anorm, bscale, cscale))``.
+#: Batch size of every step-size computation (``core/lp.py:row_tiles``).
+#: The power iteration's batched products and norms are library calls,
+#: which pick their algorithm by batch size on the card: the same row's
+#: ``A x`` differed in its last bits between a batch of 3 and one of 256
+#: (``tools/row_bits_probe.py``, H100).  In tiles of exactly this many
+#: rows each LP's step sizes are a function of that LP alone, so a row
+#: resumed in a serve-loop group of any size steps as it does in a
+#: one-shot batch.  Summing the products by ``row_sum`` instead made the
+#: step sizes of 64 LPs of 500x500 3.7x slower than these tiles, and the
+#: compacted PDHG rounds of ``chip_smoke.py`` 2.7x (H100,
+#: ``tools/row_local_cost.py``).  The reference has no such tile: XLA on
+#: its devices reduces each row alike.
+STEP_TILE = 64
 
-    ``tau * sigma = (STEP_SAFETY / ||A||)^2``; the primal weight
-    ``omega = ||c|| / ||b||`` (clipped to [1e-2, 1e2], 1 when degenerate)
-    splits the product.  On the card the matvecs are float32 products:
-    TF32 must stay off.
-    """
-    anorm = spectral_norm(a, mv=mv, rmv=rmv)
+
+def _step_sizes(a, b, c):
+    anorm = spectral_norm(a)
     eta = _rdiv(STEP_SAFETY, torch.clamp(anorm, min=_TINY))
     bn = _l2(b)
     cn = _l2(c)
     omega = torch.where((bn > 1e-12) & (cn > 1e-12), cn / torch.clamp(bn, min=_TINY),
                         torch.ones_like(bn))
     omega = torch.clamp(omega, 1e-2, 1e2)
-    tau = eta / omega
-    sigma = eta * omega
-    return tau, sigma, (anorm, 1.0 + bn, 1.0 + cn)
+    return eta / omega, eta * omega, anorm, 1.0 + bn, 1.0 + cn
+
+
+def step_sizes(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """Per-LP ``(tau, sigma, (anorm, bscale, cscale))``.
+
+    ``tau * sigma = (STEP_SAFETY / ||A||)^2``; the primal weight
+    ``omega = ||c|| / ||b||`` (clipped to [1e-2, 1e2], 1 when degenerate)
+    splits the product.  Computed in tiles of :data:`STEP_TILE` rows.  On
+    the card the matvecs are float32 products: TF32 must stay off.
+    """
+    rows = torch.arange(a.shape[0], device=a.device)
+    parts = [[t[:real] for t in _step_sizes(a[idx], b[idx], c[idx])]
+             for idx, real in row_tiles(rows, STEP_TILE)] or [_step_sizes(a, b, c)]
+    tau, sigma, anorm, bscale, cscale = (torch.cat(ts) for ts in zip(*parts))
+    return tau, sigma, (anorm, bscale, cscale)
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +341,12 @@ def pdhg_step(a, b, c, x, y, ax, x_sum, y_sum, ax_sum, inner, x_grow, y_grow, st
 
 
 def objective(c: torch.Tensor, x: torch.Tensor, status: torch.Tensor) -> torch.Tensor:
-    """``c . x`` where OPTIMAL, else -inf: the same for the kernel and the loop."""
-    pobj = torch.sum(c * x, dim=-1)
+    """``c . x`` where OPTIMAL, else -inf: the same for the kernel and the loop.
+
+    ``core/lp.py:row_sum``, so a row's objective does not depend on the
+    rows of its launch.
+    """
+    pobj = row_sum(c * x)
     return torch.where(status == OPTIMAL, pobj, torch.full_like(pobj, -math.inf))
 
 
@@ -452,30 +479,54 @@ def resume_batched(a, b, c, state: PDHGResumeState, *, tol: float = 0.0, restart
 # ---------------------------------------------------------------------------
 
 
-def confirm_certificates(batch: LPBatch, sol: LPSolution, options=None) -> LPSolution:
-    """Exactly confirm, or revoke, the loop's heuristic divergence flags.
+def confirm_workers(rows: int) -> int:
+    """Host threads of the confirmation: one a core (``os.cpu_count()``), at
+    most one a flagged row."""
+    return max(1, min(os.cpu_count() or 1, rows))
 
-    Every UNBOUNDED/INFEASIBLE row is re-solved by the sequential float64
-    oracle (``core/oracle.py``) under a ``max(400, 2 (m + n))`` pivot
-    budget, and the flag survives only if the oracle reproduces it; any
-    other outcome reverts the row to ITER_LIMIT: never a wrong
-    certificate, at worst an honest non-answer.  A genuine ray is cheap
-    to reproduce; a false flag on a long valley would make the oracle
-    grind to optimality, and the budget turns that into ITER_LIMIT.
+
+def oracle_statuses(a: np.ndarray, b: np.ndarray, c: np.ndarray, max_iters: int,
+                    workers: int = 1) -> np.ndarray:
+    """The float64 oracle's status of each LP, solved on ``workers`` host threads.
+
+    Each LP is one ``core/oracle.py:solve_lp`` call, independent of the
+    others, so the statuses equal the sequential ``solve_batch``'s row
+    for row.  The oracle's pivots are NumPy operations on a whole tableau
+    (at 500x500, 0.75M entries a rank-1 update), which release the GIL,
+    so the threads run side by side.
     """
     from . import oracle as _oracle
 
+    if workers <= 1:
+        return _oracle.solve_batch(a, b, c, max_iters=max_iters)[2]
+
+    def one(i):
+        return _oracle.solve_lp(a[i], b[i], c[i], max_iters)[2]
+
+    with ThreadPoolExecutor(max_workers=workers, thread_name_prefix="lp-confirm") as pool:
+        return np.asarray(list(pool.map(one, range(a.shape[0]))), np.int32)
+
+
+def confirm_certificates(batch: LPBatch, sol: LPSolution, options=None) -> LPSolution:
+    """Exactly confirm, or revoke, the loop's heuristic divergence flags.
+
+    Every UNBOUNDED/INFEASIBLE row is re-solved by the float64 oracle
+    (``core/oracle.py``) under a ``max(400, 2 (m + n))`` pivot budget, one
+    row a host thread (:func:`oracle_statuses`, :func:`confirm_workers`),
+    and the flag survives only if the oracle reproduces it; any other
+    outcome reverts the row to ITER_LIMIT: never a wrong certificate, at
+    worst an honest non-answer.  A genuine ray is cheap to reproduce; a
+    false flag on a long valley would make the oracle grind to
+    optimality, and the budget turns that into ITER_LIMIT.
+    """
     st = sol.status.cpu().numpy()
     flagged = np.nonzero((st == UNBOUNDED) | (st == INFEASIBLE))[0]
     if flagged.size == 0:
         return sol
     idx = torch.as_tensor(flagged, device=batch.a.device)
-    _, _, exact, _ = _oracle.solve_batch(
-        batch.a[idx].cpu().double().numpy(),
-        batch.b[idx].cpu().double().numpy(),
-        batch.c[idx].cpu().double().numpy(),
-        max_iters=max(400, 2 * (batch.m + batch.n)),
-    )
+    a, b, c = (t[idx].cpu().double().numpy() for t in (batch.a, batch.b, batch.c))
+    exact = oracle_statuses(a, b, c, max(400, 2 * (batch.m + batch.n)),
+                            confirm_workers(flagged.size))
     ok = exact == st[flagged]
     if np.all(ok):
         return sol
@@ -531,9 +582,10 @@ def crossover(batch: LPBatch, sol: LPSolution, options=None, *,
     ``iterations`` adds the polish pivots to the PDHG steps.  Other rows
     pass through.
 
-    The gathered rows are polished in replica-padded tiles of ``tile``
-    rows (:data:`CROSSOVER_TILE`), one launch a tile, so each row's
-    polished bits depend on that row and the tile size alone.
+    The gathered rows are polished in tiles of ``tile`` rows
+    (:data:`CROSSOVER_TILE`, ``core/lp.py:row_tiles``), one launch a
+    tile, so each row's polished bits depend on that row and the tile
+    size alone.
     """
     from ..kernels import ops as kernel_ops  # lazy: kernels import core
 
@@ -544,12 +596,9 @@ def crossover(batch: LPBatch, sol: LPSolution, options=None, *,
     bsz, m = batch.batch, batch.m
     dev = batch.a.device
     tol = getattr(options, "tolerance", 0.0) if options is not None else 0.0
+    rows = torch.as_tensor(opt, device=dev)
     parts = []
-    for start in range(0, opt.size, tile):
-        chunk = opt[start:start + tile]
-        real = chunk.size
-        idx = torch.as_tensor(np.concatenate([chunk, np.repeat(chunk[:1], tile - real)]),
-                              device=dev)
+    for idx, real in row_tiles(rows, tile):
         a, b, c = batch.a[idx], batch.b[idx], batch.c[idx]
         guess = crossover_basis(a, b, sol.x[idx])
         part = kernel_ops.simplex_solve(a, b, c, tol=tol, basis0=guess)
@@ -557,7 +606,6 @@ def crossover(batch: LPBatch, sol: LPSolution, options=None, *,
                                   ("objective", "x", "status", "iterations", "basis"))))
     polished = LPSolution(*(torch.cat([getattr(p, f) for p in parts]) for f in
                             ("objective", "x", "status", "iterations", "basis")))
-    rows = torch.as_tensor(opt, device=dev)
     ok = (polished.status == OPTIMAL).nonzero().flatten()
     done = rows[ok]
     basis = torch.zeros((bsz, m), dtype=torch.int32, device=dev)

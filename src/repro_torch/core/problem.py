@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .lp import (INFEASIBLE, NUMERICAL, OPTIMAL, LPBatch, LPSolution, SharedLPBatch, _writable,
-                 resolve_device)
+                 resolve_device, row_sum)
 
 _INF = float("inf")
 
@@ -343,7 +343,8 @@ def uncanonicalize(canon: Canonicalized, sol: LPSolution) -> LPSolution:
     """Map a canonical-form solution back to user coordinates.
 
     ``x = shift + x_pos - x_neg``; the objective is re-evaluated as
-    ``c_user . x``.  Non-optimal LPs report -inf when maximizing, +inf
+    ``c_user . x`` (``core/lp.py:row_sum``, so a row's objective does not
+    depend on the rows mapped back beside it).  Non-optimal LPs report -inf when maximizing, +inf
     when minimizing, and NaN for ``NUMERICAL``.  ``basis`` stays in
     canonical column space (the warm-start currency).
     """
@@ -353,7 +354,7 @@ def uncanonicalize(canon: Canonicalized, sol: LPSolution) -> LPSolution:
         x = x - sol.x[:, n : 2 * n]
     ok = sol.status == OPTIMAL
     bad = -_INF if canon.sign > 0 else _INF
-    objective = torch.where(ok, (canon.c_user * x).sum(dim=-1), bad)
+    objective = torch.where(ok, row_sum(canon.c_user * x), bad)
     objective = torch.where(sol.status == NUMERICAL, float("nan"), objective)
     x = torch.where(ok[:, None], x, 0.0)
     return LPSolution(objective=objective, x=x, status=sol.status,

@@ -133,13 +133,18 @@ class SolveSession:
 
         Advances every LP of ``batch`` by at most ``cap`` ADDITIONAL
         iterations from ``state`` (row-aligned with ``batch``); the
-        solution's iteration counts are the round's own.  The guardrails
-        run on the way out when ``options.guardrails`` is on.
+        solution's iteration counts are the round's own.  The round runs
+        through ``core/dispatch.py:dispatch_round_safe``: a transient
+        failure re-dispatches it from the same state, up to
+        ``options.retry_budget`` times, before the error reaches the
+        caller (the serve loop then dead-letters the group).  The
+        guardrails run on the way out when ``options.guardrails`` is on.
         """
         base = (options or self.options).replace(
             max_iters=int(cap), compaction="off", first_cap=None, resume="scratch")
-        sol, out_state = _dispatch.dispatch_round(_on(batch, self.device), base, self.stats,
-                                                  state=state, want_state=True)
+        sol, out_state = _dispatch.dispatch_round_safe(_on(batch, self.device), base,
+                                                       self.stats, state=state,
+                                                       want_state=True)
         if base.guardrails:
             sol = _dispatch.apply_guardrails(sol, out_state)
         self.stats.resumed += batch.batch

@@ -5,8 +5,12 @@ shared headers).  It is compiled by
 ``nvcc`` on first use into ``build/`` at the repository root (or
 ``$REPRO_TORCH_BUILD_DIR``) and loaded with ``ctypes``; the library's
 file name carries a hash of the sources and flags, so an edited source
-is rebuilt and a stale library is never loaded.  A failed ``nvcc``
-raises.
+is rebuilt and a stale library is never loaded.  A missing toolkit, a
+failed ``nvcc`` or a library that does not load raises
+:class:`KernelBuildError`, and a launch that returns a CUDA error raises
+:class:`KernelLaunchError` (:func:`launch_error`): both are
+:class:`KernelError`, which the recovery layer never retries
+(``runtime/chaos.py:NON_TRANSIENT``).
 
 The flags pin the determinism contract: ``-fmad=false`` keeps every
 multiply and add a separately rounded operation (as in the plain
@@ -41,6 +45,26 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch: not transient, never retried."""
+
+
+class KernelBuildError(KernelError):
+    """A kernel source that did not build or load."""
+
+
+class KernelLaunchError(KernelError):
+    """A kernel launch that returned a CUDA error (a sticky one stays for the process)."""
+
+
+def launch_error(lib: ctypes.CDLL, source: str, err: int, what: str) -> KernelLaunchError:
+    """The error of a launch of ``source``'s library that returned CUDA error ``err``."""
+    describe = getattr(lib, f"{source}_error_string")
+    describe.restype = ctypes.c_char_p
+    describe.argtypes = [ctypes.c_int]
+    return KernelLaunchError(f"{what} launch failed: CUDA error {err} ({describe(err).decode()})")
+
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -50,6 +74,11 @@ _LOCK = threading.Lock()
 #: ``"plain"``.  ``SolveStats.compiles``/``cache_hits`` diff its size
 #: around each backend call (``core/backends.py:kernel_cache_size``).
 SPECIALIZATIONS: Set[Tuple[str, str, str]] = set()
+
+
+#: Held while a wrapper raises its launch counters: speculative chunks
+#: launch from several threads at once (``core/dispatch.py``).
+LAUNCH_LOCK = threading.Lock()
 
 
 def note_specialization(source: str, dtype, variant: str) -> None:
@@ -74,7 +103,7 @@ def nvcc() -> str:
     for path in candidates:
         if path.is_file():
             return str(path)
-    raise RuntimeError("nvcc not found; the CUDA kernels need the CUDA toolkit")
+    raise KernelBuildError("nvcc not found; the CUDA kernels need the CUDA toolkit")
 
 
 def library_path(name: str) -> Path:
@@ -103,7 +132,7 @@ def compile_source(name: str) -> dict:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise KernelBuildError(
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
@@ -125,7 +154,11 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(compile_source(name)["path"])
+            path = compile_source(name)["path"]
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as exc:
+                raise KernelBuildError(f"cannot load {path}: {exc}") from exc
             _LIBS[name] = lib
         return lib
 

@@ -77,10 +77,8 @@ def hyperbox(lo, hi, directions) -> torch.Tensor:
         err = fn(lo.data_ptr(), hi.data_ptr(), d.data_ptr(), out.data_ptr(),
                  d.shape[0], d.shape[1], lo_stride, hi_stride, stream)
     if err != 0:
-        lib.hyperbox_error_string.restype = ctypes.c_char_p
-        lib.hyperbox_error_string.argtypes = [ctypes.c_int]
-        msg = lib.hyperbox_error_string(err).decode()
-        raise RuntimeError(f"hyperbox kernel launch failed: CUDA error {err} ({msg})")
-    launches += 1
+        raise build.launch_error(lib, "hyperbox", err, "hyperbox kernel")
+    with build.LAUNCH_LOCK:
+        launches += 1
     build.note_specialization("hyperbox", d.dtype, "kernel")
     return out

@@ -144,12 +144,9 @@ def pdhg(a, b, c, state: _pdhg.PDHGResumeState, tau, sigma, scales, cap: int, *,
         err = fn(*ptrs, bsz, m, n, int(cap), int(restart), float(tol),
                  _pdhg.GROWTH_FRACTION * restart, *([how.k] if on_cluster else []), stream)
     if err != 0:
-        lib.pdhg_error_string.restype = ctypes.c_char_p
-        lib.pdhg_error_string.argtypes = [ctypes.c_int]
-        msg = lib.pdhg_error_string(err).decode()
-        raise RuntimeError(f"pdhg kernel ({how.variant}, k={how.k}) launch failed: "
-                           f"CUDA error {err} ({msg})")
-    launches += 1
-    variant_launches[how.variant] += 1
+        raise build.launch_error(lib, "pdhg", err, f"pdhg kernel ({how.variant}, k={how.k})")
+    with build.LAUNCH_LOCK:
+        launches += 1
+        variant_launches[how.variant] += 1
     build.note_specialization("pdhg", a.dtype, how.variant)
     return status, iters

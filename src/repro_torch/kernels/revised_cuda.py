@@ -118,18 +118,18 @@ def _symbol(lib, name: str, dtype: torch.dtype, n_ptr: int, n_int: int, tail):
 
 
 def _raise(lib, err: int, how: cluster.Plan, what: str):
-    lib.revised_error_string.restype = ctypes.c_char_p
-    lib.revised_error_string.argtypes = [ctypes.c_int]
-    msg = lib.revised_error_string(err).decode()
-    raise RuntimeError(f"revised {what} ({how.variant}) launch failed: CUDA error {err} ({msg})")
+    from . import build
+
+    raise build.launch_error(lib, "revised", err, f"revised {what} ({how.variant})")
 
 
 def _count(how: cluster.Plan, entry: str, dtype):
     global launches
     from . import build
 
-    launches += 1
-    variant_launches[how.variant] += 1
+    with build.LAUNCH_LOCK:
+        launches += 1
+        variant_launches[how.variant] += 1
     build.note_specialization(entry, dtype, how.variant)
 
 

@@ -151,12 +151,10 @@ def simplex(tab, basis, phase, c_ext, feas, cap: int, *, spec: TableauSpec,
             *([how.k] if on_cluster else []), stream,
         )
     if err != 0:
-        lib.simplex_error_string.restype = ctypes.c_char_p
-        lib.simplex_error_string.argtypes = [ctypes.c_int]
-        msg = lib.simplex_error_string(err).decode()
-        raise RuntimeError(f"simplex kernel ({how.variant}, k={how.k}) launch failed: "
-                           f"CUDA error {err} ({msg})")
-    launches += 1
-    variant_launches[how.variant] += 1
+        raise build.launch_error(lib, "simplex", err,
+                                 f"simplex kernel ({how.variant}, k={how.k})")
+    with build.LAUNCH_LOCK:
+        launches += 1
+        variant_launches[how.variant] += 1
     build.note_specialization("simplex", tab.dtype, how.variant)
     return obj, x, status, iters

@@ -715,3 +715,124 @@ def test_a_poisoned_carried_row_retires_numerical_on_the_card():
     for f in ("status", "iterations", "objective", "x"):
         assert _same(getattr(sol, f)[rest], getattr(off, f)[rest]), f
     assert int(fixed.status[row]) == int(off.status[row])
+
+
+# ---------------------------------------------------------------------------
+# slice 7: the serve loop, retries, speculation, row-local reductions
+# ---------------------------------------------------------------------------
+
+
+def test_row_local_reductions_do_not_depend_on_the_batch():
+    """``row_sum`` and the tiled step sizes give a row the same bits in a batch
+    of 2, 3 or 5 as in one of 300 (``Tensor.sum`` and ``einsum`` do not)."""
+    _need_card()
+    from repro_torch.core import pdhg
+    from repro_torch.core.lp import row_sum
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    v = torch.randn(300, 500, generator=gen).cuda()
+    full = row_sum(v)
+    a = torch.randn(300, 60, 50, generator=gen).cuda()
+    b = torch.rand(300, 60, generator=gen).cuda() + 0.5
+    c = torch.rand(300, 50, generator=gen).cuda()
+    steps = pdhg.step_sizes(a, b, c)
+    for k in (2, 3, 5):
+        assert _same(row_sum(v[:k]), full[:k])
+        part = pdhg.step_sizes(a[:k], b[:k], c[:k])
+        assert _same(part[0], steps[0][:k]) and _same(part[1], steps[1][:k])
+        for x, y in zip(part[2], steps[2]):
+            assert _same(x, y[:k])
+
+
+@pytest.mark.parametrize("name,opts,step_iters", [
+    ("cuda", repro_torch.SolveOptions(), 16),
+    ("pdhg", repro_torch.SolveOptions(backend="auto", route_frontier=40, max_iters=300), 70),
+    ("pdhg-crossover", repro_torch.SolveOptions(backend="auto", route_frontier=40,
+                                                max_iters=300, crossover=True), 70),
+])
+def test_continuous_serve_bit_identical_to_oneshot_on_the_card(name, opts, step_iters):
+    _need_card()
+    from repro_torch.serve.engine import LPEngine
+    from repro_torch.serve.loadgen import lp_request_mix
+
+    make = lp_request_mix([(28, 28), (40, 40)], seed=11, device="cpu")
+    problems = [make(i) for i in range(40)]
+    oneshot = repro_torch.SolveSession(opts, device="cuda").solve(problems)
+    eng = LPEngine(opts, flush_every=1 << 30, step_iters=step_iters, device="cuda")
+    before = (simplex_cuda.launches, pdhg_cuda.launches)
+    tickets, done = [], {}
+    for i in range(0, len(problems), 3):  # three arrivals a round: waves splice
+        tickets += [eng.submit(p) for p in problems[i:i + 3]]
+        for t in eng.step():
+            done[t] = eng.result(t)
+    while len(done) < len(problems):
+        for t in eng.step():
+            done[t] = eng.result(t)
+    for o, t in zip(oneshot, tickets):
+        for f in ("objective", "x", "status", "iterations"):
+            assert _same(getattr(o, f), getattr(done[t], f)), f
+    assert eng.stats.spliced > 0 and eng.stats.retries == 0 and eng.dead_letters == []
+    launched = (simplex_cuda.launches - before[0], pdhg_cuda.launches - before[1])
+    assert launched[1] > 0 if name.startswith("pdhg") else launched[0] > 0
+
+
+def test_speculative_chunks_on_streams_bit_identical_on_the_card():
+    _need_card()
+    from repro_torch.core import dispatch
+
+    batch = tlp.random_lp_batch(np.random.default_rng(5), 4000, 28, 28)
+    opts = repro_torch.SolveOptions(chunk_size=500)
+    ref = dispatch.solve_canonical(batch, opts)
+    for _ in range(2):
+        sol = dispatch.solve_canonical(batch, opts.replace(speculation=True))
+        for f in ("objective", "x", "status", "iterations", "basis"):
+            assert _same(getattr(ref, f), getattr(sol, f)), f
+
+
+def test_retry_and_poison_on_the_card():
+    _need_card()
+    from repro_torch.core import dispatch
+    from repro_torch.runtime import chaos
+
+    batch = tlp.random_lp_batch(np.random.default_rng(6), 256, 28, 28)
+    opts = repro_torch.SolveOptions(compaction="every_k", compact_every=8, resume="basis",
+                                    chunk_size=64, retry_backoff=0.0)
+    ref = dispatch.solve_canonical(batch, opts)
+    stats = repro_torch.SolveStats()
+    with chaos.inject(chaos.ChaosMonkey(fail_rounds=(0,), crash_rounds=(2,), max_faults=2)):
+        sol = dispatch.solve_canonical(batch, opts, stats=stats)
+    assert stats.retries == 2 and stats.faults_injected == 2
+    for f in ("objective", "x", "status", "iterations", "basis"):
+        assert _same(getattr(ref, f), getattr(sol, f)), f
+    with chaos.inject(chaos.ChaosMonkey(poison_rows={0: (3,)})):
+        bad = dispatch.solve_canonical(batch, opts)
+    rest = torch.arange(256, device="cuda") != 3
+    assert int(bad.status[3]) == tlp.NUMERICAL
+    assert _same(bad.objective[rest], ref.objective[rest])
+
+
+def test_a_kernel_that_does_not_build_leaves_the_serve_loop(monkeypatch, tmp_path):
+    """A source that fails ``nvcc`` raises ``KernelBuildError`` out of
+    ``LPEngine.step`` and ``repro_torch.solve``: no retry, no dead letter."""
+    _need_card()
+    from repro_torch.kernels import build
+    from repro_torch.serve.engine import LPEngine
+    from repro_torch.serve.loadgen import lp_request_mix
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "simplex.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    make = lp_request_mix([(28, 28)], seed=1, device="cpu")
+    eng = LPEngine(repro_torch.SolveOptions(retry_backoff=0.0), flush_every=1 << 30,
+                   device="cuda")
+    eng.submit(make(0))
+    with pytest.raises(build.KernelBuildError):
+        eng.step()
+    assert eng.stats.retries == 0 and eng.dead_letters == []
+    stats = repro_torch.SolveStats()
+    with pytest.raises(build.KernelBuildError):
+        repro_torch.solve(tlp.random_lp_batch(np.random.default_rng(1), 4, 28, 28), stats=stats)
+    assert stats.retries == 0
