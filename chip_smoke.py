@@ -97,6 +97,25 @@ line is printed:
    ``pdhg_auto`` also confirms its flags sequentially, once, beside the
    confirmation on host threads (``confirmation``).
 
+   Slice 8: after the rounds phase, with their counts read, ``a_lo``
+   times ``canonicalize`` at types 1 and 2 and its row-local ``A lo``
+   product (``row_sum`` in blocks of 4,096 rows) beside a batched
+   ``einsum``, with the device memory each adds; then the cost-model
+   autotuner (``runtime/autotune.py``), after the serve phase: ``autotune_predict`` (the predicted ranking of each
+   main-path class, 5x5 to 500x500 and the shared classes, with each
+   candidate's seconds, the choice held to the static table; type 1's
+   first 5,000 LPs under the default options and under
+   ``autotune="off"``: status, pivots and objective bit-equal, one
+   autotuned decision), ``autotune_trial`` (``autotune.warm`` with a cache
+   file in a temporary directory over 5x5 and 28x28 at 4,096, type 1's and
+   type 2's classes and the 5,000-LP class: each candidate's measured and
+   predicted seconds on its trial batch, the winner, ``trials_run``; a warm
+   process on the same file runs 0 trials; a ``"trial"`` solve of the
+   5,000 LPs takes the cached winner, bit-equal to ``"off"``), and, after
+   the batches are freed, ``roofline``: the model's H100 constants beside
+   ``nvidia-smi``'s name and power limit and a measured device-to-device
+   copy of 4 GB.
+
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
 revised launch the resident variant.  The ``kernels`` line counts the
@@ -1821,6 +1840,173 @@ def speculation_case(rt, *, batch, chunk):
 
 
 
+def a_lo_case(timer, dev, *, batches):
+    """What the row-local ``A lo`` product of ``canonicalize`` costs at the
+    paper's sizes: the whole ``canonicalize`` and the product alone, as
+    shipped (``row_sum`` in blocks of ``A_LO_ROWS`` rows) and as a batched
+    ``einsum``, each with the device memory it adds (CUDA events, median of
+    three; the values do not change the work)."""
+    from repro_torch.core import problem as tproblem
+    from repro_torch.core.lp import row_sum
+
+    def extra_bytes(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return int(torch.cuda.max_memory_allocated() - base)
+
+    rows = []
+    for name, batch in batches:
+        prob = tproblem.LPProblem.make(batch.c, batch.a, bu=batch.b, device=dev)
+        lo = torch.rand(batch.c.shape, generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev, dtype=batch.a.dtype)
+        blocks = tproblem.A_LO_ROWS
+
+        def row_local():
+            return torch.cat([row_sum(a * v[:, None, :]) for a, v in
+                              zip(batch.a.split(blocks), lo.split(blocks))])
+
+        def batched():
+            return torch.einsum("bmn,bn->bm", batch.a, lo)
+
+        check(torch.allclose(row_local(), batched(), rtol=1e-4, atol=1e-3),
+              f"{name}: the row-local A lo product disagrees with einsum")
+        rows.append(dict(
+            name=name, lps=batch.batch, m=batch.m, n=batch.n, block_rows=blocks,
+            canonicalize_ms=timer(lambda: tproblem.canonicalize(prob), reps=3),
+            canonicalize_extra_bytes=extra_bytes(lambda: tproblem.canonicalize(prob)),
+            row_sum_ms=timer(row_local, reps=3), row_sum_extra_bytes=extra_bytes(row_local),
+            einsum_ms=timer(batched, reps=3), einsum_extra_bytes=extra_bytes(batched)))
+        del prob, lo
+    emit("a_lo", rows=rows)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the autotune phase (slice 8): predict, trial, the winner cache, the roofline
+# ---------------------------------------------------------------------------
+
+#: The main path's shape classes, ``(m, n, shared, batch)``, ranked by the
+#: cost model: the slice-1 list buckets, the paper's types, the shared
+#: types and the slice-3 batch.
+PREDICT_CLASSES = [(5, 5, False, 4096), (28, 28, False, 4096), (100, 100, False, 50_000),
+                   (200, 100, False, 10_000), (100, 100, True, 50_000),
+                   (200, 100, True, 10_000), (500, 500, False, 256)]
+#: The classes ``autotune.warm`` times, ``(m, n, batch)``; the last is the
+#: class of the trial solve of type 1's first 5,000 LPs.
+WARM_CLASSES = [(5, 5, 4096), (28, 28, 4096), (100, 100, 50_000), (200, 100, 10_000),
+                (100, 100, 5_000)]
+#: Bytes of the device-to-device copy the roofline line times.
+COPY_BYTES = 4 << 30
+
+
+def same_fields(a, b, fields=("status", "iterations", "objective")) -> dict:
+    return {f: torch.equal(bits(getattr(a, f)), bits(getattr(b, f))) for f in fields}
+
+
+def autotune_predict_case(rt, dev, *, part):
+    """The predicted ranking of each main-path class, the choice held to the
+    static table, and ``part`` solved under the default options (the tuner
+    in ``"predict"`` mode) and under ``autotune="off"``: bit-equal."""
+    from repro_torch.core import dispatch
+    from repro_torch.runtime import autotune
+
+    classes = []
+    for m, n, shared, bsz in PREDICT_CLASSES:
+        opts = rt.SolveOptions(backend="auto")
+        ranked = autotune.rank_candidates(m, n, bsz, torch.float32, opts, shared=shared,
+                                          device=dev)
+        kw = dict(dtype=torch.float32, batch=bsz, device=dev)
+        tuned = dispatch.resolve_backend(opts, shared, (m, n), **kw)
+        static = dispatch.resolve_backend(opts.replace(autotune="off"), shared, (m, n), **kw)
+        check((tuned.backend, tuned.effective_layout) == (static.backend,
+                                                          static.effective_layout),
+              f"autotune predict chose {tuned.backend}/{tuned.layout} at {m}x{n} "
+              f"(shared={shared}); the static table says {static.backend}")
+        choice = [tuned.backend, tuned.layout]
+        classes.append(dict(m=m, n=n, shared=shared, batch=bsz, choice=choice,
+                            ranking=[dict(backend=c.backend, layout=c.layout,
+                                          predicted_s=c.predicted_s) for c in ranked]))
+    stats = rt.SolveStats()
+    tuned, tuned_ms, _ = timed_solve(rt, part, rt.SolveOptions(), stats=stats)
+    off, off_ms, _ = timed_solve(rt, part, rt.SolveOptions(autotune="off"))
+    same = same_fields(tuned, off)
+    check(all(same.values()) and stats.autotuned == 1,
+          f"the default (predict) solve differs from autotune='off': {same}, "
+          f"autotuned={stats.autotuned}")
+    emit("autotune_predict", classes=classes, lps=part.batch, bit_equal_to_off=same,
+         autotuned=stats.autotuned, autotune_log=stats.autotune_log, wall_ms=tuned_ms,
+         off_wall_ms=off_ms)
+    return off
+
+
+def autotune_trial_case(rt, dev, *, part, off):
+    """``autotune.warm`` over :data:`WARM_CLASSES` with a cache file in a
+    temporary directory (measured and predicted seconds a candidate), a warm
+    process on the same file (0 trials), then a ``"trial"`` solve of
+    ``part``: the cached winner, bit-equal to ``off``."""
+    import tempfile
+
+    from repro_torch.runtime import autotune
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        tuner = autotune.reset(cache_path=path)
+        t0 = time.perf_counter()
+        winners = autotune.warm(WARM_CLASSES, dtype=torch.float32, device=dev)
+        warm_s = time.perf_counter() - t0
+        check(tuner.trials_run > 0, "autotune.warm ran no trial on a cold cache")
+        classes = [dict(m=m, n=n, batch=bsz, trial_batch=min(tuner.trial_batch, bsz),
+                        winner=[w.backend, w.layout], source=w.source,
+                        predicted_s=w.predicted_s, measured_s=w.measured_s,
+                        candidates=[dict(backend=b, layout=lay, predicted_s=p, measured_s=t)
+                                    for b, lay, p, t in w.trials])
+                   for (m, n, bsz), w in zip(WARM_CLASSES, winners)]
+        fresh = autotune.reset(cache_path=path)
+        t0 = time.perf_counter()
+        again = autotune.warm(WARM_CLASSES, dtype=torch.float32, device=dev)
+        rewarm_s = time.perf_counter() - t0
+        check(fresh.trials_run == 0 and all(a.source == "cache" for a in again) and
+              [(a.backend, a.layout) for a in again] == [(w.backend, w.layout) for w in winners],
+              f"a warm process re-tuned: {fresh.trials_run} trials")
+        stats = rt.SolveStats()
+        sol, wall_ms, _ = timed_solve(rt, part, rt.SolveOptions(backend="auto",
+                                                                autotune="trial"), stats=stats)
+        same = same_fields(sol, off)
+        row = stats.autotune_log[0]
+        check(fresh.trials_run == 0 and row["source"] == "cache",
+              f"the trial solve did not take the cached winner: {row}")
+        check(all(same.values()), f"the trial solve differs from autotune='off': {same}")
+    autotune.reset()
+    emit("autotune_trial", classes=classes, trials_run=tuner.trials_run, warm_s=warm_s,
+         rewarm_trials_run=fresh.trials_run, rewarm_s=rewarm_s, trial_solve=dict(
+             lps=part.batch, winner=[row["backend"], row["layout"]], source=row["source"],
+             wall_ms=wall_ms, bit_equal_to_off=same))
+
+
+def roofline_case(timer, dev):
+    """The cost model's constants beside the card's name and power limit and a
+    measured device-to-device copy of :data:`COPY_BYTES` (CUDA events; a
+    measurement only, nothing is gated on it)."""
+    from repro_torch.runtime import autotune, roofline
+
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    ms = timer(lambda: dst.copy_(src), reps=5)
+    moved = 2 * COPY_BYTES  # each byte read once and written once
+    emit("roofline", nvidia_smi=smi_line(), hbm_bw=roofline.HBM_BW,
+         peak_flops_fp32=roofline.PEAK_FLOPS, peak_flops_fp64=roofline.PEAK_FLOPS_FP64,
+         machine_balance=roofline.MACHINE_BALANCE, launch_overhead_s=autotune.LAUNCH_OVERHEAD_S,
+         host_op_s=autotune.HOST_OP_S, copy_bytes=COPY_BYTES, copy_ms=ms,
+         copy_bytes_per_s=moved / (ms * 1e-3), copy_share_of_hbm_bw=moved / (ms * 1e-3)
+         / roofline.HBM_BW)
+    del src, dst
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of every generated input")
@@ -2186,6 +2372,9 @@ def run(args, pool) -> int:
           slice6["pdhg.cluster"] == slice6["pdhg"],
           f"a rounds-phase launch did not take the main variant: {slice6}")
     emit("main_path_summary", path="slice6_rounds_sessions_sweeps", launches=slice6)
+    # The row-local A lo product of canonicalize (slice 8) at types 1 and 2,
+    # after the counts were read.
+    a_lo_case(timer, dev, batches=[("type1", type1), ("type2", type2)])
     del type2, type1_off
     torch.cuda.empty_cache()
 
@@ -2236,13 +2425,31 @@ def run(args, pool) -> int:
     faults_case(rt, dev, type1=type1, shared1=shared1)
     fault_raised = watch.raised - raised
     speculation_case(rt, batch=type1, chunk=6250)
+
+    # Slice 8, the autotuner: the predicted ranking of every main-path class
+    # (equal to the static table) and type 1's first 5,000 LPs under the
+    # default options against autotune="off"; then warm trials into a cache
+    # file, a warm process on it (no trial), a "trial" solve that takes the
+    # cached winner; then the roofline line.  Counted from the first solve to
+    # the last trial.
+    reset_counts()
+    part = type1.take(torch.arange(5000, device=dev))
+    off = autotune_predict_case(rt, dev, part=part)
+    autotune_trial_case(rt, dev, part=part, off=off)
+    slice8 = launch_counts(counters)
+    check(slice8["simplex"] > 0 and slice8["simplex.cluster"] == slice8["simplex"],
+          f"the autotune phase did not launch the simplex kernel's cluster variant: {slice8}")
+    emit("main_path_summary", path="slice8_autotune", launches=slice8)
+    del part, off
     watch.__exit__()
     check(watch.raised == fault_raised,
           f"{watch.raised - fault_raised} dispatch rounds raised outside the fault cases")
     del type1, shared1, pdhg_batch
     torch.cuda.empty_cache()
+    roofline_case(timer, dev)
 
-    launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] for k in slice1}
+    launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
+                for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -3,7 +3,8 @@
 The public surface follows ``repro/__init__.py``: ``solve``,
 ``solve_hyperbox``, ``LPProblem``, ``LPBatch``, ``SharedLPBatch``,
 ``canonicalize_shared``, ``SolveOptions``, ``SolveStats``,
-``SolveSession``, ``TableauSpec`` and the status codes.  The default
+``SolveSession``, ``TableauSpec``, the status codes and ``autotune``
+(the cost-model autotuner: ``repro_torch.autotune.warm(...)``).  The default
 backend is ``"cuda"``: hand-written kernels for NVIDIA Hopper (``kernels/csrc``), built with
 ``nvcc`` at first use.  ``"pdhg"`` is the first-order backend for large
 LPs (restarted PDHG on its own kernel; ``crossover=True`` polishes its
@@ -40,11 +41,12 @@ from .core.lp import (
 from .core.problem import LPProblem, canonicalize_shared
 from .core.session import SolveSession
 from .core.tableau import TableauSpec
+from .runtime import autotune
 
 __all__ = [
     "solve", "solve_hyperbox", "LPProblem", "LPBatch", "SharedLPBatch", "canonicalize_shared",
     "LPSolution", "ResumeState", "SolveSession", "TableauSpec",
     "SolveOptions", "SolveStats", "Backend", "available_backends", "get_backend",
     "register_backend", "RUNNING", "OPTIMAL", "UNBOUNDED", "INFEASIBLE", "ITER_LIMIT",
-    "NUMERICAL", "STATUS_NAMES",
+    "NUMERICAL", "STATUS_NAMES", "autotune",
 ]

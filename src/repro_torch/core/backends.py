@@ -43,7 +43,9 @@ Built-ins:
                     on CUDA tensors, its plain loop (``core/pdhg.py``) on
                     CPU tensors.  Its box path is the hyperbox kernel's.
   * ``auto``      — not a registered backend: the dispatch layer resolves
-                    it per batch through :func:`route_shape`.
+                    it per batch through the cost-model autotuner
+                    (``runtime/autotune.py``, ``SolveOptions.autotune``),
+                    or with ``autotune="off"`` through :func:`route_shape`.
 
 No backend falls back to another: a shape a CUDA kernel is given runs
 on the kernel (the tableau and the basis inverse live in global memory,
@@ -55,7 +57,7 @@ counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +75,9 @@ COMPACTION_MODES = ("off", "chunked", "every_k")
 
 #: Valid values of :attr:`SolveOptions.resume`.
 RESUME_MODES = ("scratch", "basis")
+
+#: Valid values of :attr:`SolveOptions.autotune` (``runtime/autotune.py``).
+AUTOTUNE_MODES = ("off", "predict", "trial")
 
 #: The port's default backend: the CUDA kernels.
 DEFAULT_BACKEND = "cuda"
@@ -95,9 +100,9 @@ class SolveOptions:
     """Solver configuration — one frozen record instead of loose knobs.
 
     Only the fields this port honours so far are here; the reference's
-    other knobs (autotuning, meshes) arrive with the slices that port
-    them, and ``unroll``/``dynamic_caps``/``tile_b`` have no meaning in
-    the port (``ROADMAP.md``, "TPU mechanics not carried over").
+    ``mesh`` arrives with the slice that ports it, and
+    ``unroll``/``dynamic_caps``/``tile_b`` have no meaning in the port
+    (``ROADMAP.md``, "TPU mechanics not carried over").
 
     Parameters
     ----------
@@ -108,7 +113,8 @@ class SolveOptions:
         ``cuda``/``torch`` promote to them there), ``"pdhg"`` (first-order
         PDHG) or ``"reference"`` (float64 oracle), or a name added via
         :func:`register_backend`; or ``"auto"``, which picks ``cuda``,
-        ``cuda-shared`` or ``pdhg`` by shape (:func:`route_shape`).
+        ``cuda-shared`` or ``pdhg`` by shape (:func:`route_shape`,
+        through the autotuner unless ``autotune="off"``).
     rule : str, default "lpc"
         Pivot rule ``"lpc"``, ``"rpc"`` or ``"bland"``; the oracle is
         LPC-only and ignores it, and ``pdhg`` rejects any other than
@@ -190,6 +196,24 @@ class SolveOptions:
         its own CUDA stream, and re-dispatch a chunk that misses the
         straggler deadline (``runtime/straggler.py``); the first result
         wins.  Results are bit-identical to the serial chunk loop.
+    autotune : str, default "predict"
+        How ``backend="auto"`` and ``layout=None`` are filled
+        (``runtime/autotune.py``):
+
+        * ``"predict"``: rank the candidate configurations by the H100
+          cost model and take the cheapest.  Pure: no disk, no build, no
+          device work; reproduces the static routing table exactly.
+        * ``"trial"``: also time the predicted top-k by micro-solves on
+          the batch's device and persist the measured winner in the
+          on-disk cache (``$REPRO_TORCH_AUTOTUNE_CACHE``), so a warm
+          process resolves with zero micro-trials.
+        * ``"off"``: the static routing table alone (:func:`route_shape`
+          and :data:`~repro_torch.core.tableau.DEFAULT_LAYOUT`).
+
+        Whatever the mode, explicit pins (a concrete ``backend``, a
+        non-None ``layout``) win, the frontier stays a constraint, and
+        the tuner only changes WHICH configuration runs, never the
+        per-LP results of one.
     """
 
     backend: str = DEFAULT_BACKEND
@@ -212,6 +236,7 @@ class SolveOptions:
     retry_budget: int = 2
     retry_backoff: float = 0.05
     speculation: bool = False
+    autotune: str = "predict"
 
     def __post_init__(self):
         if self.compaction not in COMPACTION_MODES:
@@ -226,6 +251,10 @@ class SolveOptions:
         if self.rule not in _engine.RULES:
             raise ValueError(
                 f"unknown pivot rule {self.rule!r}; expected one of {_engine.RULES}"
+            )
+        if self.autotune not in AUTOTUNE_MODES:
+            raise ValueError(
+                f"unknown autotune mode {self.autotune!r}; expected one of {AUTOTUNE_MODES}"
             )
         if self.layout is not None and self.layout not in LAYOUTS:
             raise ValueError(
@@ -325,6 +354,15 @@ class SolveStats:
         Injected faults the recovery layer saw: each raised
         ``ChaosError`` it retried, and each state row poisoned
         (``runtime/chaos.py``).
+    autotuned : int
+        Options resolutions the cost-model autotuner performed
+        (``runtime/autotune.py``): one per resolution with ``autotune``
+        on, whatever knobs it filled.
+    autotune_log : list of dict
+        One row per autotuned resolution: the shape class, the chosen
+        ``backend``/``layout`` (``tile_b`` always None: the port has no
+        tile knob), ``predicted_s`` against ``measured_s``, and the
+        decision's ``source`` (``"predicted"``/``"measured"``/``"cache"``).
     """
 
     lps: int = 0
@@ -341,6 +379,8 @@ class SolveStats:
     retries: int = 0
     dead_lettered: int = 0
     faults_injected: int = 0
+    autotuned: int = 0
+    autotune_log: List[dict] = dataclasses.field(default_factory=list)
 
     def record_tableau(self, nbytes: int) -> None:
         self.tableau_bytes = max(self.tableau_bytes, int(nbytes))
@@ -428,7 +468,8 @@ def available_backends() -> Tuple[str, ...]:
 
 
 def route_shape(m: int, n: int, options: Optional[SolveOptions] = None,
-                shared: bool = False) -> str:
+                shared: bool = False, *, dtype=torch.float32, batch: Optional[int] = None,
+                device=None) -> str:
     """The shape-routing table behind ``backend="auto"``.
 
     A dense batch with ``max(m, n)`` below the frontier
@@ -439,10 +480,19 @@ def route_shape(m: int, n: int, options: Optional[SolveOptions] = None,
     densifying it for ``pdhg`` would forfeit the memory the caller asked
     to save.
 
-    This is the reference's static table (its ``autotune="off"`` leg);
-    the cost-model autotuner that ranks the candidates there is not
-    ported yet, so the port's ``"auto"`` is this table.
+    With ``options.autotune`` on (the default ``"predict"``) the
+    cost-model autotuner ranks the same candidates under the same
+    frontier (``runtime/autotune.py:choose_backend``); in ``"predict"``
+    mode it gives this table's answer, and a measured trial winner
+    (``"trial"``) may pick another candidate on the same side of the
+    frontier.  With ``options=None`` or ``autotune="off"`` this is the
+    static table (the reference's ``autotune="off"`` leg).
     """
+    if options is not None and options.autotune != "off":
+        from ..runtime import autotune as _autotune
+
+        return _autotune.choose_backend(m, n, dtype, options, batch=batch, shared=shared,
+                                        device=device)
     if shared:
         return "cuda-shared"
     frontier = DEFAULT_ROUTE_FRONTIER

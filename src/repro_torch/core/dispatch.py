@@ -43,9 +43,11 @@ backends: ``cuda`` and ``torch`` promote to ``cuda-shared`` and
 ``torch-shared`` (:func:`resolve_backend`), another backend (such as
 ``reference`` or ``pdhg``) gets the densified batch, and a plain
 ``LPBatch`` on a shared backend raises.  Shared gathers take only
-``b``/``c``: the one ``A`` is never copied.  ``backend="auto"`` is
-resolved once per batch, by shape (``core/backends.py:route_shape``),
-so every round of a solve runs one backend.
+``b``/``c``: the one ``A`` is never copied.  The open knobs
+(``backend="auto"``, ``layout=None``) are resolved once per batch, by the
+cost-model autotuner (``runtime/autotune.py``) or with ``autotune="off"``
+by the static table (``core/backends.py:route_shape``), so every round of
+a solve runs one backend.
 
 Every round of :func:`solve_canonical` (and of the serve loop, through
 ``SolveSession.resume_round``) goes through :func:`dispatch_round_safe`:
@@ -222,36 +224,53 @@ def _round_plan(batch, options: SolveOptions, incremental: bool = False,
 
 
 def resolve_backend(options: SolveOptions, shared: bool = False,
-                    shape: Optional[Tuple[int, int]] = None) -> SolveOptions:
-    """The concrete backend for a batch of LPs of ``shape`` = (m, n).
+                    shape: Optional[Tuple[int, int]] = None, dtype=None,
+                    batch: Optional[int] = None, stats: Optional[SolveStats] = None,
+                    device=None) -> SolveOptions:
+    """Resolve the open config knobs for a batch of ``batch`` LPs of ``shape``
+    = (m, n) in ``dtype`` on ``device``.
 
-    ``"auto"`` resolves through :func:`~repro_torch.core.backends.route_shape`
-    (``shape`` is needed for a dense batch); a batch routed to ``pdhg``
-    gets ``rule``/``layout`` reset to their defaults, since those knobs
-    configure the simplex leg and ``pdhg`` rejects them; a batch routed
-    to the simplex leg drops ``crossover``, which polishes first-order
-    answers only (the reference raises there, so ``"auto"`` with
-    ``crossover=True`` could not serve traffic on both sides of the
-    frontier).  On a shared
-    batch the simplex names promote to their shared counterparts
+    The one implementation shared by :func:`solve_canonical` (which
+    resolves once up front, so every round of a solve runs one backend)
+    and the serve loop (once per shape class, at admission).  On a shared
+    batch the simplex names first promote to their shared counterparts
     (``"cuda"`` -> ``"cuda-shared"``, ``"torch"`` -> ``"torch-shared"``):
-    the revised engine is the simplex solver for that container.  Every
-    other name passes through.
+    the revised engine is the simplex solver for that container.
+
+    With ``options.autotune`` on (the default ``"predict"``) and the
+    shape known, the cost-model autotuner (``runtime/autotune.py``) fills
+    every open knob (``backend="auto"``, ``layout=None``) and records the
+    decision into ``stats`` (``SolveStats.autotuned``, ``autotune_log``).
+    With ``autotune="off"`` only ``"auto"`` is resolved, through
+    :func:`~repro_torch.core.backends.route_shape` (``shape`` is needed
+    for a dense batch), and concrete backends pass through.  Either way
+    a batch routed to ``pdhg`` gets ``rule``/``layout`` reset to their
+    defaults, since those knobs configure the simplex leg and ``pdhg``
+    rejects them, and a batch routed to the simplex leg drops
+    ``crossover``, which polishes first-order answers only (the
+    reference raises there, so ``"auto"`` with ``crossover=True`` could
+    not serve traffic on both sides of the frontier).
     """
-    if options.backend == "auto":
-        if not shared and shape is None:
-            raise ValueError("backend='auto' needs the batch's shape (m, n) to resolve")
-        m, n = shape if shape is not None else (0, 0)
-        resolved = route_shape(m, n, options, shared=shared)
-        if resolved == "pdhg":
-            return options.replace(backend=resolved, rule=LPC, layout=None)
-        # The simplex leg returns vertices already: nothing to polish.
-        return options.replace(backend=resolved, crossover=False)
     if shared:
         promote = {"cuda": "cuda-shared", "torch": "torch-shared"}
         if options.backend in promote:
-            return options.replace(backend=promote[options.backend])
-    return options
+            options = options.replace(backend=promote[options.backend])
+    if options.autotune != "off" and shape is not None:
+        from ..runtime import autotune as _autotune
+
+        m, n = shape
+        return _autotune.resolve(m, n, torch.float32 if dtype is None else dtype, options,
+                                 shared=shared, batch=batch, stats=stats, device=device)
+    if options.backend != "auto":
+        return options
+    if not shared and shape is None:
+        raise ValueError("backend='auto' needs the batch's shape (m, n) to resolve")
+    m, n = shape if shape is not None else (0, 0)
+    resolved = route_shape(m, n, options.replace(autotune="off"), shared=shared)
+    if resolved == "pdhg":
+        return options.replace(backend=resolved, rule=LPC, layout=None)
+    # The simplex leg returns vertices already: nothing to polish.
+    return options.replace(backend=resolved, crossover=False)
 
 
 def admission_order(requests: Sequence[Tuple[int, Optional[float], int, int]],
@@ -388,7 +407,8 @@ def solve_canonical(
     if batch.batch == 0:
         return empty_solution(batch.n, batch.a.dtype, batch.a.device)
     shared = isinstance(batch, SharedLPBatch)
-    options = resolve_backend(options, shared, (batch.m, batch.n))
+    options = resolve_backend(options, shared, (batch.m, batch.n), dtype=batch.a.dtype,
+                              batch=batch.batch, stats=stats, device=batch.a.device)
     if shared and options.backend not in SHARED_BACKENDS:
         # An explicit non-shared backend (pdhg, reference, a plug-in): honour the
         # request by densifying, correctness over the memory win.

@@ -244,6 +244,10 @@ def stack_problems(problems: Sequence[LPProblem]) -> LPProblem:
     )
 
 
+#: Rows a block of ``canonicalize``'s row-local ``A lo`` product holds.
+A_LO_ROWS = 4096
+
+
 @dataclasses.dataclass(frozen=True)
 class Canonicalized:
     """A canonical ``LPBatch`` plus the data needed to map solutions back."""
@@ -265,7 +269,12 @@ def canonicalize(problem: LPProblem) -> Canonicalized:
 
     lo0 = torch.where(torch.isfinite(p.lo), p.lo, torch.zeros_like(p.lo))
     free = torch.isneginf(p.lo)
-    a_lo = torch.einsum("bmn,bn->bm", p.a, lo0)
+    # A lo by a fixed tree over each row (core/lp.py:row_sum), so a row's b
+    # bits depend on that row alone: a batched einsum changes them with the
+    # batch size on the card, and the serve loop admits requests a few at a
+    # time.  In blocks of rows, which bounds the (rows, m, n) product.
+    a_lo = torch.cat([row_sum(a * lo[:, None, :])
+                      for a, lo in zip(p.a.split(A_LO_ROWS), lo0.split(A_LO_ROWS))])
 
     fin_u = torch.isfinite(p.bu)
     a_blocks = [torch.where(fin_u[:, :, None], p.a, 0.0)]

@@ -37,7 +37,7 @@ import torch
 
 from . import dispatch as _dispatch
 from .backends import SolveOptions, SolveStats, get_backend, kernel_cache_size
-from .bucketing import ShapeGrid
+from .bucketing import ShapeGrid, next_pow2
 from .lp import (OPTIMAL, LPBatch, LPSolution, ResumeState, SharedLPBatch, _tensor,
                  resolve_device)
 from .problem import LPProblem, canonicalize, uncanonicalize
@@ -99,16 +99,20 @@ class SolveSession:
 
     def resolve_options(self, m: int, n: int, dtype, batch: Optional[int] = None
                         ) -> SolveOptions:
-        """The pinned options with ``backend="auto"`` resolved for a shape, memoized.
+        """The pinned options with the open config knobs resolved for a shape.
 
-        Every round of one shape class then runs one concrete backend.
-        ``batch`` is accepted for the reference's signature; the port's
-        routing depends on the shape alone.
+        One resolution per shape class ``(m, n, dtype, next_pow2(batch))``,
+        memoized for the session's lifetime, so every round of a class runs
+        one concrete backend and the autotuner (``runtime/autotune.py``)
+        prices (in trial mode, times) each class at most once per session.
+        The decision is booked into the session's ``stats``.
         """
-        key = (m, n, str(dtype))
+        key = (m, n, str(dtype), next_pow2(batch) if batch else 0)
         hit = self._pinned.get(key)
         if hit is None:
-            hit = self._pinned[key] = _dispatch.resolve_backend(self.options, shape=(m, n))
+            hit = self._pinned[key] = _dispatch.resolve_backend(
+                self.options, shape=(m, n), dtype=dtype, batch=batch, stats=self.stats,
+                device=self.device)
         return hit
 
     def init_state(self, batch, options: Optional[SolveOptions] = None):

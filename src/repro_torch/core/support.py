@@ -199,10 +199,12 @@ class Polytope:
         Support values come back in user coordinates through the same
         ``x = x+ - x-`` and re-evaluated ``l.x`` as ``uncanonicalize``.
         """
-        backend = _dispatch.resolve_backend(opts, shared=True).backend
+        sb, c_stack = self.shared_sweep_inputs(direction_stack, device=device)
+        backend = _dispatch.resolve_backend(opts, shared=True, shape=(sb.m, sb.n),
+                                            dtype=sb.a.dtype, batch=sb.batch, stats=stats,
+                                            device=sb.a.device).backend
         if backend not in SHARED_BACKENDS:
             raise ValueError(f"a shared sweep runs on {SHARED_BACKENDS}, not {backend!r}")
-        sb, c_stack = self.shared_sweep_inputs(direction_stack, device=device)
         n = self.dim
         dirs = c_stack[..., :n]  # (S, K, n)
         kw = dict(rule=opts.rule, max_iters=opts.max_iters, seed=opts.seed,

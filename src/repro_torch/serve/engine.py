@@ -332,14 +332,17 @@ class LPEngine:
             return
         canon = canonicalize(stacked)
         cb = canon.batch
-        resolved = self.session.resolve_options(cb.m, cb.n, cb.a.dtype)
+        g = self._groups.get(key)
+        # A wave spliced into a group runs the group's resolution: its state
+        # joins the group's (one backend, one layout).
+        resolved = g.options if g is not None else self.session.resolve_options(
+            cb.m, cb.n, cb.a.dtype, batch=cb.batch)
         backend = get_backend(resolved.backend)
         if not backend.supports_splice:
             self._complete_oneshot(tickets, stacked, true_ns, completed)
             return
         state = self.session.init_state(cb, resolved)
         batch = LPBatch(cb.a, cb.b, cb.c)
-        g = self._groups.get(key)
         if g is None:
             full_cap = _dispatch._full_cap(cb, resolved, backend)
             quantum = self.step_iters or 8 * (cb.m + cb.n)

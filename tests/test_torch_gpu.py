@@ -836,3 +836,136 @@ def test_a_kernel_that_does_not_build_leaves_the_serve_loop(monkeypatch, tmp_pat
     with pytest.raises(build.KernelBuildError):
         repro_torch.solve(tlp.random_lp_batch(np.random.default_rng(1), 4, 28, 28), stats=stats)
     assert stats.retries == 0
+
+
+# ---------------------------------------------------------------------------
+# the cost-model autotuner and the row-local A lo product (slice 8)
+# ---------------------------------------------------------------------------
+
+#: The main path's shape classes: (m, n, shared).
+AUTOTUNE_CLASSES = [(5, 5, False), (28, 28, False), (100, 100, False), (200, 100, False),
+                    (100, 100, True), (200, 100, True), (500, 500, False)]
+
+
+@pytest.fixture
+def card_tuner(tmp_path, monkeypatch):
+    """A private tuner whose cache file lives in ``tmp_path``."""
+    from repro_torch.runtime import autotune
+
+    path = str(tmp_path / "autotune.json")
+    monkeypatch.setenv(autotune.CACHE_ENV, path)
+    yield autotune.reset(cache_path=path)
+    autotune._TUNER = None
+
+
+@pytest.mark.parametrize("m,n,shared", AUTOTUNE_CLASSES)
+def test_predict_equals_the_static_table_on_the_card(m, n, shared, card_tuner):
+    _need_card()
+    from repro_torch.core import dispatch
+
+    for dtype in (torch.float32, torch.float64):
+        for backend in ("auto", "cuda", "torch"):
+            opts = repro_torch.SolveOptions(backend=backend)
+            kw = dict(dtype=dtype, batch=4096, device="cuda")
+            tuned = dispatch.resolve_backend(opts, shared, (m, n), **kw)
+            static = dispatch.resolve_backend(opts.replace(autotune="off"), shared, (m, n), **kw)
+            assert tuned.backend == static.backend
+            assert tuned.effective_layout == static.effective_layout
+    assert card_tuner.trials_run == 0
+
+
+def test_trial_resolution_bit_equal_to_off_on_the_card(card_tuner):
+    _need_card()
+    from repro_torch.runtime import autotune
+
+    rng = np.random.default_rng(0)
+    dense = tlp.random_lp_batch(rng, 512, 100, 100)
+    shared = tlp.random_shared_lp_batch(rng, 512, 28, 28)  # the plain revised loop is slow
+    for batch in (dense, shared):
+        for backend in ("auto", "cuda"):
+            opts = repro_torch.SolveOptions(backend=backend, autotune="trial")
+            stats = repro_torch.SolveStats()
+            tuned = repro_torch.solve(batch, opts, stats=stats)
+            static = repro_torch.solve(batch, opts.replace(autotune="off"))
+            for f in ("objective", "x", "status", "iterations", "basis"):
+                assert _same(getattr(tuned, f), getattr(static, f)), f
+            assert stats.autotuned == 1 and stats.lps == 512
+    trials = card_tuner.trials_run
+    assert trials > 0
+    fresh = autotune.reset(cache_path=card_tuner.cache.path)  # a new process: the file
+    stats = repro_torch.SolveStats()
+    repro_torch.solve(dense, repro_torch.SolveOptions(backend="auto", autotune="trial"),
+                      stats=stats)
+    assert fresh.trials_run == 0 and stats.autotune_log[0]["source"] == "cache"
+
+
+def test_a_kernel_build_error_in_a_trial_leaves_resolve(monkeypatch, card_tuner):
+    _need_card()
+    import os
+
+    from repro_torch.kernels import build
+    from repro_torch.runtime import autotune
+
+    def broken(name):
+        raise build.KernelBuildError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(build, "compile_source", broken)
+    monkeypatch.setattr(build, "_LIBS", {})
+    opts = repro_torch.SolveOptions(backend="auto", autotune="trial")
+    with pytest.raises(build.KernelBuildError):
+        autotune.resolve(28, 28, torch.float32, opts, batch=64, device="cuda")
+    assert not os.path.exists(card_tuner.cache.path)  # nothing ranked, nothing cached
+
+
+def _lower_bounded_raw(rng, bsz, m, n):
+    a = rng.uniform(-1.0, 1.0, (bsz, m, n))
+    b = rng.uniform(1.0, 10.0, (bsz, m))
+    c = rng.uniform(0.1, 1.0, (bsz, n))
+    lo = rng.uniform(-0.3, 0.3, (bsz, n))
+    return a, b, c, lo
+
+
+def test_a_lo_product_is_row_local_on_the_card():
+    """``canonicalize``'s ``A lo`` gives a row the same bits alone, in a few
+    rows, and in a batch of 2,048 (a batched ``einsum`` does not)."""
+    _need_card()
+    from repro_torch.core.problem import LPProblem, canonicalize
+
+    a, b, c, lo = _lower_bounded_raw(np.random.default_rng(3), 2048, 100, 100)
+
+    def canon_b(rows):
+        p = LPProblem.make(c[rows], a[rows], bu=b[rows], lo=lo[rows], dtype=np.float32,
+                           device="cuda")
+        return canonicalize(p).batch.b
+
+    full = canon_b(slice(None))
+    for rows in (slice(0, 1), slice(0, 2), slice(5, 8), slice(1000, 1016)):
+        assert _same(canon_b(rows), full[rows])
+
+
+def test_continuous_serve_with_lower_bounds_bit_identical_on_the_card():
+    _need_card()
+    from repro_torch.core.problem import LPProblem
+    from repro_torch.serve.engine import LPEngine
+
+    rng = np.random.default_rng(4)
+    problems = []
+    for i in range(40):
+        a, b, c, lo = _lower_bounded_raw(rng, 1, *((28, 28) if i % 2 else (40, 40)))
+        problems.append(LPProblem.make(c, a, bu=b, lo=lo, hi=lo + 5.0, dtype=np.float32,
+                                       device="cpu"))
+    opts = repro_torch.SolveOptions()
+    oneshot = repro_torch.SolveSession(opts, device="cuda").solve(problems)
+    eng = LPEngine(opts, flush_every=1 << 30, step_iters=4, device="cuda")
+    tickets, done = [], {}
+    for i in range(0, len(problems), 3):  # three arrivals a round: waves splice
+        tickets += [eng.submit(p) for p in problems[i:i + 3]]
+        for t in eng.step():
+            done[t] = eng.result(t)
+    while len(done) < len(problems):
+        for t in eng.step():
+            done[t] = eng.result(t)
+    for o, t in zip(oneshot, tickets):
+        for f in ("objective", "x", "status", "iterations"):
+            assert _same(getattr(o, f), getattr(done[t], f)), f
+    assert eng.stats.spliced > 0 and eng.dead_letters == []

@@ -106,3 +106,40 @@ def test_compaction_equals_off(m, n, batch, seed, mode, resume, k, rule):
         rule=rule, compaction=mode, resume=resume, compact_every=k))
     for f in ("status", "objective", "x", "iterations", "basis"):
         assert torch.equal(getattr(sol, f), getattr(off, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the operation counter (launch/op_stats.py), the twins of the HLO cases
+# ---------------------------------------------------------------------------
+
+
+@given(
+    st.sampled_from([torch.float32, torch.bfloat16, torch.int32, torch.float64]),
+    st.lists(st.integers(1, 64), min_size=0, max_size=4),
+)
+@settings(max_examples=50, deadline=None)
+def test_op_stats_shape_bytes(dtype, dims):
+    from repro_torch.launch import op_stats
+
+    nbytes = {torch.float32: 4, torch.bfloat16: 2, torch.int32: 4, torch.float64: 8}[dtype]
+    expect = nbytes * int(np.prod(dims)) if dims else nbytes
+    assert op_stats._shape_bytes(dtype, dims) == expect
+    # an elementwise operation moves its input and its output, once each
+    x = torch.zeros(dims, dtype=dtype)
+    assert op_stats.analyze(torch.neg, x)["traffic_bytes"] == 2 * expect
+
+
+def test_op_stats_loop_aware_flops_exact():
+    """Nested loops of products: the counter sees every trip (5 x 3)."""
+    from repro_torch.launch import op_stats
+
+    def f(x, w):
+        for _ in range(5):
+            for _ in range(3):
+                x = torch.tanh(x @ w)
+        return x
+
+    w = torch.randn(64, 64)
+    got = op_stats.analyze(f, w, w)
+    expect = 15 * 2 * 64 ** 3  # 5 x 3 matmuls
+    assert abs(got["dot_flops"] - expect) / expect < 1e-6, got["dot_flops"]
