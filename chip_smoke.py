@@ -116,6 +116,28 @@ line is printed:
    ``nvidia-smi``'s name and power limit and a measured device-to-device
    copy of 4 GB.
 
+   Slice 9, the LM serve path, after ``roofline``: gemma2-2b at full
+   width, weights from ``models/convert.py:reference_weights`` (checked
+   against the fixture's digest) copied to the card, TF32 off.
+   ``lm_reference`` (float32): prefill of the fixture's 2 prompts of 40
+   tokens, then 8 decode steps fed its tokens, against the JAX
+   reference's logits in ``tests/data/lm_gemma2_2b_reference.npz``
+   (``tools/lm_reference_fixture.py``): on its 2,048-id vocabulary
+   subset at every step, max abs and relative L2 each within the larger
+   of 5e-4 / 1e-3 and 4x the function's own float32 noise (the
+   fixture's logits with every weight one ulp away), the logsumexp
+   within the same abs bound, the argmax equal wherever its top-2
+   margin exceeds 2e-3.  ``lm_window`` (float32): 2 prompts of 4,160 tokens,
+   past the 4,096 window, then 32 decode steps, each within 1e-3 of the
+   full forward at its position; the forward with every layer global
+   equal to it below the window and different from it on.  ``lm_serve``
+   (bfloat16, the config's dtype): ``Engine.generate`` with no device
+   argument on 8 prompts of 4,096 tokens, 128 greedy steps: prefill ms
+   and decode ms a step (CUDA events) beside their bounds, peak memory,
+   every logit finite, no kernel of the port launched, and the fixture's
+   prompts in bfloat16 within 1.5x the reference's own bfloat16 error of
+   the fixture.
+
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
 revised launch the resident variant.  The ``kernels`` line counts the
@@ -2007,6 +2029,312 @@ def roofline_case(timer, dev):
     torch.cuda.empty_cache()
 
 
+
+# -- slice 9: the LM serve path (gemma2-2b at full width) ---------------------
+
+#: The LM phase's config, and the committed reference fixture
+#: (``tools/lm_reference_fixture.py``).
+LM_ARCH = "gemma2-2b"
+LM_FIXTURE = ROOT / "tests" / "data" / "lm_gemma2_2b_reference.npz"
+#: ``lm_reference`` gates (float32 against the fixture), for every row
+#: (prompt, step) on the stored vocabulary subset: max abs and relative L2
+#: against the reference's float32 logits, each the larger of its floor
+#: here and ``LM_NOISE_FACTOR`` times that row's float32 noise (the
+#: reference's logits with every weight one ulp away); against the
+#: reference's all-float64 logits, the larger of the floor and
+#: ``LM_F64_FACTOR`` times the reference's own float32 error there; the
+#: argmax wherever the fixture's top-2 margin exceeds ``LM_MARGIN``.  The
+#: same run with TF32 products must fail the first gate.
+LM_ABS_TOL = 5e-4
+LM_REL_TOL = 1e-3
+LM_NOISE_FACTOR = 4.0
+LM_F64_FACTOR = 2.0
+LM_MARGIN = 2e-3
+#: ``lm_window``: prompts past the 4,096 window, decode steps, and the gate
+#: of decode against the full forward.
+LM_WINDOW_PROMPT = 4160
+LM_WINDOW_STEPS = 32
+LM_WINDOW_TOL = 1e-3
+#: ``lm_serve`` (bfloat16): prompts, their length, greedy steps; the bf16
+#: logits' relative L2 against the fixture may be at most this multiple of
+#: the reference's own bf16-against-float32 error.
+LM_SERVE_BATCH = 8
+LM_SERVE_PROMPT = 4096
+LM_SERVE_STEPS = 128
+LM_BF16_FACTOR = 1.5
+#: H100 SXM data sheet: bfloat16 dense tensor-core peak.
+PEAK_FLOPS_BF16 = 989e12
+
+
+def lm_fixture_logits(model, fixture) -> torch.Tensor:
+    """The port's logits (B, steps + 1, V) on the fixture's tokens: prefill
+    of the prompts, then one decode step a reference token."""
+    tokens = torch.as_tensor(np.asarray(fixture["tokens"]), device=model.device)
+    p, steps = int(fixture["prompt_len"]), int(fixture["steps"])
+    cache = model.init_cache(tokens.shape[0], p + steps)
+    logits, _ = model.prefill({"tokens": tokens[:, :p]}, cache)
+    rows = [logits[:, -1]]
+    for i in range(steps):
+        logits, _ = model.decode_step({"tokens": tokens[:, p + i:p + i + 1]}, cache, p + i)
+        rows.append(logits[:, -1])
+    return torch.stack(rows, dim=1)
+
+
+def lm_tolerances(fixture) -> dict:
+    """``lm_reference``'s per-row gates for this fixture: (max abs, relative
+    L2) against the reference's float32 logits and against its float64 ones."""
+    return {
+        "abs": np.maximum(LM_ABS_TOL, LM_NOISE_FACTOR * fixture["f32_noise_max_abs"]),
+        "rel": np.maximum(LM_REL_TOL, LM_NOISE_FACTOR * fixture["f32_noise_rel_l2"]),
+        "abs_f64": np.maximum(LM_ABS_TOL, LM_F64_FACTOR * fixture["f64_max_abs"]),
+        "rel_f64": np.maximum(LM_REL_TOL, LM_F64_FACTOR * fixture["f64_rel_l2"]),
+    }
+
+
+def lm_f64_error(logits, fixture, tol) -> dict:
+    """Logits (..., V) against the reference's all-float64 logits: the worst
+    row's errors and the largest error over its row's tolerance."""
+    got = logits.detach().double().cpu().numpy()[..., np.asarray(fixture["vocab_ids"])]
+    want = np.asarray(fixture["logits_f64"], np.float64)
+    abs_rows = np.abs(got - want).max(axis=-1)
+    rel_rows = np.linalg.norm(got - want, axis=-1) / np.linalg.norm(want, axis=-1)
+    ratio = float(np.maximum(abs_rows / tol["abs_f64"], rel_rows / tol["rel_f64"]).max())
+    return {"f64_max_abs_err": float(abs_rows.max()), "f64_rel_l2": float(rel_rows.max()),
+            "f64_worst_ratio": ratio}
+
+
+def lm_reference_case(model, fixture) -> dict:
+    """``lm_reference``: the float32 port against the reference's fixture;
+    on the card, the same run with TF32 products as a control that the
+    gate must reject."""
+    from repro_torch.models.convert import compare_to_summary
+
+    tol = lm_tolerances(fixture)
+    logits = lm_fixture_logits(model, fixture)
+    res = compare_to_summary(logits, fixture, abs_tol=tol["abs"], rel_tol=tol["rel"],
+                             margin=LM_MARGIN)
+    res.update(lm_f64_error(logits, fixture, tol))
+    res["ok"] = res["ok"] and res["f64_worst_ratio"] <= 1.0
+    control = None
+    if model.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = lm_fixture_logits(model, fixture)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        control = compare_to_summary(tf32, fixture, abs_tol=tol["abs"], rel_tol=tol["rel"],
+                                     margin=LM_MARGIN)
+        control.update(lm_f64_error(tf32, fixture, tol))
+    emit("lm_reference", arch=model.cfg.name, dtype=str(model.final_norm.dtype),
+         tokens=list(np.asarray(fixture["tokens"]).shape), steps=int(fixture["steps"]),
+         subset=int(np.asarray(fixture["vocab_ids"]).size),
+         abs_tol=tol["abs"].tolist(), rel_tol=tol["rel"].tolist(),
+         abs_tol_f64=tol["abs_f64"].tolist(), rel_tol_f64=tol["rel_f64"].tolist(),
+         margin=LM_MARGIN, f32_noise_rel_l2=np.asarray(fixture["f32_noise_rel_l2"]).tolist(),
+         reference_f32_vs_f64_rel_l2=np.asarray(fixture["f64_rel_l2"]).tolist(),
+         tf32_control=control, **res)
+    check(res["ok"], f"lm_reference: the port differs from the reference's fixture: {res}")
+    check(control is None or not control["ok"],
+          f"lm_reference: the gate passes the TF32 control too: {control}")
+    return res
+
+
+def lm_window_case(model, *, seed, prompt=LM_WINDOW_PROMPT, steps=LM_WINDOW_STEPS,
+                   batch=2) -> dict:
+    """``lm_window``: prefill past the sliding window, then decode steps fed
+    the same tokens; each step's logits against the full forward's at that
+    position, and the forward with every layer global against it (equal
+    below the window, different from it on)."""
+    from repro_torch.configs import Shape, make_inputs
+
+    cfg = model.cfg
+    dev = model.device
+    tokens = make_inputs(cfg, Shape("lm_window", prompt + steps, batch, "prefill"), seed,
+                         device=dev)["tokens"]
+    t0 = time.perf_counter()
+    cache = model.init_cache(batch, prompt + steps)
+    logits, _ = model.prefill({"tokens": tokens[:, :prompt]}, cache)
+    rows = [logits[:, 0]]
+    for t in range(prompt, prompt + steps - 1):
+        logits, _ = model.decode_step({"tokens": tokens[:, t:t + 1]}, cache, t)
+        rows.append(logits[:, 0])
+    decoded = torch.stack(rows, dim=1)
+    idx = torch.arange(prompt - 1, prompt + steps - 1, device=dev)
+    with torch.inference_mode():
+        full = model.logits(model.forward({"tokens": tokens})[:, idx])
+        windows = [layer.window for layer in model.layers]
+        for layer in model.layers:
+            layer.window = None
+        try:
+            glob = model.logits(model.forward({"tokens": tokens})[:, idx])
+        finally:
+            for layer, w in zip(model.layers, windows):
+                layer.window = w
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    err = float((decoded - full).abs().max())
+    past = idx >= cfg.sliding_window
+    global_diff_past = float((glob[:, past] - full[:, past]).abs().max()) if past.any() else 0.0
+    global_diff_before = (float((glob[:, ~past] - full[:, ~past]).abs().max())
+                          if (~past).any() else 0.0)
+    res = dict(decode_vs_forward_max_abs=err, tol=LM_WINDOW_TOL,
+               global_vs_local_past_window_max_abs=global_diff_past,
+               global_vs_local_before_window_max_abs=global_diff_before)
+    emit("lm_window", arch=cfg.name, window=cfg.sliding_window, prompt=prompt, steps=steps,
+         batch=batch, positions=[int(idx[0]), int(idx[-1])], wall_s=wall, **res)
+    check(err <= LM_WINDOW_TOL, f"lm_window: decode differs from the full forward by {err}")
+    check(global_diff_past > 10 * LM_WINDOW_TOL,
+          f"lm_window: the local windows change nothing past the window: {res}")
+    return res
+
+
+def lm_param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_keys(windows, q) -> int:
+    """Keys the query at position ``q`` attends, summed over the layers."""
+    return sum(min(q + 1, w) if w else q + 1 for w in windows)
+
+
+def lm_prefill_flops(model, batch, s) -> float:
+    """Matrix-product and attention FLOPs a prefill needs: the layers'
+    projections for every token, causal (and windowed) scores and PV, and
+    the unembedding of the last position."""
+    cfg, windows = model.cfg, model.windows()
+    d = cfg.d_model
+    linear = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 3 * d * cfg.d_ff
+    keys = sum(lm_keys(windows, q) for q in range(s))
+    return (2.0 * batch * s * linear * cfg.num_layers
+            + 4.0 * batch * cfg.num_heads * cfg.head_dim * keys
+            + 2.0 * batch * d * cfg.padded_vocab)
+
+
+def lm_decode_kv_bytes(model, batch, index, item) -> int:
+    """K and V bytes a decode step at ``index`` reads (the slots it attends)."""
+    cfg = model.cfg
+    return 2 * batch * cfg.num_kv_heads * cfg.head_dim * lm_keys(model.windows(), index) * item
+
+
+def lm_serve_case(model, fixture, ref_rel, *, seed, counters, batch=LM_SERVE_BATCH,
+                  prompt=LM_SERVE_PROMPT, steps=LM_SERVE_STEPS) -> dict:
+    """``lm_serve``: ``Engine.generate`` with no ``device`` argument (the
+    card) on bfloat16 weights, greedy; prefill and decode times beside their
+    bounds, peak memory, the port's kernel launches (none on this path), and
+    the fixture's prompts in bfloat16 against the fixture."""
+    from repro_torch.configs import Shape, make_inputs
+    from repro_torch.models.convert import rel_l2
+    from repro_torch.serve.engine import Engine
+
+    cfg = model.cfg
+    dev = model.device
+    engine = Engine(model, max_len=prompt + steps)
+    tokens = make_inputs(cfg, Shape("lm_serve", prompt, batch, "prefill"), seed + 2,
+                         device=dev)["tokens"]
+    engine.generate({"tokens": tokens[:, :128]}, steps=4)  # warm-up: handles, allocator
+    before = launch_counts(counters)
+    events, rows = [], []
+
+    def mark():
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    def timed(call):
+        """``call`` with a CUDA event recorded as it returns; its logits kept."""
+        def wrapped(*args):
+            logits, cache = call(*args)
+            mark()
+            rows.append(logits[:, -1])
+            return logits, cache
+        return wrapped
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.prefill, model.decode_step = timed(model.prefill), timed(model.decode_step)
+    t0 = time.perf_counter()
+    try:
+        mark()
+        out = engine.generate({"tokens": tokens}, steps=steps)
+        torch.cuda.synchronize()
+    finally:
+        del model.prefill, model.decode_step  # the methods again
+    wall = time.perf_counter() - t0
+    launched = count_delta(counters, before)
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = events[0].elapsed_time(events[1])
+    step_ms = np.array([a.elapsed_time(b) for a, b in zip(events[1:], events[2:])])
+    all_finite = bool(torch.isfinite(torch.stack(rows)).all())  # after the last event
+    weights = lm_param_bytes(model)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    kv = [lm_decode_kv_bytes(model, batch, prompt + i, item) for i in range(steps - 1)]
+    decode_bound = (weights + float(np.median(kv))) / HBM_BYTES_PER_S * 1e3
+    prefill_flops = lm_prefill_flops(model, batch, prompt)
+    prefill_bound = prefill_flops / PEAK_FLOPS_BF16 * 1e3
+    logits16 = lm_fixture_logits(model, fixture).float().cpu().numpy()
+    ids = np.asarray(fixture["vocab_ids"])
+    got, ref = logits16[..., ids].astype(np.float64), np.asarray(fixture["logits"], np.float64)
+    rel_all = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    res = dict(
+        prefill_ms=prefill_ms, prefill_tokens_per_s=batch * prompt / (prefill_ms * 1e-3),
+        prefill_bound_ms=prefill_bound, prefill_flops=prefill_flops,
+        decode_ms_median=float(np.median(step_ms)), decode_ms_p90=float(np.percentile(step_ms, 90)),
+        decode_tokens_per_s=batch / (float(np.median(step_ms)) * 1e-3),
+        decode_bound_ms=decode_bound, weight_bytes=weights, kv_bytes_median=float(np.median(kv)),
+        wall_s=wall, peak_memory_bytes=peak, port_kernel_launches=launched,
+        all_logits_finite=all_finite, tokens_in_vocab=bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+        bf16_rel_l2=rel_all, bf16_rel_l2_rows_max=float(rel_l2(got, ref).max()),
+        reference_bf16_rel_l2=ref_rel, bf16_limit=LM_BF16_FACTOR * ref_rel,
+    )
+    emit("lm_serve", arch=cfg.name, dtype=cfg.dtype, batch=batch, prompt=prompt, steps=steps,
+         nvidia_smi=smi_line(), **res)
+    check(all_finite and res["tokens_in_vocab"], f"lm_serve: non-finite logits or bad tokens: {res}")
+    check(not any(launched.values()), f"lm_serve: the LM path launched a kernel of the port: {launched}")
+    check(rel_all <= LM_BF16_FACTOR * ref_rel,
+          f"lm_serve: bf16 logits {rel_all} from the fixture, past {LM_BF16_FACTOR} x {ref_rel}")
+    return res
+
+
+def lm_phase(rt_configs, dev, *, seed, counters) -> dict:
+    """Slice 9: gemma2-2b at full width, float32 (``lm_reference``,
+    ``lm_window``) then bfloat16 (``lm_serve``), weights from
+    ``reference_weights`` copied to the card."""
+    from repro_torch.models import Model
+    from repro_torch.models.convert import (load_reference_params, reference_weights,
+                                            weights_digest)
+
+    check(LM_FIXTURE.exists(), f"the LM fixture {LM_FIXTURE} is missing")
+    fixture = dict(np.load(LM_FIXTURE))
+    cfg = rt_configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    tree = reference_weights(cfg, int(fixture["seed"]))
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
+          "the weights drawn here differ from the fixture's (another NumPy stream?)")
+    before = launch_counts(counters)
+    t0 = time.perf_counter()
+    model = load_reference_params(Model(dataclasses.replace(cfg, dtype="float32"), device=dev), tree)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    emit("lm_setup", arch=cfg.name, params=sum(p.numel() for p in model.parameters()),
+         param_count=cfg.param_count(), weights_s=gen_s, load_s=load_s,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    ref = lm_reference_case(model, fixture)
+    win = lm_window_case(model, seed=seed)
+    del model
+    torch.cuda.empty_cache()
+    model = load_reference_params(Model(cfg, device=dev), tree)
+    del tree
+    serve = lm_serve_case(model, fixture, float(fixture["bf16_rel_l2_all"]), seed=seed,
+                          counters=counters)
+    launched = count_delta(counters, before)
+    check(not any(launched.values()), f"the LM phase launched a kernel of the port: {launched}")
+    emit("main_path_summary", path="slice9_lm", launches=launched)
+    del model
+    torch.cuda.empty_cache()
+    return dict(reference=ref, window=win, serve=serve)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of every generated input")
@@ -2035,6 +2363,7 @@ def run(args, pool) -> int:
         from repro_torch.core.reach import five_dim_model, helicopter_model, reach_supports
         from repro_torch.kernels import (build, hyperbox_cuda, ops, pdhg_cuda, revised_cuda,
                                          simplex_cuda)
+        from repro_torch import configs as rt_configs
     except ImportError as exc:
         raise SystemExit(f"chip_smoke: FAILED: the port is not beside this script: {exc}")
     dev = torch.device("cuda")
@@ -2447,6 +2776,11 @@ def run(args, pool) -> int:
     del type1, shared1, pdhg_batch
     torch.cuda.empty_cache()
     roofline_case(timer, dev)
+
+    # Slice 9, the LM serve path: gemma2-2b at full width (no kernel of the
+    # port on it; the counts must not move).
+    reset_counts()
+    lm_phase(rt_configs, dev, seed=args.seed, counters=counters)
 
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
                 for k in slice1}

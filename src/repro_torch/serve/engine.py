@@ -1,8 +1,10 @@
-"""The LP serve loop: flush mode and continuous batching.
+"""Serving engines: the LM decode loop, and the LP serve loop (flush mode
+and continuous batching).
 
-Follows ``repro/serve/engine.py`` (its ``LPEngine``; the LM ``Engine``
-waits for the port of the model scaffolding).  :class:`LPEngine` serves
-single-LP requests over one persistent
+Follows ``repro/serve/engine.py``.  :class:`Engine` drives a dense
+``models.Model``'s prefill and decode steps over a cache allocated once
+and written in place (the reference donates it to its jitted step).
+:class:`LPEngine` serves single-LP requests over one persistent
 :class:`~repro_torch.core.session.SolveSession`, in two modes:
 
   * **flush mode**: requests accumulate until ``flush_every`` are
@@ -43,7 +45,15 @@ from ..core import dispatch as _dispatch
 from ..core import pdhg as _pdhg
 from ..core.backends import SolveOptions, SolveStats, get_backend
 from ..core.bucketing import ShapeGrid, shape_class
-from ..core.lp import ITER_LIMIT, NUMERICAL, LPBatch, LPSolution, concat_states
+from ..core.lp import (
+    ITER_LIMIT,
+    NUMERICAL,
+    LPBatch,
+    LPSolution,
+    _tensor,
+    concat_states,
+    resolve_device,
+)
 from ..core.problem import (
     Canonicalized,
     LPProblem,
@@ -54,6 +64,56 @@ from ..core.problem import (
 )
 from ..core.session import SolveSession, _on
 from ..runtime import chaos as _chaos
+
+
+
+class Engine:
+    """Greedy (or sampled) continuation of a batch of prompts.
+
+    ``model`` is a ``models.Model``; it moves to ``device`` (the card
+    unless the caller passes ``device="cpu"``).  ``max_len`` bounds the
+    prompt plus the generated tokens.
+    """
+
+    def __init__(self, model, max_len: int, *, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.max_len = max_len
+        #: The last ``generate``'s cache: allocated once, updated in place.
+        self.cache = None
+
+    @torch.inference_mode()
+    def generate(self, inputs, steps: int, temperature: float = 0.0,
+                 seed: int = 0) -> torch.Tensor:
+        """(B, steps) int32 tokens: one from the prefill's logits, then one a
+        decode step.
+
+        Greedy decoding takes the first maximum (``argmax``, as
+        ``jnp.argmax``); ``temperature > 0`` samples from
+        ``softmax(logits / temperature)`` with a ``torch.Generator`` seeded
+        by ``seed`` (its bits differ from ``jax.random.categorical``).
+        """
+        tokens = _tensor(inputs["tokens"], torch.int32, self.device)
+        b, prompt_len = tokens.shape
+        if prompt_len + steps - 1 > self.max_len:
+            raise ValueError(f"{prompt_len} prompt + {steps} steps exceed max_len {self.max_len}")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.cache = self.model.init_cache(b, self.max_len)
+        logits, _ = self.model.prefill({"tokens": tokens}, self.cache)
+        cur = self._sample(logits[:, -1], temperature, gen)
+        out = [cur]
+        for i in range(steps - 1):
+            logits, _ = self.model.decode_step({"tokens": cur[:, None]}, self.cache, prompt_len + i)
+            cur = self._sample(logits[:, -1], temperature, gen)
+            out.append(cur)
+        return torch.stack(out, dim=1)
+
+    @staticmethod
+    def _sample(logits: torch.Tensor, temperature: float, gen: torch.Generator) -> torch.Tensor:
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
 
 @dataclasses.dataclass

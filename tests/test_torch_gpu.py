@@ -969,3 +969,66 @@ def test_continuous_serve_with_lower_bounds_bit_identical_on_the_card():
         for f in ("objective", "x", "status", "iterations"):
             assert _same(getattr(o, f), getattr(done[t], f)), f
     assert eng.stats.spliced > 0 and eng.dead_letters == []
+
+
+# ---------------------------------------------------------------------------
+# The LM serve path (no kernel of the port: plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+
+def _lm_close(got, want, rtol=1e-5, atol=2e-5):
+    """The LM parity tolerance of tests/test_torch_models.py."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    rel = float((got - want).norm() / want.norm())
+    assert err <= atol * scale and rel <= rtol, (err, rel)
+
+
+def _lm_pair(arch="gemma2-2b", seed=6):
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights
+
+    cfg = configs.get_config(arch, reduced=True)
+    tree = reference_weights(cfg, seed)
+    card = load_reference_params(Model(cfg), tree)  # the card by default
+    host = load_reference_params(Model(cfg, device="cpu"), tree)
+    toks = configs.make_inputs(cfg, configs.Shape("t", 24, 2, "prefill"), 1, device="cpu")
+    return card, host, toks["tokens"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen1.5-4b"])
+def test_lm_reduced_on_the_card_matches_the_cpu(arch):
+    _need_card()
+    card, host, toks = _lm_pair(arch)
+    assert card.device.type == "cuda"
+    with torch.inference_mode():
+        _lm_close(card.logits(card.forward({"tokens": toks.cuda()})),
+                  host.logits(host.forward({"tokens": toks})))
+    cc, hc = card.init_cache(2, 24), host.init_cache(2, 24)
+    _lm_close(card.prefill({"tokens": toks[:, :16].cuda()}, cc)[0],
+              host.prefill({"tokens": toks[:, :16]}, hc)[0])
+    for t in range(16, 24):
+        _lm_close(card.decode_step({"tokens": toks[:, t:t + 1].cuda()}, cc, t)[0],
+                  host.decode_step({"tokens": toks[:, t:t + 1]}, hc, t)[0])
+
+
+def test_lm_engine_on_the_card_by_default():
+    _need_card()
+    from repro_torch.serve.engine import Engine
+
+    card, host, toks = _lm_pair()
+    engine = Engine(card, max_len=34)
+    assert engine.device.type == "cuda"
+    out = engine.generate({"tokens": toks}, steps=10)
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+    assert all(c["k"].device.type == "cuda" for c in engine.cache)
+    ref = Engine(host, max_len=34, device="cpu").generate({"tokens": toks}, steps=10)
+    # greedy picks agree until the first undecided one (random weights give
+    # near-uniform logits; see tests/test_torch_lm_serve.py)
+    agree = (out.cpu() == ref).int().cumprod(dim=1).sum(dim=1)
+    assert int(agree.min()) >= 1
+    sampled = engine.generate({"tokens": toks}, steps=10, temperature=1.0, seed=3)
+    assert torch.equal(sampled, engine.generate({"tokens": toks}, steps=10, temperature=1.0,
+                                                seed=3))
