@@ -138,6 +138,32 @@ line is printed:
    prompts in bfloat16 within 1.5x the reference's own bfloat16 error of
    the fixture.
 
+   Slice 10, MoE with the LP router and MLA, after the LM phase:
+   deepseek-v2-lite-16b at full width.  ``lm_moe_reference``: the
+   fixture's depth (3 layers: ``mla_dense``, then two ``mla_moe``),
+   weights from ``reference_weights`` checked against the digest of
+   ``tests/data/lm_deepseek_v2_lite_reference.npz``, under
+   ``router="topk"`` and ``"lp"``: the float32 logits against the
+   fixture with ``lm_reference``'s row gates (TF32 must fail them); under
+   ``lp`` the fixture's 18 router LPs (72 x 512, one a MoE layer a call)
+   through the simplex kernel with the reference's status, pivots and
+   basis and x within 1e-6, and each LP the port built from its own
+   affinities with the reference's basis (a differing one passes only
+   where the reduced costs that decided the first differing pivot lie
+   within the affinities' float32 rounding); bfloat16 within 1.5x the
+   reference's bfloat16 gap.  ``lm_moe_serve``: full depth (27 layers) in
+   bfloat16, ``Model.init`` on the card, ``Engine.generate`` on 8 prompts
+   of 4,096 tokens and 128 greedy steps, first under ``topk``, then under
+   ``lp``, on one loaded model, with the launch counts set to 0 before and
+   read after: prefill and decode ms beside their bounds, peak memory,
+   the dropped share and the heaviest expert's load over the mean, 0
+   simplex launches under ``topk`` and 26 x 128 under ``lp``, all of the
+   cluster variant, and the router LPs of the prefill and the first two
+   decode steps re-run through ``simplex_plain``, bit-identical.  Then
+   ``lm_router_lp``: the prefill's first router LP on the kernel against
+   its plain version (``simplex_case``), its ms, pivots, bound, and its
+   share of a decode step.
+
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
 revised launch the resident variant.  The ``kernels`` line counts the
@@ -145,7 +171,8 @@ launches of every path, and each entry's ``serve_path_launches`` those
 of slice 7.
 
 Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
-entries list their variants with their case names), the ``nvidia-smi``
+entries list their variants with their case names; the simplex entry's
+``lm_router`` holds the router's case), the ``nvidia-smi``
 name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  The
 script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -156,6 +183,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -2103,10 +2131,10 @@ def lm_f64_error(logits, fixture, tol) -> dict:
             "f64_worst_ratio": ratio}
 
 
-def lm_reference_case(model, fixture) -> dict:
+def lm_reference_case(model, fixture, phase="lm_reference") -> dict:
     """``lm_reference``: the float32 port against the reference's fixture;
     on the card, the same run with TF32 products as a control that the
-    gate must reject."""
+    gate must reject.  ``phase`` names the line."""
     from repro_torch.models.convert import compare_to_summary
 
     tol = lm_tolerances(fixture)
@@ -2125,7 +2153,7 @@ def lm_reference_case(model, fixture) -> dict:
         control = compare_to_summary(tf32, fixture, abs_tol=tol["abs"], rel_tol=tol["rel"],
                                      margin=LM_MARGIN)
         control.update(lm_f64_error(tf32, fixture, tol))
-    emit("lm_reference", arch=model.cfg.name, dtype=str(model.final_norm.dtype),
+    emit(phase, arch=model.cfg.name, dtype=str(model.final_norm.dtype),
          tokens=list(np.asarray(fixture["tokens"]).shape), steps=int(fixture["steps"]),
          subset=int(np.asarray(fixture["vocab_ids"]).size),
          abs_tol=tol["abs"].tolist(), rel_tol=tol["rel"].tolist(),
@@ -2133,9 +2161,9 @@ def lm_reference_case(model, fixture) -> dict:
          margin=LM_MARGIN, f32_noise_rel_l2=np.asarray(fixture["f32_noise_rel_l2"]).tolist(),
          reference_f32_vs_f64_rel_l2=np.asarray(fixture["f64_rel_l2"]).tolist(),
          tf32_control=control, **res)
-    check(res["ok"], f"lm_reference: the port differs from the reference's fixture: {res}")
+    check(res["ok"], f"{phase}: the port differs from the reference's fixture: {res}")
     check(control is None or not control["ok"],
-          f"lm_reference: the gate passes the TF32 control too: {control}")
+          f"{phase}: the gate passes the TF32 control too: {control}")
     return res
 
 
@@ -2217,23 +2245,11 @@ def lm_decode_kv_bytes(model, batch, index, item) -> int:
     return 2 * batch * cfg.num_kv_heads * cfg.head_dim * lm_keys(model.windows(), index) * item
 
 
-def lm_serve_case(model, fixture, ref_rel, *, seed, counters, batch=LM_SERVE_BATCH,
-                  prompt=LM_SERVE_PROMPT, steps=LM_SERVE_STEPS) -> dict:
-    """``lm_serve``: ``Engine.generate`` with no ``device`` argument (the
-    card) on bfloat16 weights, greedy; prefill and decode times beside their
-    bounds, peak memory, the port's kernel launches (none on this path), and
-    the fixture's prompts in bfloat16 against the fixture."""
-    from repro_torch.configs import Shape, make_inputs
-    from repro_torch.models.convert import rel_l2
-    from repro_torch.serve.engine import Engine
-
-    cfg = model.cfg
-    dev = model.device
-    engine = Engine(model, max_len=prompt + steps)
-    tokens = make_inputs(cfg, Shape("lm_serve", prompt, batch, "prefill"), seed + 2,
-                         device=dev)["tokens"]
-    engine.generate({"tokens": tokens[:, :128]}, steps=4)  # warm-up: handles, allocator
-    before = launch_counts(counters)
+def timed_generate(engine, model, tokens, steps):
+    """``engine.generate`` greedy, with a CUDA event recorded as the prefill
+    and each decode step return and the peak memory counter reset first.
+    Returns (tokens, wall s, prefill ms, decode ms a step, each call's
+    last logits)."""
     events, rows = [], []
 
     def mark():
@@ -2260,10 +2276,31 @@ def lm_serve_case(model, fixture, ref_rel, *, seed, counters, batch=LM_SERVE_BAT
     finally:
         del model.prefill, model.decode_step  # the methods again
     wall = time.perf_counter() - t0
-    launched = count_delta(counters, before)
-    peak = torch.cuda.max_memory_allocated()
     prefill_ms = events[0].elapsed_time(events[1])
     step_ms = np.array([a.elapsed_time(b) for a, b in zip(events[1:], events[2:])])
+    return out, wall, prefill_ms, step_ms, rows
+
+
+def lm_serve_case(model, fixture, ref_rel, *, seed, counters, batch=LM_SERVE_BATCH,
+                  prompt=LM_SERVE_PROMPT, steps=LM_SERVE_STEPS) -> dict:
+    """``lm_serve``: ``Engine.generate`` with no ``device`` argument (the
+    card) on bfloat16 weights, greedy; prefill and decode times beside their
+    bounds, peak memory, the port's kernel launches (none on this path), and
+    the fixture's prompts in bfloat16 against the fixture."""
+    from repro_torch.configs import Shape, make_inputs
+    from repro_torch.models.convert import rel_l2
+    from repro_torch.serve.engine import Engine
+
+    cfg = model.cfg
+    dev = model.device
+    engine = Engine(model, max_len=prompt + steps)
+    tokens = make_inputs(cfg, Shape("lm_serve", prompt, batch, "prefill"), seed + 2,
+                         device=dev)["tokens"]
+    engine.generate({"tokens": tokens[:, :128]}, steps=4)  # warm-up: handles, allocator
+    before = launch_counts(counters)
+    out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, tokens, steps)
+    launched = count_delta(counters, before)
+    peak = torch.cuda.max_memory_allocated()
     all_finite = bool(torch.isfinite(torch.stack(rows)).all())  # after the last event
     weights = lm_param_bytes(model)
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
@@ -2333,6 +2370,422 @@ def lm_phase(rt_configs, dev, *, seed, counters) -> dict:
     del model
     torch.cuda.empty_cache()
     return dict(reference=ref, window=win, serve=serve)
+
+
+# -- slice 10: MoE with the LP router and MLA (deepseek-v2-lite-16b) ----------
+
+#: The MoE phases' config, and its committed reference fixture
+#: (``tools/lm_reference_fixture.py --arch deepseek-v2-lite-16b --layers 3
+#: --router topk,lp``): full width, cut to the fixture's depth for
+#: ``lm_moe_reference``; full depth for ``lm_moe_serve``.
+LM_MOE_ARCH = "deepseek-v2-lite-16b"
+LM_MOE_FIXTURE = ROOT / "tests" / "data" / "lm_deepseek_v2_lite_reference.npz"
+LM_MOE_ROUTERS = ("topk", "lp")
+#: The fixture's router LPs through the kernel: status, iterations and basis
+#: exact, x within this.
+LM_MOE_X_TOL = 1e-6
+#: A port LP whose basis differs from the reference's passes only if the
+#: reduced costs that decided the first differing pivot lie within the
+#: float32 rounding of the affinities: this multiple of n * 2**-23 (relative),
+#: n the tokens a group's affinity averages (the worst-case relative
+#: rounding of a float32 sum of n terms).
+LM_MOE_GAP_FACTOR = 4.0
+#: ``lm_moe_serve``: the calls (the prefill, then decode steps) whose
+#: router LPs are captured and re-run through the plain version.
+LM_MOE_CAPTURE_CALLS = 3
+
+
+class SimplexSpy:
+    """``simplex_cuda.simplex`` wrapped for the length of a ``with``: it
+    counts the calls, and for the first ``limit`` (all if None) keeps
+    clones of the call's inputs and of its outputs (the terminal basis
+    too, which the kernel writes in place) for replay on the plain
+    version.  The clones are queued on the stream behind the launch;
+    nothing waits for them."""
+
+    def __init__(self, simplex_cuda, limit=None):
+        self.mod = simplex_cuda
+        self.limit = limit
+        self.calls = 0
+        self.records = []
+
+    def __enter__(self):
+        self.orig = self.mod.simplex
+        self.mod.simplex = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.simplex = self.orig
+
+    def _call(self, tab, basis, phase, c_ext, feas, cap, **kw):
+        self.calls += 1
+        keep = self.limit is None or len(self.records) < self.limit
+        inputs = [t.clone() for t in (tab, basis, phase, c_ext, feas)] if keep else None
+        out = self.orig(tab, basis, phase, c_ext, feas, cap, **kw)
+        if keep:
+            self.records.append(dict(inputs=inputs, cap=cap, kw=kw, basis=basis.clone(),
+                                     out=[t.clone() for t in out]))
+        return out
+
+
+def replay_plain(rec) -> bool:
+    """A captured launch's inputs through ``simplex_plain``: the same
+    objective, x, status, iterations and terminal basis, bit for bit."""
+    from repro_torch.kernels import simplex_cuda
+
+    tab, basis, phase, c_ext, feas = (t.clone() for t in rec["inputs"])
+    out = simplex_cuda.simplex_plain(tab, basis, phase, c_ext, feas, rec["cap"], **rec["kw"])
+    return all(torch.equal(bits(a), bits(b))
+               for a, b in zip(list(out) + [basis], rec["out"] + [rec["basis"]]))
+
+
+def with_router(model, router: str):
+    """The loaded model with ``cfg.router`` set to ``router`` in every module."""
+    cfg = dataclasses.replace(model.cfg, router=router)
+    for mod in model.modules():
+        if hasattr(mod, "cfg"):
+            mod.cfg = cfg
+    return model
+
+
+def moe_layer_count(model) -> int:
+    return sum(kind.endswith("_moe") for kind in model.kinds())
+
+
+def router_lp_divergence(a, b, c_port, c_ref, cap) -> dict:
+    """Where the port's LP (``c_port``) and the reference's (``c_ref``) part:
+    both run a pivot at a time on the plain version (CPU, float32) until
+    their bases differ; the relative gap between the reduced costs of the
+    two entering columns, on the port's tableau before that pivot."""
+    from repro_torch.core import simplex
+    from repro_torch.core.tableau import build_tableau
+
+    a, b = a.cpu()[None], b.cpu()[None]
+    c_port, c_ref = c_port.cpu()[None], c_ref.cpu()[None]
+    m = a.shape[1]
+    tab, basis, _ = build_tableau(a, b, c_port)
+    for step in range(1, cap + 1):
+        sp, st = simplex.solve_batched(a, b, c_port, max_iters=step, want_state=True)
+        sr = simplex.solve_batched(a, b, c_ref, max_iters=step)
+        if not torch.equal(sp.basis, sr.basis):
+            obj = tab[0, m]
+            new_p = sorted(set(sp.basis[0].tolist()) - set(basis[0].tolist()))
+            new_r = sorted(set(sr.basis[0].tolist()) - set(basis[0].tolist()))
+            rp, rr = float(obj[new_p[0]]), float(obj[new_r[0]])
+            return dict(pivot=step, port_column=new_p[0], reference_column=new_r[0],
+                        port_reduced_cost=rp, reference_reduced_cost=rr,
+                        gap=abs(rp - rr) / max(abs(rp), abs(rr), 1e-30))
+        if int(sp.status[0]) != 0 and int(sr.status[0]) != 0:
+            break
+        tab, basis = st.tab, st.basis
+    return dict(pivot=None, gap=None)
+
+
+def router_lp_checks(view, records, dev, groups: int) -> dict:
+    """``lm_moe_reference``'s LP gates: the fixture's own router LPs through
+    the kernel (status, iterations and basis exact, x within
+    ``LM_MOE_X_TOL``), and each LP the port built from its own affinities
+    (``records``, in the fixture's call order) against the reference's
+    basis; a differing basis passes only within the affinities' rounding
+    (``LM_MOE_GAP_FACTOR``; ``groups`` is the router's G)."""
+    from repro_torch.kernels import ops
+
+    a, b, c = (torch.as_tensor(np.asarray(view[f"router_{k}"]), device=dev) for k in "abc")
+    nlp, m, n = a.shape
+    cap = 8 * (m + n)
+    sol = ops.simplex_solve(a, b, c, max_iters=cap)
+    ref = {k: np.asarray(view[f"router_{k}"]) for k in ("status", "iterations", "basis", "x")}
+    fixture_on_kernel = dict(
+        lps=nlp, m=m, n=n,
+        status_equal=bool(np.array_equal(sol.status.cpu().numpy(), ref["status"])),
+        iterations_equal=bool(np.array_equal(sol.iterations.cpu().numpy(), ref["iterations"])),
+        basis_equal=bool(np.array_equal(sol.basis.cpu().numpy(), ref["basis"])),
+        x_max_abs_err=float(np.abs(sol.x.cpu().numpy() - ref["x"]).max()),
+        iterations=sorted(set(ref["iterations"].tolist())))
+    check(len(records) >= nlp, f"the port solved {len(records)} router LPs, the fixture has {nlp}")
+    calls, layers = np.asarray(view["router_call"]), np.asarray(view["router_layer"])
+    batch, prompt = np.asarray(view["tokens"]).shape[0], int(view["prompt_len"])
+    lines, c_gap_max = [], 0.0
+    for i, rec in enumerate(records[:nlp]):
+        c_port = rec["inputs"][3][0, 1:1 + n].float()
+        basis = rec["basis"][0].cpu().numpy()
+        c_ref = c[i]
+        c_gap = float((c_port - c_ref).abs().max() / c_ref.abs().max().clamp_min(1e-30))
+        a_port = rec["inputs"][0][0, :m, 1:1 + n]
+        c_gap_max = max(c_gap_max, c_gap)
+        if np.array_equal(basis, ref["basis"][i]) and torch.equal(a_port, a[i]):
+            continue
+        div = router_lp_divergence(a[i], b[i], c_port, c_ref, cap)
+        tokens = batch * prompt if calls[i] == 0 else batch
+        rounding = LM_MOE_GAP_FACTOR * math.ceil(tokens / groups) * 2.0 ** -23
+        ok = div["gap"] is not None and div["gap"] <= rounding
+        lines.append(dict(lp=i, call=int(calls[i]), layer=int(layers[i]),
+                          a_equal=bool(torch.equal(a_port, a[i])),
+                          affinity_rel_gap=c_gap, rounding=rounding, within_rounding=ok,
+                          **div))
+    res = dict(fixture_on_kernel=fixture_on_kernel, port_lps=nlp,
+               port_basis_equal=nlp - len(lines), affinity_rel_gap_max=c_gap_max,
+               divergences=lines)
+    res["ok"] = (fixture_on_kernel["status_equal"] and fixture_on_kernel["iterations_equal"]
+                 and fixture_on_kernel["basis_equal"]
+                 and fixture_on_kernel["x_max_abs_err"] <= LM_MOE_X_TOL
+                 and all(d["within_rounding"] for d in lines))
+    return res
+
+
+def lm_moe_reference_case(model, model16, fixture, router, *, counters) -> dict:
+    """``lm_moe_reference`` for one router: the float32 model against the
+    fixture (``lm_reference_case``'s gates, TF32 control included), the
+    router LPs under ``lp``, and the bfloat16 model within
+    ``LM_BF16_FACTOR`` times the reference's own bfloat16 gap."""
+    from repro_torch.kernels import simplex_cuda
+    from repro_torch.models.convert import fixture_view
+
+    view = fixture_view(fixture, router)
+    with_router(model, router)
+    with_router(model16, router)
+    before = launch_counts(counters)
+    with SimplexSpy(simplex_cuda) as spy:
+        res = lm_reference_case(model, view, phase=f"lm_moe_reference_{router}")
+    launched = count_delta(counters, before)
+    runs = 2 if model.device.type == "cuda" else 1  # the TF32 control runs too
+    calls = int(view["steps"]) + 1
+    expect = runs * calls * moe_layer_count(model) if router == "lp" else 0
+    check(spy.calls == expect, f"lm_moe_reference {router}: {spy.calls} router LPs, not {expect}")
+    check(model.device.type != "cuda" or launched["simplex"] == expect,
+          f"lm_moe_reference {router}: {launched['simplex']} simplex launches, not {expect}")
+    out = dict(router=router, logits=res, router_lps_solved=spy.calls,
+               simplex_launches=launched["simplex"])
+    if router == "lp":
+        out["router_lp"] = router_lp_checks(view, spy.records, model.device,
+                                            model.cfg.router_groups)
+    logits16 = lm_fixture_logits(model16, view).float().cpu().numpy()[..., view["vocab_ids"]]
+    ref = np.asarray(view["logits"], np.float64)
+    rel = float(np.linalg.norm(logits16 - ref) / np.linalg.norm(ref))
+    out.update(bf16_rel_l2=rel, reference_bf16_rel_l2=float(view["bf16_rel_l2_all"]),
+               bf16_limit=LM_BF16_FACTOR * float(view["bf16_rel_l2_all"]))
+    emit("lm_moe_reference", **{k: v for k, v in out.items() if k != "logits"},
+         logits_worst_ratio=res["worst_ratio"])
+    if router == "lp":
+        check(out["router_lp"]["ok"], f"lm_moe_reference: router LPs: {out['router_lp']}")
+    check(rel <= out["bf16_limit"],
+          f"lm_moe_reference {router}: bf16 logits {rel} from the fixture, past {out['bf16_limit']}")
+    return out
+
+
+class RoutingStats:
+    """``models.moe.dispatch`` wrapped for the length of a ``with``: keeps
+    each call's expert choices and kept mask (references; the counting
+    waits until the run is over)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.orig = moe, moe.dispatch
+
+        def spy(experts, cap, num_experts):
+            out = self.orig(experts, cap, num_experts)
+            self.calls.append((experts, out[2], num_experts))
+            return out
+
+        moe.dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dispatch = self.orig
+
+    def summary(self, prefill_tokens: int) -> dict:
+        """Dropped share and the heaviest expert's load over the mean (of
+        each MoE layer, its loads summed over the part's calls), for the
+        prefill and for the decode steps."""
+        prefill = [c for c in self.calls if c[0].shape[0] == prefill_tokens]
+        decode = [c for c in self.calls if c[0].shape[0] != prefill_tokens]
+        n_layers = max(1, len(prefill))  # the prefill calls each MoE layer once
+        out = {}
+        for name, calls in (("prefill", prefill), ("decode", decode)):
+            if not calls:
+                continue
+            loads = [sum(torch.bincount(c[0].reshape(-1), minlength=c[2]).double()
+                         for c in calls[i::n_layers]) for i in range(min(n_layers, len(calls)))]
+            ratios = [float(load.max() / load.mean()) for load in loads]
+            assigned = sum(c[1].numel() for c in calls)
+            dropped = int(sum((~c[1]).sum() for c in calls))
+            out[name] = dict(calls=len(calls), assignments=assigned, dropped=dropped,
+                             dropped_share=dropped / assigned,
+                             max_over_mean_max=max(ratios),
+                             max_over_mean_mean=float(np.mean(ratios)))
+        return out
+
+    def kept(self, tokens: int) -> int:
+        """Kept assignments of the calls over ``tokens`` tokens."""
+        return int(sum(c[1].sum() for c in self.calls if c[0].shape[0] == tokens))
+
+
+def lm_moe_prefill_flops(model, batch, s, kept) -> float:
+    """Matrix-product FLOPs a prefill needs: every layer's MLA projections
+    and causal attention, the dense FFN, the router, the ``kept`` expert
+    assignments (this run's count) and the shared experts, and the
+    unembedding of the last position."""
+    cfg = model.cfg
+    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    qk, v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    tokens = batch * s
+    keys = batch * s * (s + 1) // 2
+    attn = (2 * tokens * (d * h * qk + d * (r + cfg.qk_rope_dim) + r * h * (cfg.qk_nope_dim + v)
+                          + h * v * d)
+            + 2 * keys * h * (qk + v))
+    kinds = model.kinds()
+    dense = sum(k == "mla_dense" for k in kinds) * 6 * tokens * d * (cfg.d_ff_dense or cfg.d_ff)
+    n_moe = sum(k == "mla_moe" for k in kinds)
+    moe = (n_moe * tokens * (2 * d * cfg.num_experts + 6 * d * cfg.d_ff * cfg.num_shared_experts)
+           + kept * 6 * d * cfg.d_ff)
+    return float(len(kinds) * attn + dense + moe + 2 * batch * d * cfg.padded_vocab)
+
+
+def lm_moe_serve_case(model, router, *, seed, counters, batch=LM_SERVE_BATCH,
+                      prompt=LM_SERVE_PROMPT, steps=LM_SERVE_STEPS) -> dict:
+    """``lm_moe_serve`` for one router: ``Engine.generate`` with no device
+    argument on the loaded model, greedy; prefill and decode times beside
+    their bounds, peak memory, the routing's dropped share and expert load,
+    the simplex launches (0 under ``topk``, one a MoE layer a call under
+    ``lp``, all of the cluster variant), and the first calls' router LPs
+    re-run through the plain version."""
+    from repro_torch.configs import Shape, make_inputs
+    from repro_torch.kernels import simplex_cuda
+    from repro_torch.serve.engine import Engine
+
+    with_router(model, router)
+    cfg = model.cfg
+    n_moe = moe_layer_count(model)
+    engine = Engine(model, max_len=prompt + steps)
+    tokens = make_inputs(cfg, Shape("lm_moe_serve", prompt, batch, "prefill"), seed + 3,
+                         device=model.device)["tokens"]
+    engine.generate({"tokens": tokens[:, :128]}, steps=4)  # warm-up: handles, allocator, build
+    engine.cache = None
+    before = launch_counts(counters)
+    with SimplexSpy(simplex_cuda, limit=LM_MOE_CAPTURE_CALLS * n_moe) as spy, \
+            RoutingStats() as routing:
+        out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, tokens, steps)
+    launched = count_delta(counters, before)
+    peak = torch.cuda.max_memory_allocated()
+    all_finite = bool(torch.isfinite(torch.stack(rows)).all())
+    expect = steps * n_moe if router == "lp" else 0
+    replayed = [replay_plain(rec) for rec in spy.records]
+    stats = routing.summary(batch * prompt)
+    kept = routing.kept(batch * prompt)
+    del routing
+    weights = lm_param_bytes(model)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    cache_bytes = [len(model.kinds()) * batch * (prompt + i + 1)
+                   * (cfg.kv_lora_rank + cfg.qk_rope_dim) * item for i in range(steps - 1)]
+    decode_bound = (weights + float(np.median(cache_bytes))) / HBM_BYTES_PER_S * 1e3
+    flops = lm_moe_prefill_flops(model, batch, prompt, kept)
+    res = dict(
+        router=router, prefill_ms=prefill_ms,
+        prefill_tokens_per_s=batch * prompt / (prefill_ms * 1e-3),
+        prefill_bound_ms=flops / PEAK_FLOPS_BF16 * 1e3, prefill_flops=flops,
+        decode_ms_median=float(np.median(step_ms)), decode_ms_p90=float(np.percentile(step_ms, 90)),
+        decode_tokens_per_s=batch / (float(np.median(step_ms)) * 1e-3),
+        decode_bound_ms=decode_bound, weight_bytes=weights,
+        cache_bytes_median=float(np.median(cache_bytes)), wall_s=wall, peak_memory_bytes=peak,
+        routing=stats, router_lps=spy.calls, port_kernel_launches=launched,
+        captured_lps=len(spy.records), captured_bit_identical=sum(replayed),
+        all_logits_finite=all_finite,
+        tokens_in_vocab=bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    emit("lm_moe_serve", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers, batch=batch,
+         prompt=prompt, steps=steps, nvidia_smi=smi_line(), **res)
+    check(all_finite and res["tokens_in_vocab"],
+          f"lm_moe_serve {router}: non-finite logits or bad tokens")
+    check(spy.calls == expect and launched["simplex"] == expect
+          and launched["simplex.cluster"] == expect,
+          f"lm_moe_serve {router}: {spy.calls} router LPs, launches {launched}, not {expect}")
+    check(not any(v for k, v in launched.items() if not k.startswith("simplex")),
+          f"lm_moe_serve {router}: another kernel of the port launched: {launched}")
+    check(len(spy.records) == (LM_MOE_CAPTURE_CALLS * n_moe if router == "lp" else 0)
+          and all(replayed),
+          f"lm_moe_serve {router}: {sum(replayed)} of {len(replayed)} captured router LPs "
+          "bit-identical to simplex_plain")
+    if router == "lp":
+        res["_records"] = spy.records
+    return res
+
+
+def lm_moe_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
+    """Slice 10: deepseek-v2-lite-16b at full width.  ``lm_moe_reference``
+    (the fixture's depth, float32 and bfloat16, weights from
+    ``reference_weights``) for each router, then ``lm_moe_serve`` (full
+    depth, bfloat16, ``Model.init`` on the card) for each router on one
+    loaded model, with the launch counts set to 0 before and read after;
+    then the router's LP on the simplex kernel against its plain version
+    (``simplex_case``) at its prefill shape."""
+    from repro_torch.core.lp import LPBatch
+    from repro_torch.models import Model
+    from repro_torch.models.convert import (load_reference_params, reference_weights,
+                                            weights_digest)
+
+    check(LM_MOE_FIXTURE.exists(), f"the MoE fixture {LM_MOE_FIXTURE} is missing")
+    fixture = dict(np.load(LM_MOE_FIXTURE))
+    cfg = rt_configs.get_config(LM_MOE_ARCH)
+    cut = dataclasses.replace(cfg, num_layers=int(fixture["layers"]))
+    t0 = time.perf_counter()
+    tree = reference_weights(cut, int(fixture["seed"]))
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
+          "the MoE weights drawn here differ from the fixture's")
+    t0 = time.perf_counter()
+    model = load_reference_params(Model(dataclasses.replace(cut, dtype="float32"), device=dev),
+                                  tree)
+    model16 = load_reference_params(Model(cut, device=dev), tree)
+    del tree
+    load_s = time.perf_counter() - t0
+    emit("lm_moe_setup", arch=cfg.name, layers=cut.num_layers, kinds=model.kinds(),
+         params=sum(p.numel() for p in model.parameters()), param_count=cut.param_count(),
+         full_param_count=cfg.param_count(), weights_s=gen_s, load_s=load_s)
+    reference = {r: lm_moe_reference_case(model, model16, fixture, r, counters=counters)
+                 for r in LM_MOE_ROUTERS}
+    del model, model16
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    emit("lm_moe_serve_setup", arch=cfg.name, layers=cfg.num_layers,
+         params=sum(p.numel() for p in model.parameters()),
+         param_bytes=lm_param_bytes(model), init_s=time.perf_counter() - t0)
+    reset()
+    serve = {r: lm_moe_serve_case(model, r, seed=seed, counters=counters)
+             for r in LM_MOE_ROUTERS}
+    launched = launch_counts(counters)
+    emit("main_path_summary", path="slice10_lm_moe", launches=launched)
+    n_moe = moe_layer_count(model)
+    del model
+    torch.cuda.empty_cache()
+
+    # The router's LP on the kernel against its plain version: the
+    # prefill's first MoE layer, as captured.
+    rec = serve["lp"].pop("_records")[0]
+    tab, basis = rec["inputs"][0], rec["inputs"][1]
+    spec = rec["kw"]["spec"]
+    a = tab[:, :spec.m, 1:1 + spec.n].clone()
+    b = tab[:, :spec.m, 0].clone()
+    c = rec["inputs"][3][:, 1:1 + spec.n].clone()
+    timer = Timer(dev)
+    kernel = simplex_case(timer, name=f"lm_router_{spec.m}x{spec.n}_f32_lpc",
+                          batch=LPBatch(a, b, c), cap=rec["cap"], reps=20, want="cluster")
+    lp_ms = kernel["kernel_ms"]
+    router = dict(case=kernel["case"], m=spec.m, n=spec.n, kernel_ms=lp_ms,
+                  plain_ms=kernel["plain_ms"], bound_ms=kernel["bound_ms"],
+                  bound_by=kernel["bound_by"], max_abs_err=kernel["max_abs_err"],
+                  pivots=kernel["pivots"], variant=kernel["variant"], k=kernel["k"],
+                  launches=launched["simplex"],
+                  lp_kernel_share_of_decode_step=n_moe * lp_ms / serve["lp"]["decode_ms_median"],
+                  lp_decode_step_over_topk=serve["lp"]["decode_ms_median"]
+                  / serve["topk"]["decode_ms_median"])
+    emit("lm_router_lp", nvidia_smi=smi_line(), **router)
+    return dict(reference=reference, serve=serve, router=router, launches=launched)
 
 
 def main(argv=None) -> int:
@@ -2782,8 +3235,16 @@ def run(args, pool) -> int:
     reset_counts()
     lm_phase(rt_configs, dev, seed=args.seed, counters=counters)
 
+    # Slice 10, MoE with the LP router and MLA: deepseek-v2-lite-16b at full
+    # width; its main path (``lm_moe_serve``) launches the simplex kernel
+    # once a MoE layer a call under router="lp".
+    reset_counts()
+    moe = lm_moe_phase(rt_configs, dev, seed=args.seed, counters=counters, reset=reset_counts)
+    slice10 = moe["launches"]
+    check(slice10["simplex"] > 0, f"the MoE path never launched the simplex kernel: {slice10}")
+
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
-                for k in slice1}
+                + slice10[k] for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
@@ -2820,7 +3281,7 @@ def run(args, pool) -> int:
     ]
     print(json.dumps({"kernels": [
         entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_main, launches["simplex"],
-              variants=simplex_variants),
+              variants=simplex_variants, lm_router=moe["router"]),
         entry("hyperbox", "hyperbox.cu", "hyperbox_pallas.py:20", h_main, launches["hyperbox"],
               gb_per_s=h_main["gb_per_s"]),
         entry("revised", "revised.cu", "revised_pallas.py:56", r_main, launches["revised"],

@@ -1,11 +1,12 @@
 """Attention: chunked flash GQA with local/global windows and softcap.
 
-Follows ``repro/models/attention.py`` for the dense family:
+Follows ``repro/models/attention.py`` for the dense and MoE families:
 ``flash_attention`` (prefill and training), ``decode_attention`` (one
-decode step over the cache), ``gqa_specs``, ``_project_qkv`` and
-``gqa_attention``.  MLA, cross and encoder attention come with the
-families that use them; the reference's head-TP and sequence-sharding
-helpers have no meaning on one device.
+decode step over the cache), ``gqa_specs``, ``_project_qkv``,
+``gqa_attention``, and DeepSeek-V2's MLA (``mla_specs``, ``_mla_latents``,
+``_mla_q``, ``mla_attention``).  Cross and encoder attention come with
+the family that uses them; the reference's head-TP and
+sequence-sharding helpers have no meaning on one device.
 
 * Scores are float32 whatever the activation dtype, as the reference's
   ``preferred_element_type=float32`` makes them: q and k are upcast
@@ -30,7 +31,7 @@ import torch
 
 from ..sharding import ParamSpec
 from .config import ModelConfig
-from .layers import _NEG, apply_rope, softcap
+from .layers import _NEG, apply_rope, rmsnorm, rmsnorm_spec, softcap
 
 
 # ---------------------------------------------------------------------------
@@ -192,3 +193,96 @@ def gqa_attention(
     wo = p["wo"]
     y = out.transpose(1, 2).reshape(b, s, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2) attention
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg: ModelConfig):
+    d = cfg.d_model
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": ParamSpec((d, cfg.num_heads, qk), ("fsdp", "heads_tp", None), dtype=cfg.dtype),
+        "w_dkv": ParamSpec((d, cfg.kv_lora_rank + cfg.qk_rope_dim), ("fsdp", None), dtype=cfg.dtype),
+        "kv_norm": rmsnorm_spec(cfg.kv_lora_rank, cfg.dtype),
+        "w_uk": ParamSpec((cfg.kv_lora_rank, cfg.num_heads, cfg.qk_nope_dim), (None, "heads_tp", None), dtype=cfg.dtype),
+        "w_uv": ParamSpec((cfg.kv_lora_rank, cfg.num_heads, cfg.v_head_dim), (None, "heads_tp", None), dtype=cfg.dtype),
+        "wo": ParamSpec((cfg.num_heads, cfg.v_head_dim, d), ("heads_tp", None, "fsdp"), dtype=cfg.dtype),
+    }
+
+
+def _mla_latents(x, p, cfg: ModelConfig, positions):
+    """The compressed latent ``c_kv`` (B, S, R), normed, and the shared
+    rotary key ``k_pe`` (B, S, rope): what the MLA cache stores."""
+    full = x @ p["w_dkv"]
+    c_kv, k_pe = full.split([cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(k_pe[:, None], positions, cfg.rope_theta)[:, 0]
+    return c_kv, k_pe
+
+
+def _mla_q(x, p, cfg: ModelConfig, positions):
+    q = _heads(x, p["wq"])  # (B, H, S, nope + rope)
+    q_nope, q_pe = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    return q_nope, q_pe
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhsv,hvd->bsd", out, wo)`` as one matrix product."""
+    b, h, s, v = out.shape
+    return out.transpose(1, 2).reshape(b, s, h * v) @ wo.reshape(h * v, wo.shape[-1])
+
+
+def mla_attention(
+    x: torch.Tensor,  # (B, S, D)
+    p,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (B, S)
+    cache: Optional[dict] = None,  # {"ckv": (B, T, R), "kpe": (B, T, rope)}
+    cache_index: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Multi-head latent attention.
+
+    * cache and S == 1: the absorbed decode.  The new latents are written
+      into the cache at ``cache_index`` in place; ``w_uk`` is folded into
+      q, the scores against the cached latents and rotary keys are
+      float32, the probabilities are cast to the cache dtype before the
+      latent product (as the reference casts them), and ``w_uv`` is
+      applied after it.  Only the slots up to ``cache_index`` are read,
+      which gives the reference's masked softmax.
+    * otherwise (forward, prefill): the latents are expanded to per-head
+      keys and values and go through ``flash_attention`` (causal); with a
+      cache, the latents are also written at ``cache_index``.
+    """
+    b, s, _ = x.shape
+    q_nope, q_pe = _mla_q(x, p, cfg, positions)
+    c_kv, k_pe = _mla_latents(x, p, cfg, positions)
+    if cache is not None:
+        cache["ckv"][:, cache_index:cache_index + s] = c_kv
+        cache["kpe"][:, cache_index:cache_index + s] = k_pe
+
+    if cache is not None and s == 1:
+        # The heads ride in the rows of each product (q is (B, H, .) with one
+        # position), so no product broadcasts the cache over the heads.
+        h = cfg.num_heads
+        ckv = cache["ckv"][:, :cache_index + 1]  # (B, T, R)
+        kpe = cache["kpe"][:, :cache_index + 1]  # (B, T, rope)
+        q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, :, 0], p["w_uk"])  # (B, H, R)
+        s_lat = torch.bmm(q_lat.float(), ckv.float().transpose(1, 2))  # (B, H, T)
+        s_pe = torch.bmm(q_pe[:, :, 0].float(), kpe.float().transpose(1, 2))
+        scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+        attn = torch.softmax((s_lat + s_pe) * scale, dim=-1)
+        ctx_lat = torch.bmm(attn.to(ckv.dtype), ckv)  # (B, H, R)
+        out = torch.einsum("bhr,rhv->bhv", ctx_lat, p["w_uv"])  # (B, H, v)
+        return _out_proj(out.view(b, h, 1, -1), p["wo"]), cache
+
+    k_nope = _heads(c_kv, p["w_uk"])  # (B, H, S, nope)
+    v = _heads(c_kv, p["w_uv"])  # (B, H, S, v)
+    k = torch.cat([k_nope, k_pe[:, None].expand(b, cfg.num_heads, s, cfg.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    out = flash_attention(q, k, v, chunk=cfg.attn_chunk)
+    return _out_proj(out, p["wo"]), cache

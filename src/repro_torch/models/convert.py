@@ -6,12 +6,14 @@ per-process string hash and draws with ``jax.random``), so parity runs
 take their weights from NumPy:
 
 * ``reference_weights(cfg, seed)``: NumPy arrays in the reference's tree
-  layout (``embed``, the stacked ``g0`` group, ``final_norm``), drawn
+  layout (``embed``, one stacked tree a group ``g0``, ``g1``, ...,
+  ``final_norm``), drawn
   from ``np.random.default_rng(seed)`` leaf by leaf in sorted-path order
   with the reference's std rule (``sharding/rules.py:ParamSpec.std`` on
   the stacked shape);
 * ``load_reference_params(model, tree)`` copies such a tree into a
-  ``Model`` (layer ``i`` of ``g0`` into ``layers.i``), casting to each
+  ``Model`` (layer ``i`` of group ``gj`` into ``layers.(o + i)``, where
+  ``o`` counts the layers of the groups before it), casting to each
   parameter's dtype; ``reference_params(model)`` is the way back.
 
 ``logit_summary`` and ``compare_to_summary`` reduce logits to what a
@@ -35,18 +37,30 @@ from .layers import embed_specs, rmsnorm_spec
 from .model import Model
 
 
+def _stack(specs, count: int):
+    """A block's spec tree with every leaf stacked ``count`` deep on a
+    leading ``layer`` axis, as the reference's ``_stack_specs``."""
+    if isinstance(specs, ParamSpec):
+        return ParamSpec((count,) + specs.shape, ("layer",) + specs.axes, specs.dtype,
+                         specs.init, specs.scale)
+    return {k: _stack(v, count) for k, v in specs.items()}
+
+
 def _reference_specs(cfg: ModelConfig):
-    """The reference's parameter tree for a dense config, ``g0`` stacked."""
-    (group,) = plan(cfg)
-    stacked = {
-        k: (ParamSpec((group.count,) + s.shape, ("layer",) + s.axes, s.dtype, s.init, s.scale)
-            if isinstance(s, ParamSpec) else
-            {kk: ParamSpec((group.count,) + ss.shape, ("layer",) + ss.axes, ss.dtype, ss.init,
-                           ss.scale) for kk, ss in s.items()})
-        for k, s in block_specs(group.kind, cfg).items()
-    }
-    return {"embed": embed_specs(cfg), "g0": stacked,
-            "final_norm": rmsnorm_spec(cfg.d_model, cfg.dtype)}
+    """The reference's parameter tree: one stacked tree a group of ``plan``."""
+    tree = {"embed": embed_specs(cfg), "final_norm": rmsnorm_spec(cfg.d_model, cfg.dtype)}
+    for i, group in enumerate(plan(cfg)):
+        tree[f"g{i}"] = _stack(block_specs(group.kind, cfg), group.count)
+    return tree
+
+
+def _group_offsets(cfg: ModelConfig) -> Dict[str, int]:
+    """The model's index of each group's first layer, by the group's key."""
+    out, at = {}, 0
+    for i, group in enumerate(plan(cfg)):
+        out[f"g{i}"] = at
+        at += group.count
+    return out
 
 
 def _set(tree, path, value):
@@ -90,12 +104,14 @@ def load_reference_params(model: Model, tree) -> Model:
     """Copy a reference-layout tree into ``model`` (cast to each parameter's
     dtype, moved to its device).  A missing, extra or misshapen leaf raises."""
     params = dict(model.named_parameters())
+    offsets = _group_offsets(model.cfg)
     seen = set()
     with torch.no_grad():
         for path, arr in leaves(tree):
             arr = np.asarray(arr)
-            if path[0] == "g0":
-                names = [f"layers.{i}.{'.'.join(path[1:])}" for i in range(arr.shape[0])]
+            if path[0] in offsets:
+                o = offsets[path[0]]
+                names = [f"layers.{o + i}.{'.'.join(path[1:])}" for i in range(arr.shape[0])]
                 parts = list(arr)
             else:
                 names, parts = [".".join(path)], [arr]
@@ -117,6 +133,8 @@ def reference_params(model: Model):
     """The model's parameters as a reference-layout NumPy tree (bfloat16
     parameters come back as float32)."""
     cfg = model.cfg
+    offsets = _group_offsets(cfg)
+    counts = {f"g{i}": g.count for i, g in enumerate(plan(cfg))}
     tree: Dict = {}
 
     def arr(t: torch.Tensor) -> np.ndarray:
@@ -124,9 +142,10 @@ def reference_params(model: Model):
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     for path, _ in leaves(_reference_specs(cfg)):
-        if path[0] == "g0":
-            sub = ".".join(path[1:])
-            parts = [arr(model.get_parameter(f"layers.{i}.{sub}")) for i in range(cfg.num_layers)]
+        if path[0] in offsets:
+            sub, o = ".".join(path[1:]), offsets[path[0]]
+            parts = [arr(model.get_parameter(f"layers.{o + i}.{sub}"))
+                     for i in range(counts[path[0]])]
             _set(tree, path, np.stack(parts))
         else:
             _set(tree, path, arr(model.get_parameter(".".join(path))))
@@ -166,6 +185,20 @@ def rel_l2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """``||a - b|| / ||b||`` over the last axis, in float64."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
+def fixture_view(fixture, router: str) -> Dict[str, np.ndarray]:
+    """One router's fixture out of a fixture of several
+    (``tools/lm_reference_fixture.py --router topk,lp``): its own arrays,
+    stored as ``<router>__<key>``, under their plain keys, beside the
+    arrays the routers share."""
+    prefix = f"{router}__"
+    out = {k: v for k, v in fixture.items() if "__" not in k and k != "routers"}
+    own = {k[len(prefix):]: v for k, v in fixture.items() if k.startswith(prefix)}
+    if not own:
+        raise KeyError(f"the fixture has no run of router {router!r}")
+    out.update(own)
+    return out
 
 
 def compare_to_summary(logits, fixture, *, abs_tol, rel_tol, margin: float) -> Dict[str, object]:

@@ -1,12 +1,14 @@
 """Model orchestration: init, forward, prefill and decode.
 
-Follows ``repro/models/model.py`` for the dense family.  ``Model`` is an
-``nn.Module`` with one ``GQABlock`` a layer: the reference's stacked
-``g0`` leaves are unstacked (``models/convert.py`` moves weights between
-the two layouts).  The reference's ``params`` argument is gone: the module
-holds its parameters.  Caches are preallocated k/v tensors of shape
-(B, Hkv, T, hd) a layer, written in place by ``prefill`` and
-``decode_step`` (the reference donates them to its jitted step).
+Follows ``repro/models/model.py`` for the dense and MoE families.
+``Model`` is an ``nn.Module`` with one block a layer, over the groups of
+``blocks.plan`` in order: the reference's stacked ``g0``, ``g1``, ...
+leaves are unstacked (``models/convert.py`` moves weights between the
+two layouts).  The reference's ``params`` argument is gone: the module
+holds its parameters.  Caches are preallocated tensors a layer, written
+in place by ``prefill`` and ``decode_step`` (the reference donates them
+to its jitted step): k/v of shape (B, Hkv, T, hd) for GQA layers, the
+MLA latents ``ckv`` (B, T, R) and rotary keys ``kpe`` (B, T, rope).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ _GLOBAL_WINDOW = 1 << 30  # the reference's "no window" value of a global layer
 
 
 class Model(nn.Module):
-    """A dense decoder on ``device`` (the card unless the caller passes
+    """A decoder on ``device`` (the card unless the caller passes
     ``device="cpu"``).  Its parameters are uninitialised until ``init``
     or ``convert.load_reference_params`` fills them."""
 
@@ -37,13 +39,18 @@ class Model(nn.Module):
         device = resolve_device(device)
         self.embed = blk.empty_params(embed_specs(cfg), device)
         self.layers = nn.ModuleList(
-            blk.GQABlock(cfg, window=w, device=device) for w in self.windows()
+            blk.make_block(kind, cfg, window=w, device=device)
+            for kind, w in zip(self.kinds(), self.windows())
         )
         self.final_norm = blk.empty_param(rmsnorm_spec(cfg.d_model, cfg.dtype), device)
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
+
+    def kinds(self) -> List[str]:
+        """Each layer's block kind, the groups of ``blocks.plan`` in order."""
+        return [g.kind for g in self.groups for _ in range(g.count)]
 
     def windows(self) -> List[Optional[int]]:
         """Each layer's sliding window: gemma2 alternates local (even layers)
@@ -63,10 +70,9 @@ class Model(nn.Module):
     def abstract_params(self) -> Dict[str, ParamSpec]:
         """A ``ParamSpec`` for every parameter, by its ``named_parameters`` name."""
         cfg = self.cfg
-        layer = blk.block_specs("gqa_dense", cfg)
         tree = {
             "embed": embed_specs(cfg),
-            "layers": {str(i): layer for i in range(cfg.num_layers)},
+            "layers": {str(i): blk.block_specs(kind, cfg) for i, kind in enumerate(self.kinds())},
             "final_norm": rmsnorm_spec(cfg.d_model, cfg.dtype),
         }
         return {".".join(path): spec for path, spec in leaves(tree)}
@@ -94,15 +100,24 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed k/v of shape (B, Hkv, max_len, hd) for each layer, in ``cfg.dtype``."""
+        """Zeroed caches for each layer, in ``cfg.dtype``: k/v of shape
+        (B, Hkv, max_len, hd) for GQA layers; ``ckv`` (B, max_len, R) and
+        ``kpe`` (B, max_len, rope) for MLA layers."""
         cfg = self.cfg
-        shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         dt = getattr(torch, cfg.dtype)
-        return [
-            {"k": torch.zeros(shape, dtype=dt, device=self.device),
-             "v": torch.zeros(shape, dtype=dt, device=self.device)}
-            for _ in range(cfg.num_layers)
-        ]
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        caches = []
+        for kind in self.kinds():
+            if kind in ("mla_dense", "mla_moe"):
+                caches.append({"ckv": zeros(batch, max_len, cfg.kv_lora_rank),
+                               "kpe": zeros(batch, max_len, cfg.qk_rope_dim)})
+            else:
+                shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+                caches.append({"k": zeros(*shape), "v": zeros(*shape)})
+        return caches
 
     # ------------------------------------------------------------------
     # Forward, prefill, decode

@@ -1032,3 +1032,96 @@ def test_lm_engine_on_the_card_by_default():
     sampled = engine.generate({"tokens": toks}, steps=10, temperature=1.0, seed=3)
     assert torch.equal(sampled, engine.generate({"tokens": toks}, steps=10, temperature=1.0,
                                                 seed=3))
+
+
+# ---------------------------------------------------------------------------
+# The MoE path: the LP router's LPs on the simplex kernel
+# ---------------------------------------------------------------------------
+
+
+def _moe_pair(arch, router="lp", seed=6):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights
+
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), router=router)
+    tree = reference_weights(cfg, seed)
+    card = load_reference_params(Model(cfg), tree)
+    host = load_reference_params(Model(cfg, device="cpu"), tree)
+    toks = configs.make_inputs(cfg, configs.Shape("t", 24, 2, "prefill"), 1, device="cpu")
+    return card, host, toks["tokens"]
+
+
+class _Captured:
+    """``simplex_cuda.simplex`` wrapped: each call's inputs (cloned before
+    the launch) and outputs, with the terminal basis."""
+
+    def __init__(self, monkeypatch):
+        self.records = []
+        orig = simplex_cuda.simplex
+
+        def spy(tab, basis, phase, c_ext, feas, cap, **kw):
+            inputs = [t.clone() for t in (tab, basis, phase, c_ext, feas)]
+            out = orig(tab, basis, phase, c_ext, feas, cap, **kw)
+            self.records.append((inputs, cap, kw, list(out) + [basis.clone()]))
+            return out
+
+        monkeypatch.setattr(simplex_cuda, "simplex", spy)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "dbrx-132b"])
+def test_moe_lp_router_launches_the_simplex_kernel_per_layer_per_call(arch, monkeypatch):
+    _need_card()
+    card, host, toks = _moe_pair(arch)
+    n_moe = sum(kind.endswith("_moe") for kind in card.kinds())
+    cap = _Captured(monkeypatch)
+    before = simplex_cuda.launches
+    with torch.inference_mode():
+        card.forward({"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    assert simplex_cuda.launches - before == n_moe == len(cap.records)
+    cc = card.init_cache(2, 24)
+    card.prefill({"tokens": toks[:, :16].cuda()}, cc)
+    for t in range(16, 24):
+        card.decode_step({"tokens": toks[:, t:t + 1].cuda()}, cc, t)
+    torch.cuda.synchronize()
+    assert simplex_cuda.launches - before == 10 * n_moe == len(cap.records)
+    assert all(r[0][0].is_cuda for r in cap.records)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "dbrx-132b"])
+def test_moe_router_lps_on_the_card_bit_identical_to_plain(arch, monkeypatch):
+    _need_card()
+    card, _, toks = _moe_pair(arch)
+    cap = _Captured(monkeypatch)
+    cc = card.init_cache(2, 24)
+    card.prefill({"tokens": toks[:, :16].cuda()}, cc)
+    for t in range(16, 20):
+        card.decode_step({"tokens": toks[:, t:t + 1].cuda()}, cc, t)
+    assert cap.records
+    for inputs, cap_iters, kw, out in cap.records:
+        state = [t.clone() for t in inputs]
+        plain = simplex_cuda.simplex_plain(*state, cap_iters, **kw)
+        for a, b in zip(list(plain) + [state[1]], out):
+            assert _same(a, b)
+
+
+@pytest.mark.parametrize("router", ["topk", "lp"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "dbrx-132b"])
+def test_moe_reduced_on_the_card_matches_the_cpu(arch, router):
+    _need_card()
+    card, host, toks = _moe_pair(arch, router)
+    with torch.inference_mode():
+        _lm_close(card.logits(card.forward({"tokens": toks.cuda()})),
+                  host.logits(host.forward({"tokens": toks})))
+    cc, hc = card.init_cache(2, 24), host.init_cache(2, 24)
+    _lm_close(card.prefill({"tokens": toks[:, :16].cuda()}, cc)[0],
+              host.prefill({"tokens": toks[:, :16]}, hc)[0])
+    for t in range(16, 24):
+        _lm_close(card.decode_step({"tokens": toks[:, t:t + 1].cuda()}, cc, t)[0],
+                  host.decode_step({"tokens": toks[:, t:t + 1]}, hc, t)[0])
+    for c_card, c_host in zip(cc, hc):
+        for k in c_host:
+            _lm_close(c_card[k], c_host[k])

@@ -35,6 +35,7 @@ from repro_torch.serve.engine import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "data" / "lm_gemma2_2b_reference.npz"
+MOE_FIXTURE = ROOT / "tests" / "data" / "lm_deepseek_v2_lite_reference.npz"
 RTOL, ATOL = 1e-5, 2e-5
 BATCH, PROMPT, STEPS = 2, 20, 10
 
@@ -46,14 +47,14 @@ def _module(name, path):
     return mod
 
 
-def _setup(arch, seed=7):
-    cfg = configs.get_config(arch, reduced=True)
+def _setup(arch, seed=7, **kw):
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), **kw)
     tree = reference_weights(cfg, seed)
     model = load_reference_params(Model(cfg, device="cpu"), tree)
-    rmodel = RModel(rconfigs.get_config(arch, reduced=True))
+    rcfg = dataclasses.replace(rconfigs.get_config(arch, reduced=True), **kw)
+    rmodel = RModel(rcfg)
     rparams = jax.tree_util.tree_map(jnp.asarray, tree)
-    prompts = np.array(rconfigs.make_inputs(rconfigs.get_config(arch, reduced=True),
-                                            rconfigs.Shape("t", PROMPT, BATCH, "prefill"),
+    prompts = np.array(rconfigs.make_inputs(rcfg, rconfigs.Shape("t", PROMPT, BATCH, "prefill"),
                                             seed=3)["tokens"])
     return model, rmodel, rparams, prompts
 
@@ -75,7 +76,19 @@ def _reference_logits(rmodel, rparams, tokens, prompt, steps):
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen1.5-4b"])
 def test_generate_matches_the_reference_engine(arch):
-    model, rmodel, rparams, prompts = _setup(arch)
+    _generate_parity(*_setup(arch))
+
+
+@pytest.mark.parametrize("router", ["topk", "lp"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-lite-16b"])
+def test_moe_generate_matches_the_reference_engine(arch, router):
+    """The MoE family under both routers: under ``lp`` each prefill and
+    decode step solves one router LP a MoE layer on both sides."""
+    _generate_parity(*_setup(arch, router=router))
+
+
+def _generate_parity(model, rmodel, rparams, prompts):
+    arch = model.cfg.name
     want = np.asarray(REngine(rmodel, rparams, max_len=PROMPT + STEPS).generate(
         {"tokens": jnp.asarray(prompts)}, steps=STEPS))
     engine = Engine(model, max_len=PROMPT + STEPS, device="cpu")
@@ -91,7 +104,7 @@ def test_generate_matches_the_reference_engine(arch):
     for t in range(STEPS):
         err = float(np.abs(mine[:, t] - ref[:, t]).max())
         rel = float(np.linalg.norm(mine[:, t] - ref[:, t]) / np.linalg.norm(ref[:, t]))
-        assert err <= ATOL * scale and rel <= RTOL, (t, err, rel)
+        assert err <= ATOL * scale and rel <= RTOL, (arch, t, err, rel)
 
     # the tokens agree wherever the reference's choice is decided
     top2 = np.sort(ref, axis=-1)[..., -2:]
@@ -290,3 +303,143 @@ def test_example_runs_on_the_cpu():
                           capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "generated 24 tokens" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# The MoE phases of chip_smoke.py at a reduced size, and the committed fixture
+# ---------------------------------------------------------------------------
+
+
+class _HostEvent:
+    """``torch.cuda.Event``'s timing on the host clock."""
+
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        import time
+
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def test_chip_smoke_lm_moe_phases_on_a_reduced_fixture(monkeypatch, capsys):
+    """``lm_moe_reference`` and ``lm_moe_serve`` on the CPU: the fixture
+    tool's reduced deepseek fixture (``lp``, the router whose LPs it records)
+    through ``chip_smoke.py``'s own cases, then ``lm_moe_serve`` under both
+    routers.  Off the card the wrappers count no launches, so the plain
+    simplex is wrapped to count them as the kernel would."""
+    from repro_torch.kernels import hyperbox_cuda, pdhg_cuda, revised_cuda, simplex_cuda
+    import repro_torch.serve.engine as engine_mod
+
+    tool = _module("lm_reference_fixture", ROOT / "tools" / "lm_reference_fixture.py")
+    smoke = _module("chip_smoke", ROOT / "chip_smoke.py")
+    fixture = tool.build_router_fixtures("deepseek-v2-lite-16b", ["lp"], reduced=True,
+                                         seed=2, prompt_len=10, steps=3, subset=100)
+    assert list(fixture["routers"]) == ["lp"]
+    assert fixture["lp__router_c"].shape == (4 * 2, 64)  # 4 calls x 2 MoE layers
+    assert fixture["lp__router_call"].tolist() == [0, 0, 1, 1, 2, 2, 3, 3]
+    assert fixture["lp__router_layer"].tolist() == [1, 2] * 4
+    counters = {"simplex": simplex_cuda, "hyperbox": hyperbox_cuda, "revised": revised_cuda,
+                "pdhg": pdhg_cuda}
+    plain = simplex_cuda.simplex_plain
+
+    def counted(*args, **kw):
+        simplex_cuda.launches += 1
+        simplex_cuda.variant_launches["cluster"] += 1
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(simplex_cuda, "simplex_plain", counted)
+    cfg = configs.get_config("deepseek-v2-lite-16b", reduced=True)
+    tree = reference_weights(cfg, 2)
+    assert np.array_equal(weights_digest(tree), fixture["weights_digest"])
+    model = load_reference_params(Model(cfg, device="cpu"), tree)
+    model16 = load_reference_params(Model(dataclasses.replace(cfg, dtype="bfloat16"),
+                                          device="cpu"), tree)
+    out = smoke.lm_moe_reference_case(model, model16, fixture, "lp", counters=counters)
+    assert out["logits"]["ok"] and out["bf16_rel_l2"] <= out["bf16_limit"]
+    assert out["router_lps_solved"] == out["simplex_launches"] == 8
+    lp = out["router_lp"]
+    assert lp["ok"] and lp["port_basis_equal"] == lp["port_lps"] == 8
+    assert lp["fixture_on_kernel"]["basis_equal"] and not lp["divergences"]
+
+    # lm_moe_serve with the card's clock and memory calls stood in for
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(smoke, "smi_line", lambda: "cpu")
+    monkeypatch.setattr(engine_mod, "resolve_device", lambda device=None: torch.device("cpu"))
+    for router in ("topk", "lp"):
+        res = smoke.lm_moe_serve_case(model16, router, seed=0, counters=counters, batch=2,
+                                      prompt=24, steps=5)
+        assert res["all_logits_finite"] and res["routing"]["decode"]["dropped"] == 0
+    assert res["router_lps"] == 2 * 5 and res["captured_bit_identical"] == 2 * 3
+    assert res["port_kernel_launches"]["simplex"] == 10
+    lines = capsys.readouterr().out
+    assert '"phase": "lm_moe_reference"' in lines and '"phase": "lm_moe_serve"' in lines
+
+    # a divergence that the affinities' rounding cannot explain fails the gate
+    view = {k[len("lp__"):] if k.startswith("lp__") else k: v for k, v in fixture.items()}
+    recs = []
+    with smoke.SimplexSpy(simplex_cuda) as spy:
+        smoke.with_router(model, "lp")
+        smoke.lm_fixture_logits(model, view)
+        recs = spy.records
+    c_ext = recs[0]["inputs"][3]
+    swapped = c_ext.clone()
+    swapped[0, 1:65] = c_ext[0, 1:65].flip(0)  # another LP's costs, far from rounding
+    recs[0]["inputs"][3] = swapped
+    recs[0]["basis"] = torch.zeros_like(recs[0]["basis"])
+    bad = smoke.router_lp_checks(view, recs, torch.device("cpu"), cfg.router_groups)
+    assert not bad["ok"] and bad["divergences"][0]["lp"] == 0
+    assert not bad["divergences"][0]["within_rounding"]
+
+
+def test_committed_moe_fixture():
+    """deepseek-v2-lite-16b at full width cut to 3 layers, both routers:
+    the fields, greedy tokens, and under ``lp`` the 18 router LPs (2 MoE
+    layers x 9 calls) re-solved by the port's plain version to the
+    stored status, iterations and basis."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.convert import fixture_view
+
+    fx = dict(np.load(MOE_FIXTURE))
+    cfg = configs.get_config("deepseek-v2-lite-16b")
+    assert str(fx["arch"]) == "deepseek-v2-lite-16b" and int(fx["layers"]) == 3
+    assert list(fx["routers"]) == ["topk", "lp"]
+    b, p, steps = 2, int(fx["prompt_len"]), int(fx["steps"])
+    assert (p, steps) == (40, 8)
+    prompts = configs.make_inputs(dataclasses.replace(cfg, num_layers=3),
+                                  configs.Shape("lm_reference", p, b, "prefill"),
+                                  int(fx["seed"]), device="cpu")["tokens"].numpy()
+    assert np.array_equal(fx["vocab_ids"], vocab_subset(cfg.vocab_size, 2048, int(fx["seed"]) + 1))
+    for router in ("topk", "lp"):
+        view = fixture_view(fx, router)
+        assert str(view["router"]) == router
+        assert view["tokens"].shape == (b, p + steps)
+        assert np.array_equal(view["tokens"][:, :p], prompts)
+        assert np.array_equal(view["tokens"][:, p:], view["argmax"][:, :-1])
+        assert view["logits"].shape == view["logits_f64"].shape == (b, steps + 1, 2048)
+        for k in ("argmax", "logsumexp", "margin", "bf16_rel_l2", "f32_noise_rel_l2",
+                  "f32_noise_max_abs", "f64_rel_l2", "f64_max_abs"):
+            assert view[k].shape == (b, steps + 1)
+        assert 0 < float(view["f32_noise_rel_l2"].max()) < 0.05 * float(view["bf16_rel_l2_all"])
+        assert np.isfinite(view["logits"]).all()
+    assert "router_c" not in fixture_view(fx, "topk")
+    lp = fixture_view(fx, "lp")
+    n_lp = 2 * (steps + 1)
+    assert lp["router_a"].shape == (n_lp, 72, 512) and lp["router_x"].shape == (n_lp, 512)
+    assert lp["router_call"].tolist() == np.repeat(np.arange(steps + 1), 2).tolist()
+    assert lp["router_layer"].tolist() == [1, 2] * (steps + 1)
+    assert (lp["router_status"] == 1).all()
+    # b: ones for the 8 groups, then cap_e = 6 * 1.25 / 64 (exact in binary)
+    assert (lp["router_b"][:, :8] == 1).all() and (lp["router_b"][:, 8:] == 0.1171875).all()
+    sol = ops.simplex_solve(torch.as_tensor(lp["router_a"]), torch.as_tensor(lp["router_b"]),
+                            torch.as_tensor(lp["router_c"]), max_iters=8 * (72 + 512))
+    assert np.array_equal(sol.status.numpy(), lp["router_status"])
+    assert np.array_equal(sol.iterations.numpy(), lp["router_iterations"])
+    assert np.array_equal(sol.basis.numpy(), lp["router_basis"])
+    assert float(np.abs(sol.x.numpy() - lp["router_x"]).max()) <= 1e-6

@@ -1,5 +1,7 @@
-"""The port's dense LM (``repro_torch.models``, ``configs``, ``sharding``)
-against the reference ``repro.models.Model`` on reduced configs.
+"""The port's LMs (``repro_torch.models``, ``configs``, ``sharding``): the
+dense family, and the MoE family (dbrx's GQA + MoE, deepseek-v2-lite's
+MLA + MoE) under both routers, against the reference ``repro.models.Model``
+on reduced configs.
 
 Both packages take the same NumPy weights (``models/convert.py:
 reference_weights``) and the same inputs (``configs.make_inputs``).
@@ -37,8 +39,9 @@ from repro_torch.models.convert import (load_reference_params, reference_params,
 from repro_torch.sharding import ParamSpec, materialize
 
 DENSE = ["gemma2-2b", "qwen1.5-4b", "internlm2-20b", "command-r-plus-104b"]
-NOT_PORTED = ["dbrx-132b", "deepseek-v2-lite-16b", "mamba2-130m", "zamba2-7b",
-              "qwen2-vl-72b", "seamless-m4t-large-v2"]
+MOE = ["dbrx-132b", "deepseek-v2-lite-16b"]
+ROUTERS = ["topk", "lp"]
+NOT_PORTED = ["mamba2-130m", "zamba2-7b", "qwen2-vl-72b", "seamless-m4t-large-v2"]
 RTOL, ATOL = 1e-5, 2e-5
 SEQ, BATCH, PREFIX = 24, 2, 16
 
@@ -53,11 +56,11 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
     assert err <= atol * scale and rel <= rtol, (err, atol * scale, rel, rtol)
 
 
-def _pair(arch, seed=3):
-    cfg = configs.get_config(arch, reduced=True)
+def _pair(arch, seed=3, **kw):
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), **kw)
     tree = reference_weights(cfg, seed)
     model = load_reference_params(Model(cfg, device="cpu"), tree)
-    rmodel = RModel(rconfigs.get_config(arch, reduced=True))
+    rmodel = RModel(dataclasses.replace(rconfigs.get_config(arch, reduced=True), **kw))
     return model, rmodel, jax.tree_util.tree_map(jnp.asarray, tree)
 
 
@@ -108,6 +111,80 @@ def test_prefill_and_every_decode_step_match_reference(arch):
 def test_decode_matches_forward_in_the_port(arch):
     """Prefill + stepwise decode logits == full-forward logits (per position)."""
     cfg = configs.get_config(arch, reduced=True)
+    model = load_reference_params(Model(cfg, device="cpu"), reference_weights(cfg, 5))
+    toks = torch.as_tensor(_tokens(arch, seed=2))
+    with torch.no_grad():
+        full = model.logits(model.forward({"tokens": toks}))
+    cache = model.init_cache(BATCH, SEQ)
+    lg, cache = model.prefill({"tokens": toks[:, :PREFIX]}, cache)
+    errs = [float((lg[:, 0] - full[:, PREFIX - 1]).abs().max())]
+    for t in range(PREFIX, SEQ):
+        lg, cache = model.decode_step({"tokens": toks[:, t:t + 1]}, cache, t)
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    assert max(errs) < 2e-4, errs
+
+
+@pytest.mark.parametrize("router", ROUTERS)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_forward_and_logits_match_reference(arch, router):
+    model, rmodel, rp = _pair(arch, router=router)
+    toks = _tokens(arch)
+    rh = rmodel.forward(rp, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        h = model.forward({"tokens": torch.as_tensor(toks)})
+        lg = model.logits(h)
+    _close(h, rh)
+    _close(lg, rmodel.logits(rp, rh))
+    assert model.kinds() == [g.kind for g in rmodel.groups for _ in range(g.count)]
+
+
+def _ref_layer_cache(rmodel, rcache, i):
+    """Layer ``i``'s cache in the reference's stacked per-group caches."""
+    at = 0
+    for j, g in enumerate(rmodel.groups):
+        if i < at + g.count:
+            return {k: v[i - at] for k, v in rcache[f"g{j}"].items()}
+        at += g.count
+    raise IndexError(i)
+
+
+@pytest.mark.parametrize("router", ROUTERS)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_prefill_decode_and_caches_match_reference(arch, router):
+    """Prefill and every decode step (the LP router solves one LP a MoE
+    layer a call: T = 32 tokens at prefill, 2 at each step), and the
+    caches: k/v for dbrx, the MLA latents ``ckv``/``kpe`` for deepseek."""
+    model, rmodel, rp = _pair(arch, router=router)
+    toks = _tokens(arch)
+    rcache = rmodel.init_cache(BATCH, SEQ)
+    cache = model.init_cache(BATCH, SEQ)
+    prefill, decode = jax.jit(rmodel.prefill), jax.jit(rmodel.decode_step)
+    rl, rcache = prefill(rp, {"tokens": jnp.asarray(toks[:, :PREFIX])}, rcache)
+    lg, cache = model.prefill({"tokens": torch.as_tensor(toks[:, :PREFIX])}, cache)
+    _close(lg, rl)
+    for t in range(PREFIX, SEQ):
+        rl, rcache = decode(rp, {"tokens": jnp.asarray(toks[:, t:t + 1])}, rcache, t)
+        lg, cache = model.decode_step({"tokens": torch.as_tensor(toks[:, t:t + 1])}, cache, t)
+        _close(lg, rl)
+    keys = {"ckv", "kpe"} if arch.startswith("deepseek") else {"k", "v"}
+    for i, layer_cache in enumerate(cache):
+        want = _ref_layer_cache(rmodel, rcache, i)
+        assert set(layer_cache) == set(want) == keys
+        for k in keys:
+            _close(layer_cache[k], want[k])
+    if arch.startswith("deepseek"):
+        assert cache[0]["ckv"].shape == (BATCH, SEQ, model.cfg.kv_lora_rank)
+        assert cache[0]["kpe"].shape == (BATCH, SEQ, model.cfg.qk_rope_dim)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_matches_forward_in_the_port(arch):
+    """Dropless (capacity factor E, as ``tests/test_models.py``) with top-k
+    routing.  The LP router has no such identity: its bias depends on the
+    tokens of the call (the whole sequence in the forward, one token a
+    sequence in a decode step)."""
+    cfg = configs.get_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
     model = load_reference_params(Model(cfg, device="cpu"), reference_weights(cfg, 5))
     toks = torch.as_tensor(_tokens(arch, seed=2))
     with torch.no_grad():
@@ -204,7 +281,7 @@ def test_make_inputs_bit_equal_to_reference(arch, kind):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_weight_round_trip_is_the_identity(arch):
     cfg = configs.get_config(arch, reduced=True)
     tree = reference_weights(cfg, 9)
@@ -238,6 +315,27 @@ def test_reference_weights_follow_the_std_rule_and_layout():
                                 tree)
     want = np.asarray(jnp.asarray(tree["g0"]["ffn"]["wi"][1], jnp.bfloat16)).view(np.int16)
     assert np.array_equal(m16.layers[1].ffn["wi"].detach().view(torch.int16).numpy(), want)
+
+
+def test_deepseek_groups_load_in_both_directions():
+    """deepseek's two groups: ``g0`` (``mla_dense``, 1 layer, the dense FFN of
+    width ``d_ff_dense``) into layer 0, ``g1`` (``mla_moe``) into layers 1-2,
+    with the reference's leaf layout."""
+    cfg = configs.get_config("deepseek-v2-lite-16b", reduced=True)
+    tree = reference_weights(cfg, 4)
+    ref_specs = RModel(rconfigs.get_config("deepseek-v2-lite-16b", reduced=True)).abstract_params()
+    shapes = jax.tree_util.tree_map(lambda s: s.shape, ref_specs,
+                                    is_leaf=lambda x: hasattr(x, "init"))
+    assert shapes == jax.tree_util.tree_map(lambda a: a.shape, tree)
+    model = load_reference_params(Model(cfg, device="cpu"), tree)
+    assert model.kinds() == ["mla_dense", "mla_moe", "mla_moe"]
+    assert tree["g0"]["ffn"]["wi"].shape == (1, 64, 2 * 128)
+    assert np.array_equal(model.layers[0].ffn["wi"].detach().numpy(), tree["g0"]["ffn"]["wi"][0])
+    assert np.array_equal(model.layers[2].ffn["shared"]["wo"].detach().numpy(),
+                          tree["g1"]["ffn"]["shared"]["wo"][1])
+    assert model.layers[1].ffn["router"].dtype == torch.float32
+    assert ("layers.1.ffn.shared.wi" in dict(model.named_parameters())
+            and "shared" in model.layers[1].ffn and "shared" not in model.layers[0].ffn)
 
 
 def test_load_reference_params_rejects_a_mismatch():

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Write the JAX reference's LM logits for gemma2-2b at full width as a fixture.
+"""Write the JAX reference's LM logits for a config at full width as a fixture.
 
     PYTHONPATH=src python3 tools/lm_reference_fixture.py [--out tests/data/lm_gemma2_2b_reference.npz]
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch deepseek-v2-lite-16b \
+        --layers 3 --router topk,lp --out tests/data/lm_deepseek_v2_lite_reference.npz
 
 Runs ``repro.models.Model`` (JAX on the CPU: ``JAX_PLATFORMS`` defaults
 to ``cpu`` here, so that no float32 product is rounded to TF32) on
@@ -28,6 +30,17 @@ and softmax all float64, the reference's own float32 steps widened by
 (``f64_rel_l2``, ``f64_max_abs``, per row); and the first values of
 every weight leaf (``weights_digest``), which a run that regenerates the
 weights checks first.
+
+``--layers`` cuts the config's depth (the widths stay).  ``--router``
+names the MoE routers to run, comma-separated: each router's arrays are
+stored under its name (``topk__logits``, ``lp__logits``, ...; see
+``repro_torch.models.convert.fixture_view``), and under ``lp`` every
+router LP the float32 run solves, one per MoE layer per call, in call
+order (``router_a``, ``router_b``, ``router_c``, ``router_status``,
+``router_iterations``, ``router_basis``, ``router_x``, with
+``router_call``, 0 for the prefill and i for decode step i, and
+``router_layer``, the model's layer index), captured from inside the
+jitted run by :func:`capture_router_lps`.
 ``chip_smoke.py``'s ``lm_reference`` and ``lm_serve`` phases hold the
 port against it on the card; ``tests/test_torch_lm_serve.py`` builds the
 same fixture for the reduced config in memory.
@@ -96,19 +109,19 @@ def _ulp_nudge(params, seed):
 
 @contextlib.contextmanager
 def _float64_everywhere():
-    """Trace the reference with every ``jnp.float32`` of its layers and
-    attention read as ``jnp.float64`` (its norms, rotary angles, attention
-    scores and softmax, logits): with float64 weights, a run with no
-    float32 step.  Only this tool's view of the modules changes."""
+    """Trace the reference with every ``jnp.float32`` of its layers,
+    attention and MoE read as ``jnp.float64`` (its norms, rotary angles,
+    attention scores and softmax, logits, the router and its LP): with
+    float64 weights, a run with no float32 step.  Only this tool's view of the modules changes."""
     import jax.numpy as jnp
 
-    from repro.models import attention, layers
+    from repro.models import attention, layers, moe
 
     class Wide:
         def __getattr__(self, name):
             return jnp.float64 if name == "float32" else getattr(jnp, name)
 
-    saved = [(mod, mod.jnp) for mod in (attention, layers)]
+    saved = [(mod, mod.jnp) for mod in (attention, layers, moe)]
     for mod, _ in saved:
         mod.jnp = Wide()
     try:
@@ -118,43 +131,105 @@ def _float64_everywhere():
             mod.jnp = orig
 
 
+class RouterLPs:
+    """The router LPs of the reference's runs, recorded while ``active``."""
+
+    FIELDS = ("a", "b", "c", "status", "iterations", "basis", "x")
+
+    def __init__(self):
+        self.active = False
+        self.rows = []
+
+    def record(self, *arrays):
+        if self.active:
+            self.rows.append([np.asarray(a) for a in arrays])
+
+    def arrays(self, calls, layers) -> dict:
+        """The recorded LPs as stacked arrays (``router_*``), given each
+        one's call and layer."""
+        out = {f"router_{name}": np.stack([r[i][0] for r in self.rows])
+               for i, name in enumerate(self.FIELDS)}
+        out["router_b"] = out["router_b"].astype(np.float32)  # 1.0 and cap: exact
+        out["router_call"] = np.asarray(calls, np.int32)
+        out["router_layer"] = np.asarray(layers, np.int32)
+        return out
+
+
+@contextlib.contextmanager
+def capture_router_lps():
+    """Record every LP the reference's MoE router solves: the reference's
+    ``core.simplex.solve_batched``, as ``models/moe.py`` reaches it, is
+    wrapped (in this tool's view only) so that each solve hands its
+    inputs and solution to the host through an ordered
+    ``jax.debug.callback``, inside jit and scan too."""
+    import jax
+
+    from repro.core import simplex
+
+    rec = RouterLPs()
+    orig = simplex.solve_batched
+
+    def spy(a, b, c, *args, **kw):
+        sol = orig(a, b, c, *args, **kw)
+        jax.debug.callback(rec.record, a, b, c, sol.status, sol.iterations, sol.basis, sol.x,
+                           ordered=True)
+        return sol
+
+    simplex.solve_batched = spy
+    try:
+        yield rec
+    finally:
+        simplex.solve_batched = orig
+
+
 def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int = SEED,
                   prompts: int = PROMPTS, prompt_len: int = PROMPT_LEN, steps: int = STEPS,
-                  subset: int = SUBSET) -> dict:
-    """The fixture's arrays for ``arch`` (reduced or full width)."""
+                  subset: int = SUBSET, layers: int = 0, router: str = "") -> dict:
+    """The fixture's arrays for ``arch`` (reduced or full width), cut to
+    ``layers`` layers if given, with the MoE ``router`` if given."""
     import jax
     import jax.numpy as jnp
 
     from repro.configs import Shape, get_config, make_inputs
     from repro.models import Model
+    from repro.models.blocks import plan
     from repro_torch.configs import get_config as port_config
     from repro_torch.models.convert import (logit_summary, reference_weights, rel_l2,
                                            vocab_subset, weights_digest)
 
-    cfg = get_config(arch, reduced=reduced)
-    tree = reference_weights(port_config(arch, reduced=reduced), seed)
+    cut = {}
+    if layers:
+        cut["num_layers"] = layers
+    if router:
+        cut["router"] = router
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced), **cut)
+    tree = reference_weights(dataclasses.replace(port_config(arch, reduced=reduced), **cut), seed)
     prompt = np.asarray(make_inputs(cfg, Shape("lm_reference", prompt_len, prompts, "prefill"),
                                     seed=seed)["tokens"])
     digest = weights_digest(tree)
     params = {}
     for key in list(tree):  # one leaf at a time: the NumPy copy goes as the JAX one comes
         params[key] = jax.tree_util.tree_map(jnp.asarray, tree.pop(key))
-    t0 = time.perf_counter()
-    model32 = Model(dataclasses.replace(cfg, dtype="float32"))
-    tokens, logits32 = _run(model32, params, prompt, steps)
-    t32 = time.perf_counter() - t0
-    # the function's own float32 sensitivity: every weight one ulp away
-    _, logits_ulp = _run(model32, _ulp_nudge(params, seed + 2), prompt, steps, feed=tokens)
-    # the reference with every step in float64
-    with _float64_everywhere():
-        _, logits64 = _run(Model(dataclasses.replace(cfg, dtype="float64")),
-                           jax.tree_util.tree_map(lambda a: a.astype(jnp.float64), params),
-                           prompt, steps, feed=tokens)
-    params = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), params)
-    t0 = time.perf_counter()
-    _, logits16 = _run(Model(dataclasses.replace(cfg, dtype="bfloat16")), params, prompt,
-                       steps, feed=tokens)
-    t16 = time.perf_counter() - t0
+    with capture_router_lps() as lps:
+        t0 = time.perf_counter()
+        model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+        lps.active = True
+        tokens, logits32 = _run(model32, params, prompt, steps)
+        jax.effects_barrier()
+        lps.active = False
+        t32 = time.perf_counter() - t0
+        # the function's own float32 sensitivity: every weight one ulp away
+        _, logits_ulp = _run(model32, _ulp_nudge(params, seed + 2), prompt, steps, feed=tokens)
+        # the reference with every step in float64
+        with _float64_everywhere():
+            _, logits64 = _run(Model(dataclasses.replace(cfg, dtype="float64")),
+                               jax.tree_util.tree_map(lambda a: a.astype(jnp.float64), params),
+                               prompt, steps, feed=tokens)
+        params = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), params)
+        t0 = time.perf_counter()
+        _, logits16 = _run(Model(dataclasses.replace(cfg, dtype="bfloat16")), params, prompt,
+                           steps, feed=tokens)
+        t16 = time.perf_counter() - t0
     del params
     ids = vocab_subset(cfg.vocab_size, subset, seed + 1)
     out = {f"{k}": v for k, v in logit_summary(logits32, ids).items()}
@@ -173,13 +248,48 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
         bf16_rel_l2=rel_l2(a, b).astype(np.float32),
         bf16_rel_l2_all=np.float64(np.linalg.norm(a - b) / np.linalg.norm(b)),
         weights_digest=digest, reference_seconds=np.array([t32, t16]),
+        layers=np.int64(cfg.num_layers), router=np.array(cfg.router),
     )
+    if lps.rows:
+        offset, moe_layers = 0, []
+        for g in plan(cfg):
+            if g.kind.endswith("_moe"):
+                moe_layers += list(range(offset, offset + g.count))
+            offset += g.count
+        calls = np.repeat(np.arange(steps + 1), len(moe_layers))
+        if len(lps.rows) != calls.size:
+            raise RuntimeError(f"recorded {len(lps.rows)} router LPs, expected {calls.size}")
+        out.update(lps.arrays(calls, moe_layers * (steps + 1)))
+    return out
+
+
+#: Arrays every router's run shares in a fixture of several routers.
+SHARED = ("arch", "seed", "prompt_len", "steps", "vocab_ids", "weights_digest", "layers")
+
+
+def build_router_fixtures(arch: str, routers, **kw) -> dict:
+    """One fixture for several MoE routers: the shared arrays once, and
+    each router's under ``<router>__<key>``."""
+    out = {}
+    for router in routers:
+        fx = build_fixture(arch, router=router, **kw)
+        for k, v in fx.items():
+            if k in SHARED:
+                if k in out and not np.array_equal(out[k], v):
+                    raise RuntimeError(f"{k} differs between the routers' runs")
+                out[k] = v
+            else:
+                out[f"{router}__{k}"] = v
+    out["routers"] = np.array(list(routers))
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers")
+    ap.add_argument("--router", default="",
+                    help="MoE routers to run, comma-separated (e.g. topk,lp)")
     ap.add_argument("--out", default=str(ROOT / "tests" / "data" / "lm_gemma2_2b_reference.npz"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
@@ -188,17 +298,30 @@ def main(argv=None) -> int:
 
     jax.config.update("jax_enable_x64", True)  # as the tests run the reference
     t0 = time.perf_counter()
-    fx = build_fixture(args.arch)
+    routers = [r for r in args.router.split(",") if r]
+    if routers:
+        fx = build_router_fixtures(args.arch, routers, layers=args.layers)
+    else:
+        fx = build_fixture(args.arch, layers=args.layers)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(args.out, **fx)
-    print(f"wrote {args.out} in {time.perf_counter() - t0:.1f} s: tokens {fx['tokens'].shape}, "
-          f"logits {fx['logits'].shape}, margin min {float(fx['margin'].min()):.3g}, "
-          f"bf16 rel L2 {float(fx['bf16_rel_l2_all']):.4g} "
-          f"(rows {float(fx['bf16_rel_l2'].min()):.4g}..{float(fx['bf16_rel_l2'].max()):.4g}), "
-          f"f32 noise rel L2 {float(fx['f32_noise_rel_l2'].max()):.4g} max abs "
-          f"{float(fx['f32_noise_max_abs'].max()):.4g}, f32 vs f64 rel L2 "
-          f"{float(fx['f64_rel_l2'].max()):.4g} max abs {float(fx['f64_max_abs'].max()):.4g}, "
-          f"argmax {fx['argmax'].tolist()}")
+    print(f"wrote {args.out} in {time.perf_counter() - t0:.1f} s")
+    for prefix in [f"{r}__" for r in routers] or [""]:
+        print(f"{prefix or 'run'}: tokens {fx[prefix + 'tokens'].shape}, "
+              f"logits {fx[prefix + 'logits'].shape}, "
+              f"margin min {float(fx[prefix + 'margin'].min()):.3g}, bf16 rel L2 "
+              f"{float(fx[prefix + 'bf16_rel_l2_all']):.4g} (rows "
+              f"{float(fx[prefix + 'bf16_rel_l2'].min()):.4g}.."
+              f"{float(fx[prefix + 'bf16_rel_l2'].max()):.4g}), f32 noise rel L2 "
+              f"{float(fx[prefix + 'f32_noise_rel_l2'].max()):.4g} max abs "
+              f"{float(fx[prefix + 'f32_noise_max_abs'].max()):.4g}, f32 vs f64 rel L2 "
+              f"{float(fx[prefix + 'f64_rel_l2'].max()):.4g} max abs "
+              f"{float(fx[prefix + 'f64_max_abs'].max()):.4g}, "
+              f"argmax {fx[prefix + 'argmax'].tolist()}, reference s "
+              f"{fx[prefix + 'reference_seconds'].tolist()}"
+              + (f", router LPs {fx[prefix + 'router_c'].shape}, iterations "
+                 f"{sorted(set(fx[prefix + 'router_iterations'].ravel().tolist()))}"
+                 if prefix + "router_c" in fx else ""))
     return 0
 
 
