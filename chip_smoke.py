@@ -164,6 +164,42 @@ line is printed:
    its plain version (``simplex_case``), its ms, pivots, bound, and its
    share of a decode step.
 
+   Slice 11, the SSM, hybrid, encoder-decoder and M-RoPE families, after
+   the MoE phases, with the launch counts set to 0 before and read after
+   (no kernel of the port lies on them: the reference computes the SSD
+   scan, the causal convolution and every attention outside Pallas).
+   Each ``<row>_reference`` (``lm_ssm``: mamba2-130m, 24 layers, 2
+   prompts of 100 tokens, two chunks of 64 with padding; ``lm_hybrid``:
+   zamba2-7b cut to 7 layers, shared sites before layers 0 and 6, 100
+   tokens; ``lm_encdec``: seamless-m4t-large-v2 cut to 1 + 1 layers
+   (deeper, the reference's own float32 function is chaotic on these
+   weights), 40 frames and 40 tokens; ``lm_vlm``: qwen2-vl-72b cut to 2
+   layers, 256 patch embeddings and 64 text tokens at M-RoPE positions
+   on a 16 x 16 grid; each 8 decode steps): weights from
+   ``reference_weights`` checked against the fixture's digest, the
+   float32 logits against ``tests/data/lm_<arch>_reference.npz`` with
+   ``lm_reference``'s row gates, each at least twice the reference's own
+   largest float32 error against its float64 logits (``case_f64``; TF32
+   must fail them), bfloat16 within 1.5x the reference's gap.
+   ``lm_ssm_serve``, ``lm_hybrid_serve`` (all 81 layers, 14 shared
+   sites) and ``lm_encdec_serve`` (24 + 24 layers, 8 x 4,096 frames and
+   tokens; before it, float32 decode against the port's own forward at
+   2 x 4,096 on the fixture's depth, ``lm_encdec_decode_vs_forward``),
+   ``Model.init`` on the card but mamba2's (the fixture's weights), in bfloat16
+   ``Engine.generate`` of 8 prompts of 4,096 tokens and 128 greedy
+   steps, prefill and decode ms beside their bounds (bf16 work at the
+   bf16 peak, the float32 SSD scans at the float32 peak; a decode step's
+   weights and the cache bytes it moves: attended K/V, cross K/V, conv
+   windows and SSM states read and written), peak memory and the cache's
+   bytes.  ``lm_ssm_long``: one prompt of 524,288 tokens; in float32 a
+   prefill of s - 1 tokens and one decode step against a prefill of s
+   (relative L2 and max abs within 1e-3), which a state zeroed at the
+   handoff must fail; one layer's inter-chunk loop timed alone (8,192
+   launches); then bfloat16 ``Engine.generate`` of 32 steps, prefill and
+   decode ms beside their bounds, the cache's bytes equal to a
+   4,096-token prompt's.  qwen2-vl-72b has no serve row (143 GB in
+   bfloat16).
+
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
 revised launch the resident variant.  The ``kernels`` line counts the
@@ -2094,13 +2130,41 @@ LM_BF16_FACTOR = 1.5
 PEAK_FLOPS_BF16 = 989e12
 
 
+def lm_fixture_inputs(model, fixture) -> dict:
+    """The prompt's inputs besides the tokens, for a fixture of a config
+    that takes them: ``make_inputs``' frames and patch embeddings, made
+    again in the fixture's ``input_dtype`` and held to its
+    ``extras_digest``, and its stored M-RoPE ``positions``; empty for a
+    fixture of tokens alone."""
+    from repro_torch.configs import Shape, make_inputs
+    from repro_torch.models.convert import weights_digest
+
+    out = {}
+    keys = [str(k) for k in np.asarray(fixture.get("extras_keys", np.zeros(0, str)))]
+    if keys:
+        b, p = np.asarray(fixture["tokens"]).shape[0], int(fixture["prompt_len"])
+        cfg = dataclasses.replace(model.cfg, dtype=str(fixture["input_dtype"]))
+        made = make_inputs(cfg, Shape("lm_reference", p, b, "prefill"), int(fixture["seed"]),
+                           device=model.device)
+        out = {k: made[k].float() for k in keys}
+        digest = weights_digest({k: v.cpu().numpy() for k, v in out.items()})
+        check(np.array_equal(digest, fixture["extras_digest"]),
+              f"the {keys} made here differ from the fixture's")
+    if "positions" in fixture:
+        out["positions"] = torch.as_tensor(np.asarray(fixture["positions"]), device=model.device)
+    return out
+
+
 def lm_fixture_logits(model, fixture) -> torch.Tensor:
     """The port's logits (B, steps + 1, V) on the fixture's tokens: prefill
-    of the prompts, then one decode step a reference token."""
+    of the prompts (with their frames, patch embeddings and positions, if
+    any), then one decode step a reference token."""
     tokens = torch.as_tensor(np.asarray(fixture["tokens"]), device=model.device)
     p, steps = int(fixture["prompt_len"]), int(fixture["steps"])
-    cache = model.init_cache(tokens.shape[0], p + steps)
-    logits, _ = model.prefill({"tokens": tokens[:, :p]}, cache)
+    extras = lm_fixture_inputs(model, fixture)
+    cache = model.init_cache(tokens.shape[0], p + steps,
+                             enc_len=extras["frames"].shape[1] if "frames" in extras else 0)
+    logits, _ = model.prefill({"tokens": tokens[:, :p], **extras}, cache)
     rows = [logits[:, -1]]
     for i in range(steps):
         logits, _ = model.decode_step({"tokens": tokens[:, p + i:p + i + 1]}, cache, p + i)
@@ -2108,15 +2172,28 @@ def lm_fixture_logits(model, fixture) -> torch.Tensor:
     return torch.stack(rows, dim=1)
 
 
-def lm_tolerances(fixture) -> dict:
+def lm_tolerances(fixture, case_f64: bool = False) -> dict:
     """``lm_reference``'s per-row gates for this fixture: (max abs, relative
-    L2) against the reference's float32 logits and against its float64 ones."""
-    return {
+    L2) against the reference's float32 logits and against its float64 ones.
+
+    With ``case_f64`` (the slice-11 rows) every gate is also at least
+    ``LM_F64_FACTOR`` times the largest error of the reference's own
+    float32 logits against its float64 ones over all the fixture's rows.
+    On those fixtures that error exceeds the ulp noise by up to 10x
+    (qwen2-vl: 1.43e-3 relative in a row whose noise is 1.5e-4), so a row
+    gate below it would reject the exact function itself."""
+    tol = {
         "abs": np.maximum(LM_ABS_TOL, LM_NOISE_FACTOR * fixture["f32_noise_max_abs"]),
         "rel": np.maximum(LM_REL_TOL, LM_NOISE_FACTOR * fixture["f32_noise_rel_l2"]),
         "abs_f64": np.maximum(LM_ABS_TOL, LM_F64_FACTOR * fixture["f64_max_abs"]),
         "rel_f64": np.maximum(LM_REL_TOL, LM_F64_FACTOR * fixture["f64_rel_l2"]),
     }
+    if case_f64:
+        for kind, key in (("abs", "f64_max_abs"), ("rel", "f64_rel_l2")):
+            floor = LM_F64_FACTOR * float(np.max(fixture[key]))
+            for k in (kind, f"{kind}_f64"):
+                tol[k] = np.maximum(tol[k], floor)
+    return tol
 
 
 def lm_f64_error(logits, fixture, tol) -> dict:
@@ -2131,13 +2208,14 @@ def lm_f64_error(logits, fixture, tol) -> dict:
             "f64_worst_ratio": ratio}
 
 
-def lm_reference_case(model, fixture, phase="lm_reference") -> dict:
+def lm_reference_case(model, fixture, phase="lm_reference", case_f64=False) -> dict:
     """``lm_reference``: the float32 port against the reference's fixture;
     on the card, the same run with TF32 products as a control that the
-    gate must reject.  ``phase`` names the line."""
+    gate must reject.  ``phase`` names the line; ``case_f64`` as
+    ``lm_tolerances``."""
     from repro_torch.models.convert import compare_to_summary
 
-    tol = lm_tolerances(fixture)
+    tol = lm_tolerances(fixture, case_f64)
     logits = lm_fixture_logits(model, fixture)
     res = compare_to_summary(logits, fixture, abs_tol=tol["abs"], rel_tol=tol["rel"],
                              margin=LM_MARGIN)
@@ -2158,7 +2236,8 @@ def lm_reference_case(model, fixture, phase="lm_reference") -> dict:
          subset=int(np.asarray(fixture["vocab_ids"]).size),
          abs_tol=tol["abs"].tolist(), rel_tol=tol["rel"].tolist(),
          abs_tol_f64=tol["abs_f64"].tolist(), rel_tol_f64=tol["rel_f64"].tolist(),
-         margin=LM_MARGIN, f32_noise_rel_l2=np.asarray(fixture["f32_noise_rel_l2"]).tolist(),
+         margin=LM_MARGIN, case_f64=case_f64,
+         f32_noise_rel_l2=np.asarray(fixture["f32_noise_rel_l2"]).tolist(),
          reference_f32_vs_f64_rel_l2=np.asarray(fixture["f64_rel_l2"]).tolist(),
          tf32_control=control, **res)
     check(res["ok"], f"{phase}: the port differs from the reference's fixture: {res}")
@@ -2221,31 +2300,84 @@ def lm_param_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
+#: Block kinds whose causal self-attention over the cache a decode step runs.
+LM_SELF_ATTENTION = ("gqa_dense", "gqa_moe", "dec_cross")
+
+
+def lm_self_windows(model) -> list:
+    """The window (None for none) of each causal self-attention a token
+    passes: the attention layers', then zamba2's shared sites'."""
+    return ([w for k, w in zip(model.kinds(), model.windows()) if k in LM_SELF_ATTENTION]
+            + [None] * model.shared_sites())
+
+
 def lm_keys(windows, q) -> int:
     """Keys the query at position ``q`` attends, summed over the layers."""
     return sum(min(q + 1, w) if w else q + 1 for w in windows)
 
 
-def lm_prefill_flops(model, batch, s) -> float:
-    """Matrix-product and attention FLOPs a prefill needs: the layers'
-    projections for every token, causal (and windowed) scores and PV, and
-    the unembedding of the last position."""
-    cfg, windows = model.cfg, model.windows()
-    d = cfg.d_model
-    linear = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 3 * d * cfg.d_ff
-    keys = sum(lm_keys(windows, q) for q in range(s))
-    return (2.0 * batch * s * linear * cfg.num_layers
-            + 4.0 * batch * cfg.num_heads * cfg.head_dim * keys
-            + 2.0 * batch * d * cfg.padded_vocab)
+def lm_ssd_flops(cfg, batch, s) -> float:
+    """Matrix-product FLOPs of one mamba layer's chunked SSD scan over
+    ``s`` tokens (float32; the last chunk padded): C B^T, (C B^T * L) x,
+    the chunk states and the state-to-output product."""
+    q = min(cfg.ssm_chunk, s)
+    nc = -(-s // q)
+    h, p, n, g = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
+    return 2.0 * batch * nc * (g * q * q * n + h * q * q * p + 2 * h * p * n * q)
 
 
-def lm_decode_kv_bytes(model, batch, index, item) -> int:
-    """K and V bytes a decode step at ``index`` reads (the slots it attends)."""
+def lm_prefill_flops(model, batch, s, enc_len=0) -> dict:
+    """Matrix-product and attention FLOPs a prefill needs, by type:
+    ``bf16`` the projections for every token (attention, MLP, the mamba
+    in/out projections and conv taps), causal (and windowed) scores and
+    PV, the encoder's bidirectional attention over ``enc_len`` frames and
+    the decoder's cross attention over them, and the unembedding of the
+    last position; ``f32`` the SSD scans, which the reference computes in
+    float32."""
     cfg = model.cfg
-    return 2 * batch * cfg.num_kv_heads * cfg.head_dim * lm_keys(model.windows(), index) * item
+    kinds = model.kinds()
+    d, tokens = cfg.d_model, batch * s
+    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    mlp = 3 * d * cfg.d_ff
+    blocks = sum(k in ("gqa_dense", "dec_cross") for k in kinds) + model.shared_sites()
+    keys = sum(lm_keys(lm_self_windows(model), q) for q in range(s))
+    score = 4.0 * cfg.num_heads * cfg.head_dim
+    bf16 = 2.0 * tokens * (attn + mlp) * blocks + score * batch * keys
+    n_mamba = kinds.count("mamba")
+    if n_mamba:
+        di, gn, h = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_heads
+        per_token = d * (2 * di + 2 * gn + h) + di * d + cfg.ssm_conv * (di + 2 * gn)
+        bf16 += 2.0 * tokens * per_token * n_mamba
+    n_enc, n_dec = kinds.count("enc"), kinds.count("dec_cross")
+    if n_enc:
+        bf16 += n_enc * (2.0 * batch * enc_len * (attn + mlp) + score * batch * enc_len * enc_len)
+    if n_dec:
+        bf16 += n_dec * (2.0 * tokens * 2 * d * cfg.q_dim + 2.0 * batch * enc_len * 2 * d * cfg.kv_dim
+                         + score * batch * s * enc_len)
+    bf16 += 2.0 * batch * d * cfg.padded_vocab
+    return {"bf16": bf16, "f32": n_mamba * lm_ssd_flops(cfg, batch, s)}
 
 
-def timed_generate(engine, model, tokens, steps):
+def lm_prefill_bound_ms(flops) -> float:
+    return (flops["bf16"] / PEAK_FLOPS_BF16 + flops["f32"] / PEAK_FLOPS[torch.float32]) * 1e3
+
+
+def lm_decode_kv_bytes(model, batch, index, item, enc_len=0) -> int:
+    """Cache bytes a decode step at ``index`` moves: the K and V slots each
+    self-attention attends, each decoder layer's cross K and V over
+    ``enc_len`` frames, and each mamba layer's conv window (in ``item``
+    bytes) and float32 SSM state, read and written."""
+    cfg = model.cfg
+    kinds = model.kinds()
+    kv = 2 * batch * cfg.num_kv_heads * cfg.head_dim * lm_keys(lm_self_windows(model), index)
+    cross = kinds.count("dec_cross") * 2 * batch * cfg.num_heads * cfg.head_dim * enc_len
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    mamba = kinds.count("mamba") * 2 * batch * (
+        (cfg.ssm_conv - 1) * conv_ch * item + cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4)
+    return (kv + cross) * item + mamba
+
+
+def timed_generate(engine, model, inputs, steps):
     """``engine.generate`` greedy, with a CUDA event recorded as the prefill
     and each decode step return and the peak memory counter reset first.
     Returns (tokens, wall s, prefill ms, decode ms a step, each call's
@@ -2271,7 +2403,7 @@ def timed_generate(engine, model, tokens, steps):
     t0 = time.perf_counter()
     try:
         mark()
-        out = engine.generate({"tokens": tokens}, steps=steps)
+        out = engine.generate(inputs, steps=steps)
         torch.cuda.synchronize()
     finally:
         del model.prefill, model.decode_step  # the methods again
@@ -2298,7 +2430,7 @@ def lm_serve_case(model, fixture, ref_rel, *, seed, counters, batch=LM_SERVE_BAT
                          device=dev)["tokens"]
     engine.generate({"tokens": tokens[:, :128]}, steps=4)  # warm-up: handles, allocator
     before = launch_counts(counters)
-    out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, tokens, steps)
+    out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, {"tokens": tokens}, steps)
     launched = count_delta(counters, before)
     peak = torch.cuda.max_memory_allocated()
     all_finite = bool(torch.isfinite(torch.stack(rows)).all())  # after the last event
@@ -2306,7 +2438,7 @@ def lm_serve_case(model, fixture, ref_rel, *, seed, counters, batch=LM_SERVE_BAT
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     kv = [lm_decode_kv_bytes(model, batch, prompt + i, item) for i in range(steps - 1)]
     decode_bound = (weights + float(np.median(kv))) / HBM_BYTES_PER_S * 1e3
-    prefill_flops = lm_prefill_flops(model, batch, prompt)
+    prefill_flops = lm_prefill_flops(model, batch, prompt)["bf16"]
     prefill_bound = prefill_flops / PEAK_FLOPS_BF16 * 1e3
     logits16 = lm_fixture_logits(model, fixture).float().cpu().numpy()
     ids = np.asarray(fixture["vocab_ids"])
@@ -2668,7 +2800,8 @@ def lm_moe_serve_case(model, router, *, seed, counters, batch=LM_SERVE_BATCH,
     before = launch_counts(counters)
     with SimplexSpy(simplex_cuda, limit=LM_MOE_CAPTURE_CALLS * n_moe) as spy, \
             RoutingStats() as routing:
-        out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, tokens, steps)
+        out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, {"tokens": tokens},
+                                                              steps)
     launched = count_delta(counters, before)
     peak = torch.cuda.max_memory_allocated()
     all_finite = bool(torch.isfinite(torch.stack(rows)).all())
@@ -2786,6 +2919,351 @@ def lm_moe_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
                   / serve["topk"]["decode_ms_median"])
     emit("lm_router_lp", nvidia_smi=smi_line(), **router)
     return dict(reference=reference, serve=serve, router=router, launches=launched)
+
+
+# -- slice 11: the SSM, hybrid, encoder-decoder and M-RoPE families ----------
+
+#: Each ``<row>_reference`` row: its config, and its committed reference
+#: fixture (``tools/lm_reference_fixture.py``; the fixture's ``layers``
+#: give the depth it was cut to, the widths are the config's).
+LM_FAMILY_FIXTURES = {
+    "lm_ssm": ("mamba2-130m", ROOT / "tests" / "data" / "lm_mamba2_130m_reference.npz"),
+    "lm_hybrid": ("zamba2-7b", ROOT / "tests" / "data" / "lm_zamba2_7b_reference.npz"),
+    "lm_encdec": ("seamless-m4t-large-v2",
+                  ROOT / "tests" / "data" / "lm_seamless_m4t_large_v2_reference.npz"),
+    "lm_vlm": ("qwen2-vl-72b", ROOT / "tests" / "data" / "lm_qwen2_vl_72b_reference.npz"),
+}
+#: ``lm_ssm_long``: one prompt of the reference's ``long_500k`` length, then
+#: decode steps (bfloat16).  Its float32 gate, prefill of s - 1 tokens and
+#: one decode step against a prefill of s tokens: relative L2 over the
+#: vocabulary and max abs over the largest logit, each at most the
+#: fixture rows' float32 floor (``LM_REL_TOL``): both are float32 runs of
+#: one function whose only difference is the order of rounding (the
+#: chunked scan against one recurrence step), as in ``lm_window``.
+LM_LONG_PROMPT = 524_288
+LM_LONG_STEPS = 32
+#: ``lm_encdec_serve``'s decode against the port's own forward (float32):
+#: prompts, decode steps, tolerance (``lm_window``'s).
+LM_ENCDEC_CHECK = (2, 8)
+
+
+def lm_fixture_config(cfg, fixture):
+    """``cfg`` cut to the fixture's depth (the encoder's too)."""
+    cut = {"num_layers": int(fixture["layers"])}
+    if "enc_layers" in fixture:
+        cut["enc_layers"] = int(fixture["enc_layers"])
+    return dataclasses.replace(cfg, **cut)
+
+
+def lm_family_reference(rt_configs, dev, row) -> tuple:
+    """``<row>_reference``: the config at full width cut to its fixture's
+    depth, weights from ``reference_weights`` (checked against the
+    fixture's digest), float32 against the fixture with ``lm_reference``'s
+    row gates (TF32 must fail them), then bfloat16 within
+    ``LM_BF16_FACTOR`` times the reference's bfloat16 gap.  Returns the
+    float32 and bfloat16 models and the line's fields."""
+    from repro_torch.models import Model
+    from repro_torch.models.convert import (load_reference_params, reference_weights,
+                                            weights_digest)
+
+    arch, path = LM_FAMILY_FIXTURES[row]
+    check(path.exists(), f"the fixture {path} is missing")
+    fixture = dict(np.load(path))
+    t_row = time.perf_counter()
+    cut = lm_fixture_config(rt_configs.get_config(arch), fixture)
+    t0 = time.perf_counter()
+    tree = reference_weights(cut, int(fixture["seed"]))
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
+          f"{row}: the weights drawn here differ from the fixture's")
+    t0 = time.perf_counter()
+    model = load_reference_params(Model(dataclasses.replace(cut, dtype="float32"), device=dev),
+                                  tree)
+    model16 = load_reference_params(Model(cut, device=dev), tree)
+    del tree
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    res = lm_reference_case(model, fixture, phase=f"{row}_reference", case_f64=True)
+    logits16 = lm_fixture_logits(model16, fixture).float().cpu().numpy()[..., fixture["vocab_ids"]]
+    ref = np.asarray(fixture["logits"], np.float64)
+    rel = float(np.linalg.norm(logits16 - ref) / np.linalg.norm(ref))
+    ref_rel = float(fixture["bf16_rel_l2_all"])
+    out = dict(arch=arch, layers=cut.num_layers, enc_layers=cut.enc_layers,
+               kinds=sorted(set(model.kinds())), shared_sites=model.shared_sites(),
+               params=sum(p.numel() for p in model.parameters()),
+               param_count=cut.param_count(), weights_s=gen_s, load_s=load_s,
+               logits_ok=res["ok"], bf16_rel_l2=rel, reference_bf16_rel_l2=ref_rel,
+               bf16_limit=LM_BF16_FACTOR * ref_rel, wall_s=time.perf_counter() - t_row)
+    emit(f"{row}_reference_bf16", **out)
+    check(rel <= LM_BF16_FACTOR * ref_rel,
+          f"{row}: bf16 logits {rel} from the fixture, past {LM_BF16_FACTOR} x {ref_rel}")
+    return model, model16, out
+
+
+def lm_serve_inputs(cfg, row, batch, prompt, seed, dev) -> dict:
+    """``make_inputs``' prompt (tokens, and the frames or patch embeddings
+    the config takes), with M-RoPE positions whose coordinates differ."""
+    from repro_torch.configs import Shape, make_inputs, mrope_positions
+
+    inputs = make_inputs(cfg, Shape(row, prompt, batch, "prefill"), seed, device=dev)
+    if cfg.mrope_sections:
+        inputs["positions"] = torch.as_tensor(
+            mrope_positions(batch, prompt, cfg.num_patches, seed), device=dev)
+    return inputs
+
+
+def lm_cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for c in cache for t in c.values())
+
+
+def lm_family_serve_case(model, row, *, seed, counters, batch=LM_SERVE_BATCH,
+                         prompt=LM_SERVE_PROMPT, steps=LM_SERVE_STEPS) -> dict:
+    """``<row>``: ``Engine.generate`` with no device argument (the card) on
+    the loaded bfloat16 model, greedy, after a warm-up: prefill and decode
+    ms beside their bounds, peak memory, the cache's bytes, no kernel of
+    the port launched.  The encoder-decoder's ``enc_len`` is its frames'
+    length (= the prompt's)."""
+    from repro_torch.serve.engine import Engine
+
+    cfg = model.cfg
+    t_row = time.perf_counter()
+    inputs = lm_serve_inputs(cfg, row, batch, prompt, seed, model.device)
+    enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
+    engine = Engine(model, max_len=prompt + steps, enc_len=enc_len)
+    warm = dict(inputs, tokens=inputs["tokens"][:, :128])
+    if "positions" in warm:
+        warm["positions"] = inputs["positions"][:, :128]
+    engine.generate(warm, steps=4)  # warm-up: handles, allocator
+    engine.cache = None
+    before = launch_counts(counters)
+    out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, inputs, steps)
+    launched = count_delta(counters, before)
+    peak = torch.cuda.max_memory_allocated()
+    all_finite = bool(torch.isfinite(torch.stack(rows)).all())
+    weights = lm_param_bytes(model)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    moved = [lm_decode_kv_bytes(model, batch, prompt + i, item, enc_len) for i in range(steps - 1)]
+    flops = lm_prefill_flops(model, batch, prompt, enc_len)
+    res = dict(
+        prefill_ms=prefill_ms, prefill_tokens_per_s=batch * prompt / (prefill_ms * 1e-3),
+        prefill_bound_ms=lm_prefill_bound_ms(flops), prefill_flops_bf16=flops["bf16"],
+        prefill_flops_f32=flops["f32"],
+        decode_ms_median=float(np.median(step_ms)), decode_ms_p90=float(np.percentile(step_ms, 90)),
+        decode_tokens_per_s=batch / (float(np.median(step_ms)) * 1e-3),
+        decode_bound_ms=(weights + float(np.median(moved))) / HBM_BYTES_PER_S * 1e3,
+        weight_bytes=weights, cache_bytes=lm_cache_bytes(engine.cache),
+        cache_bytes_moved_median=float(np.median(moved)), peak_memory_bytes=peak,
+        port_kernel_launches=launched, all_logits_finite=all_finite,
+        tokens_in_vocab=bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    engine.cache = None
+    res["wall_s"] = time.perf_counter() - t_row
+    emit(row, arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers, enc_layers=cfg.enc_layers,
+         shared_sites=model.shared_sites(), batch=batch, prompt=prompt, enc_len=enc_len,
+         steps=steps, nvidia_smi=smi_line(), **res)
+    check(all_finite and res["tokens_in_vocab"], f"{row}: non-finite logits or bad tokens: {res}")
+    check(not any(launched.values()), f"{row}: the path launched a kernel of the port: {launched}")
+    return res
+
+
+def lm_decode_vs_forward(model, inputs, prompt, steps) -> float:
+    """Prefill of ``prompt`` tokens (with the inputs' frames), then decode
+    steps fed the same tokens, each step's logits against the full
+    forward's at its position: the largest abs difference."""
+    tokens = inputs["tokens"]
+    b = tokens.shape[0]
+    enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
+    cache = model.init_cache(b, prompt + steps, enc_len=enc_len)
+    logits, _ = model.prefill(dict(inputs, tokens=tokens[:, :prompt]), cache)
+    rows = [logits[:, 0]]
+    for t in range(prompt, prompt + steps - 1):
+        logits, _ = model.decode_step({"tokens": tokens[:, t:t + 1]}, cache, t)
+        rows.append(logits[:, 0])
+    idx = torch.arange(prompt - 1, prompt + steps - 1, device=model.device)
+    with torch.inference_mode():
+        full = model.logits(model.forward(dict(inputs, tokens=tokens[:, :prompt + steps - 1]))[:, idx])
+    return float((torch.stack(rows, dim=1) - full).abs().max())
+
+
+def ssd_chunk_loop_ms(cfg, dev, batch, s, reps=3) -> float:
+    """CUDA-event ms of one mamba layer's inter-chunk loop
+    (``models/mamba2.py:_chunk_recurrence``, one launch a chunk) at ``s``
+    tokens, on random float32 states; the median of ``reps`` after a
+    warm-up."""
+    from repro_torch.models.mamba2 import _chunk_recurrence
+
+    nc = -(-s // cfg.ssm_chunk)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    states = torch.randn((nc,) + shape, generator=gen, device=dev)
+    decay = torch.rand((nc, batch, cfg.ssm_heads), generator=gen, device=dev)
+    init = torch.zeros(shape, device=dev)
+    _chunk_recurrence(states, decay, init)
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _chunk_recurrence(states, decay, init)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def lm_ssm_long_case(model, model16, *, seed, counters, prompt=LM_LONG_PROMPT,
+                     steps=LM_LONG_STEPS) -> dict:
+    """``lm_ssm_long``: one prompt of ``prompt`` tokens.  Float32: a prefill
+    of s - 1 tokens and one decode step against a prefill of s tokens (the
+    reference's ``test_mamba2_state_continuity`` at this length), and the
+    same decode step from a state zeroed after the prefill, which the gate
+    must reject.  Bfloat16: ``Engine.generate`` of ``steps`` steps, prefill
+    and decode ms beside their bounds; the cache's bytes beside a 4,096-token
+    prompt's."""
+    from repro_torch.configs import Shape, make_inputs
+    from repro_torch.serve.engine import Engine
+
+    cfg = model.cfg
+    dev = model.device
+    t_row = time.perf_counter()
+    tokens = make_inputs(cfg, Shape("lm_ssm_long", prompt, 1, "prefill"), seed + 5,
+                         device=dev)["tokens"]
+
+    def gap(a, b):  # over the real vocabulary (the padded rows are -1e30)
+        a, b = a[..., :cfg.vocab_size].double().flatten(), b[..., :cfg.vocab_size].double().flatten()
+        return {"rel_l2": float((a - b).norm() / b.norm()),
+                "max_abs": float((a - b).abs().max() / b.abs().max())}
+
+    cache = model.init_cache(1, prompt)
+    model.prefill({"tokens": tokens[:, :prompt - 1]}, cache)
+    handoff = [{k: v.clone() for k, v in c.items()} for c in cache]
+    stepped, _ = model.decode_step({"tokens": tokens[:, prompt - 1:]}, cache, prompt - 1)
+    for c, saved in zip(cache, handoff):
+        for k, v in saved.items():
+            c[k].copy_(v)
+        c["state"].zero_()  # the planted fault: the state lost at the handoff
+    planted, _ = model.decode_step({"tokens": tokens[:, prompt - 1:]}, cache, prompt - 1)
+    del cache, handoff
+    whole, _ = model.prefill({"tokens": tokens}, model.init_cache(1, prompt))
+    ok_gap, bad_gap = gap(stepped, whole), gap(planted, whole)
+    torch.cuda.empty_cache()
+
+    loop_ms = ssd_chunk_loop_ms(cfg, dev, 1, prompt)
+    torch.cuda.empty_cache()
+    engine = Engine(model16, max_len=prompt + steps)
+    engine.generate({"tokens": tokens[:, :4096]}, steps=2)  # warm-up
+    short_cache = lm_cache_bytes(engine.cache)
+    engine.cache = None
+    before = launch_counts(counters)
+    out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model16, {"tokens": tokens}, steps)
+    launched = count_delta(counters, before)
+    peak = torch.cuda.max_memory_allocated()
+    long_cache = lm_cache_bytes(engine.cache)
+    engine.cache = None
+    item = torch.empty((), dtype=getattr(torch, model16.cfg.dtype)).element_size()
+    flops = lm_prefill_flops(model16, 1, prompt)
+    moved = lm_decode_kv_bytes(model16, 1, prompt, item)
+    res = dict(
+        continuity_rel_l2=ok_gap["rel_l2"], continuity_max_abs=ok_gap["max_abs"],
+        tol=LM_REL_TOL, zeroed_state_rel_l2=bad_gap["rel_l2"],
+        zeroed_state_max_abs=bad_gap["max_abs"],
+        prefill_ms=prefill_ms, prefill_tokens_per_s=prompt / (prefill_ms * 1e-3),
+        prefill_bound_ms=lm_prefill_bound_ms(flops), prefill_flops_bf16=flops["bf16"],
+        prefill_flops_f32=flops["f32"], ssd_chunks_a_layer=-(-prompt // cfg.ssm_chunk),
+        chunk_loop_ms_a_layer=loop_ms,
+        chunk_loop_share_of_prefill=loop_ms * model16.kinds().count("mamba") / prefill_ms,
+        decode_ms_median=float(np.median(step_ms)), decode_ms_p90=float(np.percentile(step_ms, 90)),
+        decode_bound_ms=(lm_param_bytes(model16) + moved) / HBM_BYTES_PER_S * 1e3,
+        cache_bytes=long_cache, cache_bytes_4096_prompt=short_cache, peak_memory_bytes=peak,
+        port_kernel_launches=launched,
+        all_logits_finite=bool(torch.isfinite(torch.stack(rows)).all()),
+        wall_s=time.perf_counter() - t_row)
+    emit("lm_ssm_long", arch=cfg.name, prompt=prompt, steps=steps, nvidia_smi=smi_line(), **res)
+    check(ok_gap["rel_l2"] <= LM_REL_TOL and ok_gap["max_abs"] <= LM_REL_TOL,
+          f"lm_ssm_long: prefill + decode differs from the whole prefill: {ok_gap}")
+    check(bad_gap["rel_l2"] > LM_REL_TOL or bad_gap["max_abs"] > LM_REL_TOL,
+          f"lm_ssm_long: the gate passes a zeroed state handoff: {bad_gap}")
+    check(long_cache == short_cache, f"lm_ssm_long: the cache grew with the prompt: "
+          f"{long_cache} against {short_cache}")
+    check(res["all_logits_finite"] and not any(launched.values()),
+          f"lm_ssm_long: non-finite logits or a kernel of the port launched: {res}")
+    return res
+
+
+def lm_init_model(rt_configs, dev, arch, seed, phase):
+    """The config at full width and depth in its dtype, ``Model.init`` on
+    the card from a generator seeded ``seed``; a ``phase`` line with its
+    size and the seconds it took."""
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = rt_configs.get_config(arch)
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, enc_layers=cfg.enc_layers,
+         shared_sites=model.shared_sites(), params=sum(p.numel() for p in model.parameters()),
+         param_bytes=lm_param_bytes(model), init_s=time.perf_counter() - t0)
+    return model
+
+
+def lm_families_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
+    """Slice 11: mamba2-130m (full depth), zamba2-7b (7 layers for the
+    fixture, 81 to serve), seamless-m4t-large-v2 (1 + 1 layers for the
+    fixture, 24 + 24 to serve) and qwen2-vl-72b (2 layers; no serve row,
+    143 GB in bfloat16 does not fit one card), each ``<row>_reference``
+    then its serve rows, with the launch counts set to 0 before and read
+    after (no kernel of the port lies on these paths)."""
+    reset()
+    t0 = time.perf_counter()
+    model, model16, ssm = lm_family_reference(rt_configs, dev, "lm_ssm")
+    sizes = dict(seed=seed, counters=counters, batch=LM_SERVE_BATCH, prompt=LM_SERVE_PROMPT,
+                 steps=LM_SERVE_STEPS)
+    ssm_serve = lm_family_serve_case(model16, "lm_ssm_serve", **sizes)
+    long = lm_ssm_long_case(model, model16, seed=seed, counters=counters, prompt=LM_LONG_PROMPT,
+                            steps=LM_LONG_STEPS)
+    del model, model16
+    torch.cuda.empty_cache()
+
+    model, model16, hybrid = lm_family_reference(rt_configs, dev, "lm_hybrid")
+    del model, model16
+    torch.cuda.empty_cache()
+    model16 = lm_init_model(rt_configs, dev, "zamba2-7b", seed, "lm_hybrid_serve_setup")
+    hybrid_serve = lm_family_serve_case(model16, "lm_hybrid_serve", **sizes)
+    del model16
+    torch.cuda.empty_cache()
+
+    # The encoder-decoder's float32 decode against its own forward runs at
+    # the fixture's depth: deeper, its float32 function is chaotic on these
+    # weights (PERF.md, section 4).
+    model, model16, encdec = lm_family_reference(rt_configs, dev, "lm_encdec")
+    del model16
+    batch, steps = LM_ENCDEC_CHECK
+    check_inputs = lm_serve_inputs(model.cfg, "lm_encdec_serve", batch, LM_SERVE_PROMPT + steps,
+                                   seed + 1, dev)
+    check_inputs["frames"] = check_inputs["frames"][:, :LM_SERVE_PROMPT]
+    t1 = time.perf_counter()
+    vs_forward = lm_decode_vs_forward(model, check_inputs, LM_SERVE_PROMPT, steps)
+    emit("lm_encdec_decode_vs_forward", arch=model.cfg.name, layers=model.cfg.num_layers,
+         enc_layers=model.cfg.enc_layers, batch=batch, frames=LM_SERVE_PROMPT,
+         prompt=LM_SERVE_PROMPT, steps=steps, max_abs=vs_forward, tol=LM_WINDOW_TOL,
+         wall_s=time.perf_counter() - t1)
+    check(vs_forward <= LM_WINDOW_TOL,
+          f"lm_encdec_serve: decode differs from the port's forward by {vs_forward}")
+    del model, check_inputs
+    torch.cuda.empty_cache()
+    model16 = lm_init_model(rt_configs, dev, "seamless-m4t-large-v2", seed, "lm_encdec_serve_setup")
+    encdec_serve = lm_family_serve_case(model16, "lm_encdec_serve", **sizes)
+    encdec_serve["decode_vs_forward_max_abs"] = vs_forward
+    del model16
+    torch.cuda.empty_cache()
+
+    model, model16, vlm = lm_family_reference(rt_configs, dev, "lm_vlm")
+    del model, model16
+    torch.cuda.empty_cache()
+    launched = launch_counts(counters)
+    check(not any(launched.values()), f"the slice-11 paths launched a kernel of the port: {launched}")
+    emit("main_path_summary", path="slice11_lm_families", launches=launched,
+         wall_s=time.perf_counter() - t0)
+    return dict(ssm=ssm, ssm_serve=ssm_serve, long=long, hybrid=hybrid,
+                hybrid_serve=hybrid_serve, encdec=encdec, encdec_serve=encdec_serve, vlm=vlm)
 
 
 def main(argv=None) -> int:
@@ -3242,6 +3720,10 @@ def run(args, pool) -> int:
     moe = lm_moe_phase(rt_configs, dev, seed=args.seed, counters=counters, reset=reset_counts)
     slice10 = moe["launches"]
     check(slice10["simplex"] > 0, f"the MoE path never launched the simplex kernel: {slice10}")
+
+    # Slice 11, the SSM, hybrid, encoder-decoder and M-RoPE families (no
+    # kernel of the port on them; the counts must not move).
+    lm_families_phase(rt_configs, dev, seed=args.seed, counters=counters, reset=reset_counts)
 
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
                 + slice10[k] for k in slice1}

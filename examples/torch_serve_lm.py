@@ -1,19 +1,23 @@
 """Batched LM serving with the PyTorch port: prefill + greedy decode with a KV cache.
 
-The twin of ``examples/serve_lm.py``: a reduced dense config, random
-weights from a seeded ``torch.Generator``, ``Engine.generate``.  Runs on
-the card by default; pass ``--device cpu`` to run on the CPU.
+The twin of ``examples/serve_lm.py``: a reduced config of any family,
+random weights from a seeded ``torch.Generator``, ``Engine.generate``.
+The prompt's inputs are ``make_inputs``' (frames for the
+encoder-decoder, patch embeddings for the vision frontend), with
+M-RoPE positions whose coordinates differ (``mrope_positions``) and the
+encoder-decoder's ``enc_len`` set to its frames' length.  Runs on the
+card by default; pass ``--device cpu`` to run on the CPU.
 
   PYTHONPATH=src python examples/torch_serve_lm.py --arch gemma2-2b --steps 16 [--device cpu]
+  PYTHONPATH=src python examples/torch_serve_lm.py --arch seamless-m4t-large-v2 --device cpu
 """
 
 import argparse
 import time
 
-import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import Shape, get_config, make_inputs, mrope_positions
 from repro_torch.core.lp import resolve_device
 from repro_torch.models import Model
 from repro_torch.serve.engine import Engine
@@ -31,13 +35,16 @@ def main():
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=True)
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
-    engine = Engine(model, max_len=args.prompt_len + args.steps, device=dev)
-
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    inputs = make_inputs(cfg, Shape("example", args.prompt_len, args.batch, "prefill"), seed=0,
+                         device=dev)
+    if cfg.mrope_sections:
+        inputs["positions"] = torch.as_tensor(
+            mrope_positions(args.batch, args.prompt_len, cfg.num_patches, seed=0), device=dev)
+    enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
+    engine = Engine(model, max_len=args.prompt_len + args.steps, enc_len=enc_len, device=dev)
 
     t0 = time.perf_counter()
-    out = engine.generate({"tokens": tokens}, steps=args.steps)
+    out = engine.generate(inputs, steps=args.steps)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -119,6 +120,28 @@ def make_inputs(cfg: ModelConfig, shape: Shape, seed: int = 0, device=None):
         else:
             arr = rng.normal(size=spec.shape)
             out[k] = torch.as_tensor(arr).to(device=device, dtype=getattr(torch, spec.dtype))
+    return out
+
+
+def mrope_positions(batch: int, seq: int, patches: int, seed: int) -> np.ndarray:
+    """(batch, seq, 3) int32 M-RoPE positions (t, h, w) whose coordinates differ.
+
+    ``make_inputs`` gives every coordinate ``arange``, under which M-RoPE is
+    plain RoPE; these do not.  Each row's ``patches`` patch embeddings lie
+    on a grid of gh x gw (gh the largest divisor of ``patches`` not above
+    its square root) at one t, the grid's (t, h, w) offset by seeded draws
+    in [0, 4); the text that follows sits at equal coordinates, its index in
+    the sequence, past the grid (as decode steps continue it at
+    ``cache_index``).
+    """
+    rng = np.random.default_rng(seed)
+    gh = max(d for d in range(1, math.isqrt(patches) + 1) if patches % d == 0)
+    gw = patches // gh
+    out = np.broadcast_to(np.arange(seq, dtype=np.int32)[None, :, None], (batch, seq, 3)).copy()
+    k = np.arange(min(patches, seq))
+    for row in range(batch):
+        t0, h0, w0 = rng.integers(0, 4, size=3)
+        out[row, k] = np.stack([np.full_like(k, t0), h0 + k // gw, w0 + k % gw], axis=-1)
     return out
 
 

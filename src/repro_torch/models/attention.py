@@ -2,11 +2,12 @@
 
 Follows ``repro/models/attention.py`` for the dense and MoE families:
 ``flash_attention`` (prefill and training), ``decode_attention`` (one
-decode step over the cache), ``gqa_specs``, ``_project_qkv``,
-``gqa_attention``, and DeepSeek-V2's MLA (``mla_specs``, ``_mla_latents``,
-``_mla_q``, ``mla_attention``).  Cross and encoder attention come with
-the family that uses them; the reference's head-TP and
-sequence-sharding helpers have no meaning on one device.
+decode step over the cache), ``gqa_specs``, ``_project_qkv`` (RoPE, or
+qwen2-vl's M-RoPE), ``gqa_attention``, the encoder-decoder's
+``cross_attention`` and ``encoder_attention``, and DeepSeek-V2's MLA
+(``mla_specs``, ``_mla_latents``, ``_mla_q``, ``mla_attention``).  The
+reference's head-TP and sequence-sharding helpers have no meaning on one
+device.
 
 * Scores are float32 whatever the activation dtype, as the reference's
   ``preferred_element_type=float32`` makes them: q and k are upcast
@@ -31,7 +32,7 @@ import torch
 
 from ..sharding import ParamSpec
 from .config import ModelConfig
-from .layers import _NEG, apply_rope, rmsnorm, rmsnorm_spec, softcap
+from .layers import _NEG, apply_mrope, apply_rope, rmsnorm, rmsnorm_spec, softcap
 
 
 # ---------------------------------------------------------------------------
@@ -44,12 +45,14 @@ def flash_attention(
     k: torch.Tensor,  # (B, Hkv, Skv, dk)
     v: torch.Tensor,  # (B, Hkv, Skv, dv)
     *,
+    causal: bool = True,
     window: Optional[int] = None,  # None = full; int = sliding window
     chunk: int = 512,
     attn_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Causal attention over KV chunks of ``chunk`` keys with an online
-    softmax in float32; nothing of shape (Sq, Skv) is materialized."""
+    """Attention over KV chunks of ``chunk`` keys with an online softmax in
+    float32 (causal unless ``causal=False``, as the encoder and the cross
+    attention run it); nothing of shape (Sq, Skv) is materialized."""
     b, hq, sq, dk = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -70,10 +73,13 @@ def flash_attention(
         s = (qg @ kj.transpose(-1, -2)) * scale  # (B, Hkv, G*Sq, C)
         s = softcap(s, attn_softcap)
         k_pos = start + torch.arange(c, device=dev)
-        mask = q_pos[:, None] >= k_pos[None, :]
+        mask = torch.ones((sq, c), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
         if window is not None:
             mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        s = s.view(b, hkv, g, sq, c).masked_fill(~mask, _NEG).view(b, hkv, g * sq, c)
+        if causal or window is not None:
+            s = s.view(b, hkv, g, sq, c).masked_fill(~mask, _NEG).view(b, hkv, g * sq, c)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -143,13 +149,21 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(x, p, cfg: ModelConfig, positions):
+    """q, k, v (B, H, S, hd) with biases if any; M-RoPE on q and k when the
+    config has sections (positions (B, S, 3)), else RoPE on the first
+    coordinate of 3-D positions, or on 2-D positions as they are."""
     q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"][None, :, None, :]
         k = k + p["bk"][None, :, None, :]
         v = v + p["bv"][None, :, None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        pos2d = positions if positions.ndim == 2 else positions[..., 0]
+        q = apply_rope(q, pos2d, cfg.rope_theta)
+        k = apply_rope(k, pos2d, cfg.rope_theta)
     return q, k, v
 
 
@@ -158,7 +172,7 @@ def gqa_attention(
     p,
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S), or (B, S, 3) for M-RoPE
     window: Optional[int] = None,
     cache: Optional[dict] = None,
     cache_index: Optional[int] = None,  # tokens already in the cache
@@ -189,10 +203,38 @@ def gqa_attention(
             q, k, v, window=window,
             chunk=cfg.attn_chunk, attn_softcap=cfg.attn_softcap,
         )
-    b, h, _, hd = out.shape
-    wo = p["wo"]
-    y = out.transpose(1, 2).reshape(b, s, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
-    return y, cache
+    return _out_proj(out, p["wo"]), cache
+
+
+def cross_attention(
+    x: torch.Tensor,  # (B, S, D)
+    p,
+    cfg: ModelConfig,
+    *,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # the cached encoder k, v
+    enc_out: Optional[torch.Tensor] = None,  # (B, Senc, D), to project
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Encoder-decoder cross attention: no rope, not causal, no biases.
+    Returns the output and the encoder's (k, v), each (B, H, Senc, hd)."""
+    q = _heads(x, p["wq"])
+    if kv is None:
+        kv = (_heads(enc_out, p["wk"]), _heads(enc_out, p["wv"]))
+    k, v = kv
+    out = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return _out_proj(out, p["wo"]), kv
+
+
+def encoder_attention(x, p, cfg: ModelConfig, positions):
+    """Bidirectional self-attention of the encoder (rope on q and k)."""
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    out = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return _out_proj(out, p["wo"])
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhsv,hvd->bsd", out, wo)`` as one matrix product."""
+    b, h, s, v = out.shape
+    return out.transpose(1, 2).reshape(b, s, h * v) @ wo.reshape(h * v, wo.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -228,12 +270,6 @@ def _mla_q(x, p, cfg: ModelConfig, positions):
     q_nope, q_pe = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     return q_nope, q_pe
-
-
-def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bhsv,hvd->bsd", out, wo)`` as one matrix product."""
-    b, h, s, v = out.shape
-    return out.transpose(1, 2).reshape(b, s, h * v) @ wo.reshape(h * v, wo.shape[-1])
 
 
 def mla_attention(

@@ -1,17 +1,21 @@
-"""Transformer blocks and the per-arch layer plan.
+"""Transformer, SSM and hybrid blocks and the per-arch layer plan.
 
-Follows ``repro/models/blocks.py`` for the dense and MoE families.  A
-model is a sequence of *groups* of one layer kind; the reference scans
-each group over stacked parameters, the port holds one ``nn.Module`` a
-layer.  Layer kinds:
+Follows ``repro/models/blocks.py``.  A model is a sequence of *groups* of
+one layer kind; the reference scans each group over stacked parameters,
+the port holds one ``nn.Module`` a layer.  Layer kinds:
 
     gqa_dense   attention + gated MLP                (dense archs)
     gqa_moe     attention + MoE FFN                  (dbrx)
     mla_dense   MLA attention + gated MLP            (deepseek layer 0)
     mla_moe     MLA attention + MoE FFN              (deepseek 1..L)
+    mamba       Mamba2 mixer only                    (mamba2, zamba2 core)
+    enc         bidirectional attention + MLP        (seamless encoder)
+    dec_cross   causal self + cross attention + MLP  (seamless decoder)
 
-``plan`` raises ``NotImplementedError`` for the families still to port,
-naming the ``ROADMAP.md`` item (queue 1, item 6) that brings them.
+The zamba2 hybrid also owns ONE shared attention block (attention + MLP,
+``shared_attn_specs``) applied before every ``shared_attn_every``-th
+mamba layer; its parameters are shared across the sites, and each site
+has its own KV cache (``models/model.py``).
 """
 
 from __future__ import annotations
@@ -24,16 +28,10 @@ from torch import nn
 
 from ..sharding import ParamSpec
 from . import attention as attn
+from . import mamba2 as mb
 from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec
-
-#: Families and features still to port, and the ROADMAP item of each.
-_LATER = {
-    "ssm": "queue 1 item 6.2 (Mamba2/zamba2)",
-    "hybrid": "queue 1 item 6.2 (Mamba2/zamba2)",
-    "encdec": "queue 1 item 6.3 (encoder-decoder and M-RoPE)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,16 +41,6 @@ class Group:
 
 
 def plan(cfg: ModelConfig) -> List[Group]:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; see ROADMAP.md, "
-            f"{_LATER[cfg.family]}"
-        )
-    if cfg.mrope_sections or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and the {cfg.frontend} frontend are not ported yet; see "
-            f"ROADMAP.md, {_LATER['encdec']}"
-        )
     if cfg.family == "dense":
         return [Group("gqa_dense", cfg.num_layers)]
     if cfg.family == "moe":
@@ -63,6 +51,10 @@ def plan(cfg: ModelConfig) -> List[Group]:
             groups.append(Group("mla_moe", cfg.num_layers - cfg.first_dense_layers))
             return groups
         return [Group("gqa_moe", cfg.num_layers)]
+    if cfg.family in ("ssm", "hybrid"):  # the hybrid's shared block is the model's
+        return [Group("mamba", cfg.num_layers)]
+    if cfg.family == "encdec":
+        return [Group("enc", cfg.enc_layers), Group("dec_cross", cfg.num_layers)]
     raise ValueError(cfg.family)
 
 
@@ -92,7 +84,35 @@ def block_specs(kind: str, cfg: ModelConfig):
             "ln_ffn": rmsnorm_spec(d, cfg.dtype),
             "ffn": moe_mod.moe_specs(cfg) if kind == "mla_moe" else mlp_specs(d, f, cfg.dtype),
         }
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind == "mamba":
+        return {"ln": rmsnorm_spec(d, cfg.dtype), "mixer": mb.mamba_specs(cfg)}
+    if kind == "enc":
+        return {
+            "ln_attn": rmsnorm_spec(d, cfg.dtype),
+            "attn": attn.gqa_specs(cfg),
+            "ln_ffn": rmsnorm_spec(d, cfg.dtype),
+            "ffn": mlp_specs(d, cfg.d_ff, cfg.dtype),
+        }
+    if kind == "dec_cross":
+        return {
+            "ln_attn": rmsnorm_spec(d, cfg.dtype),
+            "attn": attn.gqa_specs(cfg),
+            "ln_cross": rmsnorm_spec(d, cfg.dtype),
+            "cross": attn.gqa_specs(cfg),
+            "ln_ffn": rmsnorm_spec(d, cfg.dtype),
+            "ffn": mlp_specs(d, cfg.d_ff, cfg.dtype),
+        }
+    raise ValueError(kind)
+
+
+def shared_attn_specs(cfg: ModelConfig):
+    """zamba2: the one shared (attention + MLP) block."""
+    return {
+        "ln_attn": rmsnorm_spec(cfg.d_model, cfg.dtype),
+        "attn": attn.gqa_specs(cfg),
+        "ln_ffn": rmsnorm_spec(cfg.d_model, cfg.dtype),
+        "ffn": mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
 
 
 def empty_param(spec: ParamSpec, device) -> nn.Parameter:
@@ -144,12 +164,13 @@ class GQABlock(nn.Module):
     (``gqa_moe``), with gemma2's post-norms when ``cfg.post_norms``;
     ``window`` is this layer's sliding window (None for none)."""
 
-    def __init__(self, cfg: ModelConfig, *, window: Optional[int], device, kind: str = "gqa_dense"):
+    def __init__(self, cfg: ModelConfig, *, window: Optional[int], device, kind: str = "gqa_dense",
+                 specs=None):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
         self.window = window
-        _register(self, block_specs(kind, cfg), device)
+        _register(self, specs or block_specs(kind, cfg), device)
 
     def forward(self, x, *, positions, cache=None, cache_index=None):
         cfg = self.cfg
@@ -198,10 +219,98 @@ class MLABlock(nn.Module):
         return x + f, cache
 
 
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 mixer (``mamba``); no attention, so no positions."""
+
+    window = None
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.cfg = cfg
+        _register(self, block_specs("mamba", cfg), device)
+
+    def forward(self, x, *, positions=None, cache=None, cache_index=None):
+        h = rmsnorm(x, self.ln, self.cfg.norm_eps)
+        m, cache = mb.mamba_mixer(h, self.mixer, self.cfg, cache=cache, cache_index=cache_index)
+        return x + m, cache
+
+
+class EncBlock(nn.Module):
+    """Pre-norm bidirectional attention + gated MLP (``enc``); no cache."""
+
+    window = None
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.cfg = cfg
+        _register(self, block_specs("enc", cfg), device)
+
+    def forward(self, x, *, positions, cache=None, cache_index=None):
+        cfg = self.cfg
+        h = rmsnorm(x, self.ln_attn, cfg.norm_eps)
+        x = x + attn.encoder_attention(h, self.attn, cfg, positions)
+        h = rmsnorm(x, self.ln_ffn, cfg.norm_eps)
+        return x + mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act), None
+
+
+class DecCrossBlock(nn.Module):
+    """Decoder block (``dec_cross``): causal self-attention (cached), cross
+    attention over the encoder's output, gated MLP.
+
+    The cache holds the self-attention's ``k``/``v`` and the cross
+    attention's ``ck``/``cv`` (B, H, Senc, hd): a call given ``enc_out``
+    (the forward, the prefill) projects the encoder's k and v and, with a
+    cache, writes them in (in place when the cache was sized for this
+    encoder length, else by replacing the two entries, as the reference
+    returns them whatever ``init_cache``'s ``enc_len``); a call without
+    it (a decode step) attends the cached ones."""
+
+    window = None
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.cfg = cfg
+        _register(self, block_specs("dec_cross", cfg), device)
+
+    def forward(self, x, *, positions, enc_out=None, cache=None, cache_index=None):
+        cfg = self.cfg
+        h = rmsnorm(x, self.ln_attn, cfg.norm_eps)
+        self_cache = {"k": cache["k"], "v": cache["v"]} if cache is not None else None
+        a, _ = attn.gqa_attention(h, self.attn, cfg, positions=positions, cache=self_cache,
+                                  cache_index=cache_index)
+        x = x + a
+        h = rmsnorm(x, self.ln_cross, cfg.norm_eps)
+        if cache is not None and enc_out is None:
+            c, _ = attn.cross_attention(h, self.cross, cfg, kv=(cache["ck"], cache["cv"]))
+        else:
+            c, kv = attn.cross_attention(h, self.cross, cfg, enc_out=enc_out)
+            if cache is not None:
+                for key, t in zip(("ck", "cv"), kv):
+                    if cache[key].shape == t.shape:
+                        cache[key].copy_(t)
+                    else:
+                        cache[key] = t.to(cache[key].dtype)
+        x = x + c
+        h = rmsnorm(x, self.ln_ffn, cfg.norm_eps)
+        return x + mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act), cache
+
+
 def make_block(kind: str, cfg: ModelConfig, *, window: Optional[int], device) -> nn.Module:
     """The layer module of ``kind``."""
     if kind in ("gqa_dense", "gqa_moe"):
         return GQABlock(cfg, window=window, device=device, kind=kind)
     if kind in ("mla_dense", "mla_moe"):
         return MLABlock(cfg, device=device, kind=kind)
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind == "mamba":
+        return MambaBlock(cfg, device=device)
+    if kind == "enc":
+        return EncBlock(cfg, device=device)
+    if kind == "dec_cross":
+        return DecCrossBlock(cfg, device=device)
+    raise ValueError(kind)
+
+
+def make_shared_block(cfg: ModelConfig, *, device) -> GQABlock:
+    """zamba2's shared attention block: a ``gqa_dense`` block of
+    ``shared_attn_specs``, with no window."""
+    return GQABlock(cfg, window=None, device=device, specs=shared_attn_specs(cfg))

@@ -7,14 +7,16 @@ take their weights from NumPy:
 
 * ``reference_weights(cfg, seed)``: NumPy arrays in the reference's tree
   layout (``embed``, one stacked tree a group ``g0``, ``g1``, ...,
-  ``final_norm``), drawn
+  ``final_norm``; zamba2's unstacked ``shared_attn`` tree; the
+  encoder-decoder's ``enc_norm``), drawn
   from ``np.random.default_rng(seed)`` leaf by leaf in sorted-path order
   with the reference's std rule (``sharding/rules.py:ParamSpec.std`` on
   the stacked shape);
 * ``load_reference_params(model, tree)`` copies such a tree into a
   ``Model`` (layer ``i`` of group ``gj`` into ``layers.(o + i)``, where
-  ``o`` counts the layers of the groups before it), casting to each
-  parameter's dtype; ``reference_params(model)`` is the way back.
+  ``o`` counts the layers of the groups before it; an unstacked leaf
+  under its own path), casting to each parameter's dtype;
+  ``reference_params(model)`` is the way back.
 
 ``logit_summary`` and ``compare_to_summary`` reduce logits to what a
 committed fixture stores (a fixed vocabulary subset, the argmax, the
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..sharding import ParamSpec, leaves
-from .blocks import block_specs, plan
+from .blocks import block_specs, plan, shared_attn_specs
 from .config import ModelConfig
 from .layers import embed_specs, rmsnorm_spec
 from .model import Model
@@ -47,10 +49,16 @@ def _stack(specs, count: int):
 
 
 def _reference_specs(cfg: ModelConfig):
-    """The reference's parameter tree: one stacked tree a group of ``plan``."""
+    """The reference's parameter tree (``Model.abstract_params``): one stacked
+    tree a group of ``plan``, and the unstacked extras of the hybrid and
+    the encoder-decoder."""
     tree = {"embed": embed_specs(cfg), "final_norm": rmsnorm_spec(cfg.d_model, cfg.dtype)}
     for i, group in enumerate(plan(cfg)):
         tree[f"g{i}"] = _stack(block_specs(group.kind, cfg), group.count)
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        tree["shared_attn"] = shared_attn_specs(cfg)
+    if cfg.family == "encdec":
+        tree["enc_norm"] = rmsnorm_spec(cfg.d_model, cfg.dtype)
     return tree
 
 

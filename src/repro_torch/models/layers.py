@@ -1,16 +1,17 @@
 """Shared layers: norms, rotary embeddings, gated MLPs, embedding.
 
-Follows ``repro/models/layers.py`` (the dense family's part of it;
-``apply_mrope``, ``layernorm`` and ``sinusoidal_positions`` come with the
-families that use them).  Plain functions on tensors, and the specs that
-describe their parameters.  The reference's ``partition.constrain`` calls
-do nothing on one device and are left out.
+Follows ``repro/models/layers.py``.  Plain functions on tensors, and the
+specs that describe their parameters.  The reference's
+``partition.constrain`` calls do nothing on one device and are left out.
+``layernorm`` is ported although the reference calls it nowhere.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +35,22 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def layernorm_specs(d: int, dtype: str):
+    return {
+        "scale": ParamSpec((d,), (None,), dtype=dtype, init="ones"),
+        "bias": ParamSpec((d,), (None,), dtype=dtype, init="zeros"),
+    }
+
+
+def layernorm(x: torch.Tensor, p, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in float32 (``p["scale"]``, ``p["bias"]``), cast back to ``x``'s dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -60,6 +77,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: Tuple[int, ...],
+                theta: float) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): x (B, H, S, hd), positions (B, S, 3) for
+    (t, h, w).  The hd/2 frequency slots are split into ``sections`` (summing
+    to hd/2), and each section rotates by its own coordinate."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head_dim / 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    sec_ids = np.concatenate([np.full(n, i) for i, n in enumerate(sections)])
+    sec_ids = torch.as_tensor(sec_ids, dtype=torch.long, device=x.device)
+    pos = positions.float()[..., sec_ids]  # (B, S, half): slot i's coordinate
+    ang = pos[:, None, :, :] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(s: int, d: int, device=None) -> torch.Tensor:
+    """(s, d) float32: sines then cosines of ``pos / 10000^(2i/d)``, made in
+    float64 by NumPy as the reference makes them."""
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(emb, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,28 @@
-"""Model orchestration: init, forward, prefill and decode.
+"""Model orchestration: init, forward, prefill and decode for every family.
 
-Follows ``repro/models/model.py`` for the dense and MoE families.
-``Model`` is an ``nn.Module`` with one block a layer, over the groups of
-``blocks.plan`` in order: the reference's stacked ``g0``, ``g1``, ...
-leaves are unstacked (``models/convert.py`` moves weights between the
-two layouts).  The reference's ``params`` argument is gone: the module
-holds its parameters.  Caches are preallocated tensors a layer, written
-in place by ``prefill`` and ``decode_step`` (the reference donates them
-to its jitted step): k/v of shape (B, Hkv, T, hd) for GQA layers, the
-MLA latents ``ckv`` (B, T, R) and rotary keys ``kpe`` (B, T, rope).
+Follows ``repro/models/model.py``.  ``Model`` is an ``nn.Module`` with one
+block a layer, over the groups of ``blocks.plan`` in order (for the
+encoder-decoder, the encoder's layers first): the reference's stacked
+``g0``, ``g1``, ... leaves are unstacked (``models/convert.py`` moves
+weights between the two layouts).  The zamba2 hybrid's one shared
+attention block is ``shared_attn``, run before each sub-stack of
+``shared_attn_every`` mamba layers; the encoder-decoder's encoder norm
+is ``enc_norm``.  The reference's ``params`` argument is gone: the
+module holds its parameters.
+
+Caches are preallocated tensors, written in place by ``prefill`` and
+``decode_step`` (the reference donates them to its jitted step): a list
+with one dict a layer, then one a shared-attention site (zamba2).  GQA
+layers and sites hold k/v (B, Hkv, T, hd); MLA layers the latents
+``ckv`` (B, T, R) and rotary keys ``kpe`` (B, T, rope); mamba layers
+``conv`` (B, ssm_conv - 1, conv channels) and ``state`` (B, H, P, N),
+float32; decoder layers k/v and the cross attention's ``ck``/``cv``
+(B, H, enc_len, hd); encoder layers an empty dict.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import torch
@@ -22,15 +32,16 @@ from ..core.lp import resolve_device
 from ..sharding import ParamSpec, leaves, materialize
 from . import blocks as blk
 from .config import ModelConfig
-from .layers import embed, embed_specs, rmsnorm, rmsnorm_spec, unembed
+from .layers import embed, embed_specs, rmsnorm, rmsnorm_spec, sinusoidal_positions, unembed
+from .mamba2 import mamba_cache_specs
 
 _GLOBAL_WINDOW = 1 << 30  # the reference's "no window" value of a global layer
 
 
 class Model(nn.Module):
-    """A decoder on ``device`` (the card unless the caller passes
-    ``device="cpu"``).  Its parameters are uninitialised until ``init``
-    or ``convert.load_reference_params`` fills them."""
+    """A model of any family on ``device`` (the card unless the caller
+    passes ``device="cpu"``).  Its parameters are uninitialised until
+    ``init`` or ``convert.load_reference_params`` fills them."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -43,6 +54,10 @@ class Model(nn.Module):
             for kind, w in zip(self.kinds(), self.windows())
         )
         self.final_norm = blk.empty_param(rmsnorm_spec(cfg.d_model, cfg.dtype), device)
+        if self._hybrid():
+            self.shared_attn = blk.make_shared_block(cfg, device=device)
+        if cfg.family == "encdec":
+            self.enc_norm = blk.empty_param(rmsnorm_spec(cfg.d_model, cfg.dtype), device)
 
     @property
     def device(self) -> torch.device:
@@ -53,15 +68,28 @@ class Model(nn.Module):
         return [g.kind for g in self.groups for _ in range(g.count)]
 
     def windows(self) -> List[Optional[int]]:
-        """Each layer's sliding window: gemma2 alternates local (even layers)
+        """Each layer's sliding window, counted within its group as the
+        reference's scan counts it: gemma2 alternates local (even layers)
         and global (odd layers, ``_GLOBAL_WINDOW``); None where there is none."""
         cfg = self.cfg
-        count = cfg.num_layers
-        if cfg.local_global_pattern and cfg.sliding_window:
-            return [cfg.sliding_window if i % 2 == 0 else _GLOBAL_WINDOW for i in range(count)]
-        if cfg.sliding_window:
-            return [cfg.sliding_window] * count
-        return [None] * count
+        out = []
+        for g in self.groups:
+            if cfg.local_global_pattern and cfg.sliding_window:
+                out += [cfg.sliding_window if i % 2 == 0 else _GLOBAL_WINDOW
+                        for i in range(g.count)]
+            else:
+                out += [cfg.sliding_window or None] * g.count
+        return out
+
+    def _hybrid(self) -> bool:
+        return self.cfg.family == "hybrid" and bool(self.cfg.shared_attn_every)
+
+    def shared_sites(self) -> int:
+        """Application sites of zamba2's shared block: one before each
+        sub-stack of ``shared_attn_every`` mamba layers (0 if none)."""
+        if not self._hybrid():
+            return 0
+        return math.ceil(self.cfg.num_layers / self.cfg.shared_attn_every)
 
     # ------------------------------------------------------------------
     # Parameters
@@ -75,6 +103,10 @@ class Model(nn.Module):
             "layers": {str(i): blk.block_specs(kind, cfg) for i, kind in enumerate(self.kinds())},
             "final_norm": rmsnorm_spec(cfg.d_model, cfg.dtype),
         }
+        if self._hybrid():
+            tree["shared_attn"] = blk.shared_attn_specs(cfg)
+        if cfg.family == "encdec":
+            tree["enc_norm"] = rmsnorm_spec(cfg.d_model, cfg.dtype)
         return {".".join(path): spec for path, spec in leaves(tree)}
 
     def set_param(self, name: str, value: torch.Tensor) -> None:
@@ -99,24 +131,36 @@ class Model(nn.Module):
     # Caches
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed caches for each layer, in ``cfg.dtype``: k/v of shape
-        (B, Hkv, max_len, hd) for GQA layers; ``ckv`` (B, max_len, R) and
-        ``kpe`` (B, max_len, rope) for MLA layers."""
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0) -> List[Dict[str, torch.Tensor]]:
+        """Zeroed caches (see the module's docstring), in ``cfg.dtype`` but
+        the SSM states (float32): one dict a layer, then one a shared
+        site.  ``enc_len`` sizes the decoder's cross-attention caches."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=dt, device=self.device)
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        def kv():
+            shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+            return {"k": zeros(*shape), "v": zeros(*shape)}
 
         caches = []
         for kind in self.kinds():
             if kind in ("mla_dense", "mla_moe"):
                 caches.append({"ckv": zeros(batch, max_len, cfg.kv_lora_rank),
                                "kpe": zeros(batch, max_len, cfg.qk_rope_dim)})
+            elif kind == "mamba":
+                caches.append({k: zeros(*shape, dtype=getattr(torch, d)) for k, (shape, d)
+                               in mamba_cache_specs(cfg, batch, cfg.dtype).items()})
+            elif kind == "enc":
+                caches.append({})  # the encoder keeps no decode state
+            elif kind == "dec_cross":
+                cross = (batch, cfg.num_heads, enc_len, cfg.head_dim)
+                caches.append({**kv(), "ck": zeros(*cross), "cv": zeros(*cross)})
             else:
-                shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-                caches.append({"k": zeros(*shape), "v": zeros(*shape)})
+                caches.append(kv())
+        caches += [kv() for _ in range(self.shared_sites())]
         return caches
 
     # ------------------------------------------------------------------
@@ -124,24 +168,88 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def _positions(self, inputs, batch: int, s: int, offset: int = 0) -> torch.Tensor:
+        """The inputs' ``positions`` if given, else ``offset + arange(s)``
+        for every row (on all three coordinates under M-RoPE)."""
         if "positions" in inputs:
             return inputs["positions"]
-        pos = offset + torch.arange(s, device=self.device)[None, :]
-        return pos.expand(batch, s)
+        pos = (offset + torch.arange(s, device=self.device)[None, :]).expand(batch, s)
+        if self.cfg.mrope_sections:
+            return pos[..., None].expand(batch, s, 3)
+        return pos
+
+    def _embed_inputs(self, inputs) -> torch.Tensor:
+        """Token embeddings; under the vision frontend, ``patch_embeds``
+        (B, P, D) overwrite the first P of them (P <= S)."""
+        cfg = self.cfg
+        x = embed(inputs["tokens"], self.embed["embedding"], cfg)
+        if cfg.frontend == "vision" and "patch_embeds" in inputs:
+            pe = inputs["patch_embeds"]
+            if pe.shape[1] > x.shape[1]:
+                raise ValueError(f"{pe.shape[1]} patch embeddings for a prompt of {x.shape[1]} tokens")
+            x[:, :pe.shape[1]] = pe.to(x.dtype)
+        return x
+
+    def _layer_cache(self, cache, i):
+        return cache[i] if cache is not None else None
 
     def _run(self, inputs, *, cache=None, cache_index=None, offset: int = 0) -> torch.Tensor:
-        x = embed(inputs["tokens"], self.embed["embedding"], self.cfg)
+        x = self._embed_inputs(inputs)
         b, s = x.shape[0], x.shape[1]
         positions = self._positions(inputs, b, s, offset)
-        for i, layer in enumerate(self.layers):
-            x, _ = layer(
-                x, positions=positions,
-                cache=cache[i] if cache is not None else None, cache_index=cache_index,
-            )
+        if self._hybrid():
+            x = self._run_hybrid(x, positions, cache, cache_index)
+        else:
+            for i, layer in enumerate(self.layers):
+                x, _ = layer(x, positions=positions, cache=self._layer_cache(cache, i),
+                             cache_index=cache_index)
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
 
+    def _run_hybrid(self, x, positions, cache, cache_index):
+        """zamba2: the shared block (site j's own cache) before each
+        sub-stack of ``shared_attn_every`` mamba layers."""
+        every, n = self.cfg.shared_attn_every, self.cfg.num_layers
+        for site, lo in enumerate(range(0, n, every)):
+            x, _ = self.shared_attn(x, positions=positions,
+                                    cache=self._layer_cache(cache, n + site),
+                                    cache_index=cache_index)
+            for i in range(lo, min(lo + every, n)):
+                x, _ = self.layers[i](x, cache=self._layer_cache(cache, i),
+                                      cache_index=cache_index)
+        return x
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder: frames (B, Senc, D) plus sinusoidal positions,
+        the encoder layers, ``enc_norm``."""
+        cfg = self.cfg
+        frames = frames.to(getattr(torch, cfg.dtype))
+        b, senc, _ = frames.shape
+        pos_table = sinusoidal_positions(senc, cfg.d_model, frames.device).to(frames.dtype)
+        x = frames + pos_table[None]
+        positions = self._positions({}, b, senc)
+        for layer in self.layers[:cfg.enc_layers]:
+            x, _ = layer(x, positions=positions)
+        return rmsnorm(x, self.enc_norm, cfg.norm_eps)
+
+    def _decode_stack(self, tokens, *, enc_out=None, cache=None, cache_index=None,
+                      offset: int = 0) -> torch.Tensor:
+        """The decoder layers over ``tokens`` at positions from ``offset``."""
+        cfg = self.cfg
+        x = embed(tokens, self.embed["embedding"], cfg)
+        positions = self._positions({}, x.shape[0], x.shape[1], offset)
+        for i in range(cfg.enc_layers, len(self.layers)):
+            x, _ = self.layers[i](x, positions=positions, enc_out=enc_out,
+                                  cache=self._layer_cache(cache, i), cache_index=cache_index)
+        return rmsnorm(x, self.final_norm, cfg.norm_eps)
+
+    def _forward_encdec(self, inputs, *, cache=None, cache_index=None) -> torch.Tensor:
+        enc_out = self._encode(inputs["frames"])
+        return self._decode_stack(inputs["tokens"], enc_out=enc_out, cache=cache,
+                                  cache_index=cache_index, offset=cache_index or 0)
+
     def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Final hidden states (B, S, D) of the full causal forward."""
+        """Final hidden states (B, S, D) of the full forward."""
+        if self.cfg.family == "encdec":
+            return self._forward_encdec(inputs)
         return self._run(inputs)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -149,14 +257,27 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, inputs, cache):
-        """Run the prompt once and fill the cache; returns (last logits (B, 1, V), cache)."""
-        hidden = self._run(inputs, cache=cache, cache_index=0)
+        """Run the prompt once and fill the cache; returns (last logits (B, 1, V), cache).
+
+        ``inputs``: ``tokens``, and as the config needs them ``frames``
+        (encoder-decoder), ``patch_embeds`` and ``positions`` (B, S, 3)
+        (vision, M-RoPE)."""
+        if self.cfg.family == "encdec":
+            hidden = self._forward_encdec(inputs, cache=cache, cache_index=0)
+        else:
+            hidden = self._run(inputs, cache=cache, cache_index=0)
         return self.logits(hidden[:, -1:]), cache
 
     @torch.inference_mode()
     def decode_step(self, inputs, cache, cache_index: int):
-        """One decode step: ``inputs["tokens"]`` (B, 1) -> (logits (B, 1, V), cache)."""
-        hidden = self._run(
-            {"tokens": inputs["tokens"]}, cache=cache, cache_index=cache_index, offset=cache_index
-        )
+        """One decode step: ``inputs["tokens"]`` (B, 1), and ``positions``
+        if given (else ``cache_index``) -> (logits (B, 1, V), cache).  The
+        encoder-decoder runs its decoder only, against the cached cross
+        k/v."""
+        if self.cfg.family == "encdec":
+            hidden = self._decode_stack(inputs["tokens"], cache=cache, cache_index=cache_index,
+                                        offset=cache_index)
+        else:
+            step = {k: inputs[k] for k in ("tokens", "positions") if k in inputs}
+            hidden = self._run(step, cache=cache, cache_index=cache_index, offset=cache_index)
         return self.logits(hidden), cache

@@ -106,7 +106,36 @@ def _lp_balance_bias(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """LP-balanced routing bias (T, E): the LP of :func:`lp_router_problem`
     solved by the simplex kernel (its plain version on CPU tensors) with
     the default rule, LPC; ``log(clip(y, 0, 1) + 1e-6)`` of the optimal y,
-    each token taking its group's row."""
+    each token taking its group's row.
+
+    Differentiating through it raises ``ValueError`` on every device, as
+    the reference's ``lax.while_loop`` does (:class:`_LPBias`)."""
+    return _LPBias.apply(logits, cfg)
+
+
+class _LPBias(torch.autograd.Function):
+    """The LP bias as an autograd node with no backward.
+
+    The reference cannot reverse-differentiate its simplex loop (a
+    ``lax.while_loop``), so training under ``router="lp"`` raises there.
+    Here the forward is :func:`_lp_bias` unchanged, and the backward
+    raises the same ``ValueError``, whether the LP ran on the card (whose
+    kernel writes ``x`` through a raw pointer, which would otherwise hand
+    backward a constant) or on the plain version."""
+
+    @staticmethod
+    def forward(ctx, logits, cfg):
+        return _lp_bias(logits, cfg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise ValueError(
+            "Reverse-mode differentiation does not go through the LP router's simplex "
+            "loop (the reference's lax.while_loop cannot be reverse-differentiated "
+            "either); train with router='topk'")
+
+
+def _lp_bias(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     from ..kernels import ops  # the kernels load at first use
 
     a, b, c, groups = lp_router_problem(logits, cfg)

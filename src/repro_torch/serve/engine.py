@@ -72,13 +72,16 @@ class Engine:
 
     ``model`` is a ``models.Model``; it moves to ``device`` (the card
     unless the caller passes ``device="cpu"``).  ``max_len`` bounds the
-    prompt plus the generated tokens.
+    prompt plus the generated tokens; ``enc_len`` sizes the
+    encoder-decoder's cross-attention caches (its frames' length), as the
+    reference's ``Engine`` takes it.
     """
 
-    def __init__(self, model, max_len: int, *, device=None):
+    def __init__(self, model, max_len: int, enc_len: int = 0, *, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.max_len = max_len
+        self.enc_len = enc_len
         #: The last ``generate``'s cache: allocated once, updated in place.
         self.cache = None
 
@@ -87,6 +90,12 @@ class Engine:
                  seed: int = 0) -> torch.Tensor:
         """(B, steps) int32 tokens: one from the prefill's logits, then one a
         decode step.
+
+        ``inputs``: ``tokens`` (B, S), and as the model needs them
+        ``frames`` (B, Senc, D), ``patch_embeds`` (B, P, D) and
+        ``positions`` (B, S, 3), all given to the prefill; the decode steps
+        take the sampled tokens alone (positions from the cache index), as
+        the reference's ``Engine`` runs them.
 
         Greedy decoding takes the first maximum (``argmax``, as
         ``jnp.argmax``); ``temperature > 0`` samples from
@@ -98,8 +107,12 @@ class Engine:
         if prompt_len + steps - 1 > self.max_len:
             raise ValueError(f"{prompt_len} prompt + {steps} steps exceed max_len {self.max_len}")
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.cache = self.model.init_cache(b, self.max_len)
-        logits, _ = self.model.prefill({"tokens": tokens}, self.cache)
+        prompt = {"tokens": tokens}
+        for k, dt in (("frames", None), ("patch_embeds", None), ("positions", torch.int32)):
+            if k in inputs:
+                prompt[k] = _tensor(inputs[k], dt, self.device)
+        self.cache = self.model.init_cache(b, self.max_len, enc_len=self.enc_len)
+        logits, _ = self.model.prefill(prompt, self.cache)
         cur = self._sample(logits[:, -1], temperature, gen)
         out = [cur]
         for i in range(steps - 1):

@@ -1125,3 +1125,96 @@ def test_moe_reduced_on_the_card_matches_the_cpu(arch, router):
     for c_card, c_host in zip(cc, hc):
         for k in c_host:
             _lm_close(c_card[k], c_host[k])
+
+
+# ---------------------------------------------------------------------------
+# Training through the LP router, and the SSM, hybrid, encoder-decoder and
+# M-RoPE families on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "dbrx-132b"])
+def test_backward_through_the_lp_router_raises_on_the_card(arch):
+    """On CUDA tensors the router's LP runs on the kernel, which writes its
+    solution through a raw pointer; backward still raises the reference's
+    ``ValueError`` and no parameter moves.  ``topk`` backpropagates."""
+    _need_card()
+    card, _, toks = _moe_pair(arch, "lp")
+    before = {n: p.detach().clone() for n, p in card.named_parameters()}
+    opt = torch.optim.SGD(card.parameters(), lr=0.1)
+    launched = simplex_cuda.launches
+    loss = card.logits(card.forward({"tokens": toks.cuda()})).logsumexp(-1).mean()
+    assert simplex_cuda.launches > launched
+    with pytest.raises(ValueError, match="router='topk'"):
+        loss.backward()
+        opt.step()
+    for n, p in card.named_parameters():
+        assert torch.equal(p.detach(), before[n]), n
+    topk, _, _ = _moe_pair(arch, "topk")
+    topk.logits(topk.forward({"tokens": toks.cuda()})).logsumexp(-1).mean().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in topk.parameters())
+
+
+@pytest.mark.parametrize("s", [100, 1])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_mamba_mixer_on_the_card_matches_the_cpu(arch, s):
+    """The mixer's prefill (100 tokens at chunks of 64: two chunks and
+    padding; 1 token: the decode branch) and four decode steps, outputs
+    and both caches, at the parity tolerance."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import mamba2
+    from repro_torch.models.convert import reference_weights
+
+    _need_card()
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), ssm_chunk=64)
+    params = {k: torch.as_tensor(v[0]) for k, v in reference_weights(cfg, 4)["g0"]["mixer"].items()}
+    x = torch.as_tensor(np.random.default_rng(s).standard_normal((2, s + 4, cfg.d_model))
+                        .astype(np.float32))
+    caches = {dev: {k: torch.zeros(shape, dtype=getattr(torch, dt), device=dev)
+                    for k, (shape, dt) in mamba2.mamba_cache_specs(cfg, 2, "float32").items()}
+              for dev in ("cpu", "cuda")}
+    card_params = {k: v.cuda() for k, v in params.items()}
+    for lo, hi in [(0, s)] + [(t, t + 1) for t in range(s, s + 4)]:
+        host, _ = mamba2.mamba_mixer(x[:, lo:hi], params, cfg, cache=caches["cpu"], cache_index=lo)
+        card, _ = mamba2.mamba_mixer(x[:, lo:hi].cuda(), card_params, cfg, cache=caches["cuda"],
+                                     cache_index=lo)
+        assert card.is_cuda
+        _lm_close(card, host)
+        for k in ("conv", "state"):
+            _lm_close(caches["cuda"][k], caches["cpu"][k])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "seamless-m4t-large-v2",
+                                  "qwen2-vl-72b"])
+def test_family_engine_on_the_card_by_default(arch):
+    """``Engine.generate`` on the card with the prompt's frames, patch
+    embeddings and M-RoPE positions: the cache lives there, no kernel of
+    the port is launched, and the first greedy picks agree with the CPU's
+    (reduced random weights leave later picks undecided)."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights
+    from repro_torch.serve.engine import Engine
+
+    _need_card()
+    cfg = configs.get_config(arch, reduced=True)
+    tree = reference_weights(cfg, 6)
+    card = load_reference_params(Model(cfg), tree)
+    host = load_reference_params(Model(cfg, device="cpu"), tree)
+    inputs = configs.make_inputs(cfg, configs.Shape("t", 24, 2, "prefill"), 1, device="cpu")
+    if cfg.mrope_sections:
+        inputs["positions"] = torch.as_tensor(configs.mrope_positions(2, 24, cfg.num_patches, 1))
+    enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
+    kernels = (simplex_cuda, hyperbox_cuda, revised_cuda, pdhg_cuda)
+    before = [m.launches for m in kernels]
+    engine = Engine(card, max_len=34, enc_len=enc_len)
+    assert engine.device.type == "cuda"
+    out = engine.generate(inputs, steps=10)
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+    assert all(t.device.type == "cuda" for c in engine.cache for t in c.values())
+    assert [m.launches for m in kernels] == before
+    ref = Engine(host, max_len=34, enc_len=enc_len, device="cpu").generate(inputs, steps=10)
+    agree = (out.cpu() == ref).int().cumprod(dim=1).sum(dim=1)
+    assert int(agree.min()) >= 1

@@ -59,12 +59,25 @@ def _setup(arch, seed=7, **kw):
     return model, rmodel, rparams, prompts
 
 
-def _reference_logits(rmodel, rparams, tokens, prompt, steps):
-    """The reference's logits (B, steps, V) fed ``tokens``: prefill, then
-    one decode step a token."""
-    cache = rmodel.init_cache(tokens.shape[0], prompt + steps)
-    lg, cache = jax.jit(rmodel.prefill)(rparams, {"tokens": jnp.asarray(tokens[:, :prompt])},
-                                        cache)
+def _extras(rcfg, seed=3):
+    """The prompt's inputs besides the tokens (``make_inputs``' frames and
+    patch embeddings; M-RoPE positions whose coordinates differ)."""
+    out = {k: np.array(v) for k, v in rconfigs.make_inputs(
+        rcfg, rconfigs.Shape("t", PROMPT, BATCH, "prefill"), seed=seed).items() if k != "tokens"}
+    if rcfg.mrope_sections:
+        out["positions"] = configs.mrope_positions(BATCH, PROMPT, rcfg.num_patches, seed)
+    return out
+
+
+def _reference_logits(rmodel, rparams, tokens, prompt, steps, extras=None):
+    """The reference's logits (B, steps, V) fed ``tokens``: prefill (with
+    ``extras``), then one decode step a token."""
+    extras = extras or {}
+    enc_len = extras["frames"].shape[1] if "frames" in extras else 0
+    cache = rmodel.init_cache(tokens.shape[0], prompt + steps, enc_len=enc_len)
+    first = {"tokens": jnp.asarray(tokens[:, :prompt]),
+             **{k: jnp.asarray(v) for k, v in extras.items()}}
+    lg, cache = jax.jit(rmodel.prefill)(rparams, first, cache)
     rows = [np.asarray(lg[:, -1])]
     decode = jax.jit(rmodel.decode_step)
     for i in range(steps - 1):
@@ -87,24 +100,51 @@ def test_moe_generate_matches_the_reference_engine(arch, router):
     _generate_parity(*_setup(arch, router=router))
 
 
-def _generate_parity(model, rmodel, rparams, prompts):
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "seamless-m4t-large-v2",
+                                  "qwen2-vl-72b"])
+def test_family_generate_matches_the_reference_engine(arch):
+    """The SSM, hybrid, encoder-decoder and M-RoPE families: ``enc_len``
+    and the prompt's frames, patch embeddings and positions go to both
+    engines.  The logit gate is raised to the reference's own float32
+    noise where that is the larger (``tests/test_torch_models.py:_gate``)."""
+    model, rmodel, rparams, prompts = _setup(arch)
+    _generate_parity(model, rmodel, rparams, prompts, _extras(rmodel.cfg), gate_noise=True)
+
+
+def _noise(rmodel, rparams, fed, extras):
+    """The reference's float32 noise on the fed logits: their largest change
+    (max abs over the largest magnitude, relative L2, per step) when every
+    weight moves one ulp (``tests/test_torch_models.py:_noise``'s draws)."""
+    models = _module("test_torch_models", ROOT / "tests" / "test_torch_models.py")
+    return models._noise(lambda p: list(np.moveaxis(
+        _reference_logits(rmodel, p, fed, PROMPT, STEPS, extras), 1, 0)), rparams)
+
+
+def _generate_parity(model, rmodel, rparams, prompts, extras=None, gate_noise=False):
     arch = model.cfg.name
-    want = np.asarray(REngine(rmodel, rparams, max_len=PROMPT + STEPS).generate(
-        {"tokens": jnp.asarray(prompts)}, steps=STEPS))
-    engine = Engine(model, max_len=PROMPT + STEPS, device="cpu")
-    got = engine.generate({"tokens": prompts}, steps=STEPS)
+    extras = extras or {}
+    enc_len = extras["frames"].shape[1] if "frames" in extras else 0
+    want = np.asarray(REngine(rmodel, rparams, max_len=PROMPT + STEPS, enc_len=enc_len).generate(
+        {"tokens": jnp.asarray(prompts), **{k: jnp.asarray(v) for k, v in extras.items()}},
+        steps=STEPS))
+    engine = Engine(model, max_len=PROMPT + STEPS, enc_len=enc_len, device="cpu")
+    got = engine.generate({"tokens": prompts, **extras}, steps=STEPS)
     assert got.dtype == torch.int32 and got.shape == (BATCH, STEPS)
     got = got.numpy()
 
     # the logits fed the reference's tokens agree at every step
     fed = np.concatenate([prompts, want[:, :-1]], axis=1)
-    ref = _reference_logits(rmodel, rparams, fed, PROMPT, STEPS)
-    mine = _port_logits(model, fed, PROMPT, STEPS)
+    ref = _reference_logits(rmodel, rparams, fed, PROMPT, STEPS, extras)
+    mine = _port_logits(model, fed, PROMPT, STEPS, extras)
+    atol, rtol = ATOL, RTOL
+    if gate_noise:
+        noise_abs, noise_rel = _noise(rmodel, rparams, fed, extras)
+        atol, rtol = max(ATOL, 4 * noise_abs), max(RTOL, 4 * noise_rel)
     scale = max(1.0, float(np.abs(ref).max()))
     for t in range(STEPS):
         err = float(np.abs(mine[:, t] - ref[:, t]).max())
         rel = float(np.linalg.norm(mine[:, t] - ref[:, t]) / np.linalg.norm(ref[:, t]))
-        assert err <= ATOL * scale and rel <= RTOL, (arch, t, err, rel)
+        assert err <= atol * scale and rel <= rtol, (arch, t, err, rel)
 
     # the tokens agree wherever the reference's choice is decided
     top2 = np.sort(ref, axis=-1)[..., -2:]
@@ -121,10 +161,12 @@ def _generate_parity(model, rmodel, rparams, prompts):
     assert checked >= STEPS  # most picks are decided at this size
 
 
-def _port_logits(model, tokens, prompt, steps):
-    cache = model.init_cache(tokens.shape[0], prompt + steps)
+def _port_logits(model, tokens, prompt, steps, extras=None):
+    extras = {k: torch.as_tensor(v) for k, v in (extras or {}).items()}
+    enc_len = extras["frames"].shape[1] if "frames" in extras else 0
+    cache = model.init_cache(tokens.shape[0], prompt + steps, enc_len=enc_len)
     toks = torch.as_tensor(tokens)
-    lg, _ = model.prefill({"tokens": toks[:, :prompt]}, cache)
+    lg, _ = model.prefill({"tokens": toks[:, :prompt], **extras}, cache)
     rows = [lg[:, -1]]
     for i in range(steps - 1):
         lg, _ = model.decode_step({"tokens": toks[:, prompt + i:prompt + i + 1]}, cache,
@@ -305,6 +347,19 @@ def test_example_runs_on_the_cpu():
     assert "generated 24 tokens" in proc.stdout
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "seamless-m4t-large-v2",
+                                  "qwen2-vl-72b"])
+def test_example_runs_every_new_family_on_the_cpu(arch):
+    """The example with the frames, patch embeddings, M-RoPE positions and
+    ``enc_len`` each family takes."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_serve_lm.py"),
+                           "--arch", arch, "--device", "cpu", "--steps", "6"],
+                          capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert f"{arch} (reduced) on cpu: generated 24 tokens" in proc.stdout
+
+
 # ---------------------------------------------------------------------------
 # The MoE phases of chip_smoke.py at a reduced size, and the committed fixture
 # ---------------------------------------------------------------------------
@@ -443,3 +498,183 @@ def test_committed_moe_fixture():
     assert np.array_equal(sol.iterations.numpy(), lp["router_iterations"])
     assert np.array_equal(sol.basis.numpy(), lp["router_basis"])
     assert float(np.abs(sol.x.numpy() - lp["router_x"]).max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The slice-11 phases of chip_smoke.py at a reduced size, and the committed fixtures
+# ---------------------------------------------------------------------------
+
+FAMILY_FIXTURES = {
+    "lm_ssm": ("mamba2-130m", "lm_mamba2_130m_reference.npz", 24, 0),
+    "lm_hybrid": ("zamba2-7b", "lm_zamba2_7b_reference.npz", 7, 0),
+    "lm_encdec": ("seamless-m4t-large-v2", "lm_seamless_m4t_large_v2_reference.npz", 1, 1),
+    "lm_vlm": ("qwen2-vl-72b", "lm_qwen2_vl_72b_reference.npz", 2, 0),
+}
+
+
+class _ReducedConfigs:
+    """A ``repro_torch.configs`` stand-in whose ``get_config`` gives the
+    reduced configs (what ``chip_smoke.py`` asks for at full width)."""
+
+    def get_config(self, arch, reduced=False):
+        return configs.get_config(arch, reduced=True)
+
+
+def _stub_the_card(monkeypatch, smoke):
+    import repro_torch.serve.engine as engine_mod
+
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(smoke, "smi_line", lambda: "cpu")
+    monkeypatch.setattr(engine_mod, "resolve_device", lambda device=None: torch.device("cpu"))
+
+
+def test_chip_smoke_lm_families_phase_on_reduced_fixtures(monkeypatch, tmp_path, capsys):
+    """``lm_families_phase`` whole on the CPU: the fixture tool's reduced
+    fixtures of the four families (mamba2 and zamba2 prompts of 100 tokens,
+    several chunks with padding; qwen2-vl's patch prefix and M-RoPE
+    positions; seamless's frames) through ``<row>_reference``, then every
+    serve row, ``lm_ssm_long`` and the encoder-decoder's decode against its
+    forward, at small sizes with the card's clock stubbed.  Off the card no
+    kernel of the port is reached, as on it."""
+    from repro_torch.kernels import hyperbox_cuda, pdhg_cuda, revised_cuda, simplex_cuda
+
+    tool = _module("lm_reference_fixture", ROOT / "tools" / "lm_reference_fixture.py")
+    smoke = _module("chip_smoke", ROOT / "chip_smoke.py")
+    _stub_the_card(monkeypatch, smoke)
+    fixtures = {}
+    for row, (arch, name, _, _) in FAMILY_FIXTURES.items():
+        prompt = 100 if row in ("lm_ssm", "lm_hybrid") else 12
+        positions = configs.mrope_positions(2, prompt, 8, seed=5) if row == "lm_vlm" else None
+        fx = tool.build_fixture(arch, reduced=True, seed=2, prompt_len=prompt, steps=3,
+                                subset=100, positions=positions)
+        if positions is not None:  # the caller's positions, not the default draw
+            assert np.array_equal(fx["positions"], positions)
+        np.savez(tmp_path / name, **fx)
+        fixtures[row] = (arch, tmp_path / name)
+    monkeypatch.setattr(smoke, "LM_FAMILY_FIXTURES", fixtures)
+    for name, value in (("LM_SERVE_BATCH", 2), ("LM_SERVE_PROMPT", 24), ("LM_SERVE_STEPS", 4),
+                        ("LM_LONG_PROMPT", 300), ("LM_LONG_STEPS", 3), ("LM_ENCDEC_CHECK", (2, 3))):
+        monkeypatch.setattr(smoke, name, value)
+    counters = {"simplex": simplex_cuda, "hyperbox": hyperbox_cuda, "revised": revised_cuda,
+                "pdhg": pdhg_cuda}
+
+    def reset():
+        for mod in counters.values():
+            mod.launches = 0
+            for v in getattr(mod, "variant_launches", {}):
+                mod.variant_launches[v] = 0
+
+    out = smoke.lm_families_phase(_ReducedConfigs(), torch.device("cpu"), seed=0,
+                                  counters=counters, reset=reset)
+    for row in ("ssm", "hybrid", "encdec", "vlm"):
+        assert out[row]["logits_ok"] and out[row]["bf16_rel_l2"] <= out[row]["bf16_limit"]
+    assert out["hybrid"]["shared_sites"] == 3  # the reduced zamba2: every 2 of 5 layers
+    assert out["long"]["continuity_rel_l2"] <= smoke.LM_REL_TOL
+    assert out["long"]["zeroed_state_rel_l2"] > 10 * smoke.LM_REL_TOL
+    assert out["long"]["cache_bytes"] == out["long"]["cache_bytes_4096_prompt"]
+    assert out["encdec_serve"]["decode_vs_forward_max_abs"] <= smoke.LM_WINDOW_TOL
+    for row in ("ssm_serve", "hybrid_serve", "encdec_serve"):
+        res = out[row]
+        assert res["all_logits_finite"] and not any(res["port_kernel_launches"].values())
+        assert res["prefill_bound_ms"] > 0 and res["decode_bound_ms"] > 0
+    assert out["ssm_serve"]["prefill_flops_f32"] > 0 and out["encdec_serve"]["prefill_flops_f32"] == 0
+    lines = capsys.readouterr().out
+    for phase in ("lm_ssm_reference", "lm_hybrid_reference", "lm_encdec_reference",
+                  "lm_vlm_reference", "lm_ssm_serve", "lm_ssm_long", "lm_hybrid_serve",
+                  "lm_encdec_serve", "lm_encdec_decode_vs_forward", "slice11_lm_families"):
+        assert f'"{phase}"' in lines, phase
+
+
+def test_chip_smoke_ssm_long_gate_rejects_a_lost_state(monkeypatch):
+    """``lm_ssm_long``'s continuity gate fails when the port's decode step
+    itself drops the state handed over by the prefill (a fault planted in
+    ``mamba_mixer``), not only when the case zeroes it."""
+    from repro_torch.models import mamba2
+
+    smoke = _module("chip_smoke", ROOT / "chip_smoke.py")
+    _stub_the_card(monkeypatch, smoke)
+    cfg = configs.get_config("mamba2-130m", reduced=True)
+    tree = reference_weights(cfg, 2)
+    model = load_reference_params(Model(cfg, device="cpu"), tree)
+    orig = mamba2.mamba_mixer
+
+    def forgetful(x, params, cfg, *, cache=None, cache_index=None):
+        if cache is not None and x.shape[1] == 1:
+            cache["state"].zero_()
+        return orig(x, params, cfg, cache=cache, cache_index=cache_index)
+
+    monkeypatch.setattr(mamba2, "mamba_mixer", forgetful)
+    with pytest.raises(SystemExit, match="differs from the whole prefill"):
+        smoke.lm_ssm_long_case(model, model, seed=0, counters={}, prompt=200, steps=2)
+
+
+def test_chip_smoke_lm_bounds_cover_every_family():
+    """The prefill FLOPs and the decode step's cache bytes: gemma2's as
+    before (attention layers only), mamba2's from its SSD and states alone
+    (no attention dimension), the encoder-decoder's cross caches."""
+    smoke = _module("chip_smoke", ROOT / "chip_smoke.py")
+    m = Model(configs.get_config("mamba2-130m"), device="cpu")
+    cfg = m.cfg
+    flops = smoke.lm_prefill_flops(m, 8, 4096)
+    per_token = cfg.d_model * (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads) \
+        + cfg.d_inner * cfg.d_model + 4 * (cfg.d_inner + 2 * cfg.ssm_state)
+    assert flops["bf16"] == 2.0 * 8 * 4096 * per_token * 24 + 2.0 * 8 * 768 * cfg.padded_vocab
+    assert flops["f32"] == 24 * smoke.lm_ssd_flops(cfg, 8, 4096) > 0
+    state = 24 * 2 * 8 * (3 * (cfg.d_inner + 2 * cfg.ssm_state) * 2 + 24 * 64 * 128 * 4)
+    assert smoke.lm_decode_kv_bytes(m, 8, 4096, 2) == smoke.lm_decode_kv_bytes(m, 8, 9, 2) == state
+    g = Model(configs.get_config("gemma2-2b"), device="cpu")
+    gc = g.cfg
+    keys = sum(smoke.lm_keys(g.windows(), q) for q in range(64))
+    assert smoke.lm_prefill_flops(g, 2, 64) == {"bf16": (
+        2.0 * 2 * 64 * (gc.d_model * gc.q_dim + 2 * gc.d_model * gc.kv_dim + gc.q_dim * gc.d_model
+                        + 3 * gc.d_model * gc.d_ff) * gc.num_layers
+        + 4.0 * 2 * gc.num_heads * gc.head_dim * keys + 2.0 * 2 * gc.d_model * gc.padded_vocab),
+        "f32": 0.0}
+    s = Model(configs.get_config("seamless-m4t-large-v2", reduced=True), device="cpu")
+    sc = s.cfg
+    assert smoke.lm_decode_kv_bytes(s, 2, 9, 4, enc_len=30) - smoke.lm_decode_kv_bytes(s, 2, 9, 4) \
+        == 2 * 2 * 2 * sc.num_heads * sc.head_dim * 30 * 4
+
+
+@pytest.mark.parametrize("row", list(FAMILY_FIXTURES))
+def test_committed_family_fixture(row):
+    """The four fixtures of slice 11, each at full width: depth, prompts
+    (mamba and zamba2 100 tokens; qwen2-vl 320, its 256 patches on a 16 x 16
+    grid at one t, then the text at equal coordinates), greedy tokens,
+    the float32 noise far below the bf16 gap, and the extras' digest."""
+    arch, name, layers, enc_layers = FAMILY_FIXTURES[row]
+    fx = dict(np.load(ROOT / "tests" / "data" / name))
+    cfg = configs.get_config(arch)
+    b, p, steps = 2, int(fx["prompt_len"]), int(fx["steps"])
+    assert (str(fx["arch"]), int(fx["layers"]), steps) == (arch, layers, 8)
+    assert int(fx.get("enc_layers", 0)) == enc_layers
+    assert p == {"lm_ssm": 100, "lm_hybrid": 100, "lm_encdec": 40, "lm_vlm": 320}[row]
+    cut = dataclasses.replace(cfg, num_layers=layers, enc_layers=enc_layers or cfg.enc_layers)
+    made = configs.make_inputs(cut, configs.Shape("lm_reference", p, b, "prefill"),
+                               int(fx["seed"]), device="cpu")
+    assert np.array_equal(fx["tokens"][:, :p], made["tokens"].numpy())
+    assert np.array_equal(fx["tokens"][:, p:], fx["argmax"][:, :-1])
+    assert fx["logits"].shape == fx["logits_f64"].shape == (b, steps + 1, 2048)
+    assert np.array_equal(fx["vocab_ids"], vocab_subset(cfg.vocab_size, 2048, int(fx["seed"]) + 1))
+    for k in ("argmax", "logsumexp", "margin", "bf16_rel_l2", "f32_noise_rel_l2",
+              "f32_noise_max_abs", "f64_rel_l2", "f64_max_abs"):
+        assert fx[k].shape == (b, steps + 1)
+    assert np.isfinite(fx["logits"]).all() and 0 < float(fx["bf16_rel_l2_all"]) < 1
+    assert 0 < float(fx["f32_noise_rel_l2"].max()) < 0.05 * float(fx["bf16_rel_l2_all"])
+    keys = [str(k) for k in fx["extras_keys"]]
+    assert keys == {"lm_encdec": ["frames"], "lm_vlm": ["patch_embeds"]}.get(row, [])
+    if keys:
+        assert np.array_equal(weights_digest({k: made[k].float().numpy() for k in keys}),
+                              fx["extras_digest"])
+    if row == "lm_vlm":
+        pos = fx["positions"]
+        assert pos.shape == (b, p, 3)
+        assert np.array_equal(pos, configs.mrope_positions(b, p, 256, int(fx["seed"])))
+        assert (pos[:, :256, 0] == pos[:, :1, 0]).all()  # one t for the image
+        assert len(np.unique(pos[0, :256, 1])) == len(np.unique(pos[0, :256, 2])) == 16
+        assert (pos[:, 256:] == np.arange(256, p)[None, :, None]).all()
+    else:
+        assert "positions" not in fx

@@ -1,7 +1,9 @@
 """The port's LMs (``repro_torch.models``, ``configs``, ``sharding``): the
-dense family, and the MoE family (dbrx's GQA + MoE, deepseek-v2-lite's
-MLA + MoE) under both routers, against the reference ``repro.models.Model``
-on reduced configs.
+dense family, the MoE family (dbrx's GQA + MoE, deepseek-v2-lite's MLA +
+MoE) under both routers, the SSM and hybrid families (mamba2-130m,
+zamba2-7b), the encoder-decoder (seamless-m4t-large-v2) and M-RoPE with
+the vision prefix (qwen2-vl-72b), against the reference
+``repro.models.Model`` on reduced configs.
 
 Both packages take the same NumPy weights (``models/convert.py:
 reference_weights``) and the same inputs (``configs.make_inputs``).
@@ -17,6 +19,22 @@ forward against an all-float64 evaluation of the same weights reaches
 0.70-1.43x, while both stay at 0.23-0.46x ``_close``'s bound and 1.9e-6
 to 2.8e-6 relative L2.  The sequence (24 tokens) is longer than gemma2's
 reduced window (16), so its local layers mask.
+
+The four families of ``FAMILIES`` are gated the same way, with one
+addition (``_gate``): where the reference's own float32 noise on the
+case exceeds a quarter of ``_close``'s bound, the bound becomes 4 times
+that noise, as ``chip_smoke.py:lm_tolerances`` gates the card's rows.
+The noise of a case is the largest change of any of its outputs (every
+step of a prefill-and-decode run) when every weight moves one ulp up or
+down (a seeded coin a weight), over three such draws.  Reduced zamba2
+and seamless need it: their attention scores reach magnitudes of 60
+(the reference's std rule gives ``wq`` a std of 1/sqrt(H) = 0.5 on a
+64-wide input), and a one-ulp nudge moves the reference's own outputs by
+up to 8e-6 (zamba2) and 4e-5 (seamless) relative L2; the reference's
+float32 decode steps miss an all-float64 evaluation of themselves by up
+to 7e-6 (zamba2), the port's by up to 1.3e-5.  mamba2-130m and qwen2-vl
+stay at the plain bound.  M-RoPE cases take positions whose three
+coordinates differ (``configs.mrope_positions``).
 """
 
 import dataclasses
@@ -33,7 +51,7 @@ from repro.models import Model as RModel
 from repro.models import attention as rattn
 from repro.models import layers as rlayers
 from repro_torch import configs
-from repro_torch.models import Model, attention, layers
+from repro_torch.models import Model, attention, blocks, layers
 from repro_torch.models.convert import (load_reference_params, reference_params,
                                         reference_weights)
 from repro_torch.sharding import ParamSpec, materialize
@@ -41,8 +59,9 @@ from repro_torch.sharding import ParamSpec, materialize
 DENSE = ["gemma2-2b", "qwen1.5-4b", "internlm2-20b", "command-r-plus-104b"]
 MOE = ["dbrx-132b", "deepseek-v2-lite-16b"]
 ROUTERS = ["topk", "lp"]
-NOT_PORTED = ["mamba2-130m", "zamba2-7b", "qwen2-vl-72b", "seamless-m4t-large-v2"]
+FAMILIES = ["mamba2-130m", "zamba2-7b", "seamless-m4t-large-v2", "qwen2-vl-72b"]
 RTOL, ATOL = 1e-5, 2e-5
+NOISE_FACTOR = 4.0
 SEQ, BATCH, PREFIX = 24, 2, 16
 
 
@@ -198,6 +217,244 @@ def test_moe_decode_matches_forward_in_the_port(arch):
     assert max(errs) < 2e-4, errs
 
 
+# ---------------------------------------------------------------------------
+# The SSM, hybrid, encoder-decoder and M-RoPE families
+# ---------------------------------------------------------------------------
+
+
+def _family_inputs(arch, seq=SEQ, seed=1):
+    """NumPy prefill inputs: ``make_inputs``' draws (frames, patch
+    embeddings), and under M-RoPE positions whose coordinates differ."""
+    cfg = rconfigs.get_config(arch, reduced=True)
+    out = {k: np.array(v) for k, v in rconfigs.make_inputs(
+        cfg, rconfigs.Shape("t", seq, BATCH, "prefill"), seed=seed).items()}
+    if cfg.mrope_sections:
+        out["positions"] = configs.mrope_positions(BATCH, seq, cfg.num_patches, seed)
+    return out
+
+
+NUDGES = (11, 12, 13)
+
+
+def _nudged(rp, seed):
+    """Every weight one float32 ulp up or down (a seeded coin a weight)."""
+    rng = np.random.default_rng(seed)
+
+    def nudge(a):
+        up = rng.random(a.shape) < 0.5
+        return jnp.nextafter(a, jnp.where(up, np.float32(np.inf), np.float32(-np.inf)))
+
+    return jax.tree_util.tree_map(nudge, rp)
+
+
+def _noise(run, rp):
+    """The reference's float32 noise on a case: ``run(params)`` gives its
+    outputs (a list); returns the largest (max abs over the largest
+    magnitude, relative L2) change of any output over ``NUDGES``."""
+    want = [np.asarray(w, np.float64) for w in run(rp)]
+    worst_abs = worst_rel = 0.0
+    for seed in NUDGES:
+        for w, n in zip(want, run(_nudged(rp, seed))):
+            n = np.asarray(n, np.float64)
+            worst_abs = max(worst_abs, float(np.abs(n - w).max()) / max(1.0, float(np.abs(w).max())))
+            worst_rel = max(worst_rel, float(np.linalg.norm(n - w) / np.linalg.norm(w)))
+    return worst_abs, worst_rel
+
+
+def _gate(got, want, noise):
+    """``_close`` with its bounds raised to ``NOISE_FACTOR`` times the case's
+    noise (``_noise``) where that is the larger."""
+    noise_abs, noise_rel = noise
+    _close(got, want, rtol=max(RTOL, NOISE_FACTOR * noise_rel),
+           atol=max(ATOL, NOISE_FACTOR * noise_abs))
+
+
+def _torch_inputs(inputs):
+    return {k: torch.as_tensor(v) for k, v in inputs.items()}
+
+
+def _jax_inputs(inputs):
+    return {k: jnp.asarray(v) for k, v in inputs.items()}
+
+
+def test_plan_builds_every_family_as_the_reference():
+    for arch in rconfigs.ARCH_IDS:
+        for reduced in (False, True):
+            got = [(g.kind, g.count) for g in blocks.plan(configs.get_config(arch, reduced))]
+            want = [(g.kind, g.count) for g in RModel(rconfigs.get_config(arch, reduced)).groups]
+            assert got == want, arch
+    families = {configs.get_config(a).family for a in configs.ARCH_IDS}
+    assert families == {"dense", "moe", "ssm", "hybrid", "encdec"}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_forward_and_logits_match_reference(arch):
+    model, rmodel, rp = _pair(arch)
+    inputs = _family_inputs(arch)
+
+    def run(params):
+        h = rmodel.forward(params, _jax_inputs(inputs))
+        return [h, rmodel.logits(params, h)]
+
+    rh, rl = run(rp)
+    noise = _noise(run, rp)
+    with torch.no_grad():
+        h = model.forward(_torch_inputs(inputs))
+        lg = model.logits(h)
+    _gate(h, rh, noise)
+    _gate(lg, rl, noise)
+    assert model.kinds() == [g.kind for g in rmodel.groups for _ in range(g.count)]
+
+
+def _prefill_inputs(inputs, p):
+    """The prompt's part of ``inputs``: tokens and positions cut to ``p``."""
+    out = dict(inputs)
+    out["tokens"] = inputs["tokens"][:, :p]
+    if "positions" in out:
+        out["positions"] = inputs["positions"][:, :p]
+    return out
+
+
+def _step_inputs(inputs, t):
+    out = {"tokens": inputs["tokens"][:, t:t + 1]}
+    if "positions" in inputs:
+        out["positions"] = inputs["positions"][:, t:t + 1]
+    return out
+
+
+def _reference_run(rmodel, rp, inputs, enc_len):
+    """The reference's logits of a prefill of ``PREFIX`` tokens and a decode
+    step a token up to ``SEQ``, and its cache after them."""
+    prefill, decode = jax.jit(rmodel.prefill), jax.jit(rmodel.decode_step)
+    rcache = rmodel.init_cache(BATCH, SEQ, enc_len=enc_len)
+    rl, rcache = prefill(rp, _jax_inputs(_prefill_inputs(inputs, PREFIX)), rcache)
+    rows = [rl]
+    for t in range(PREFIX, SEQ):
+        rl, rcache = decode(rp, _jax_inputs(_step_inputs(inputs, t)), rcache, t)
+        rows.append(rl)
+    return rows, rcache
+
+
+def _reference_caches(model, rmodel, rcache):
+    """The reference's caches, one dict a layer of the port and then one a
+    shared site: layer i of group gj is ``rcache[gj][...][i - offset]``; the
+    encoder keeps none."""
+    out, at = [], 0
+    for j, g in enumerate(rmodel.groups):
+        for i in range(g.count):
+            out.append({} if g.kind == "enc" else
+                       {k: v[i] for k, v in rcache[f"g{j}"].items()})
+        at += g.count
+    for site in range(model.shared_sites()):
+        out.append({k: v[site] for k, v in rcache["shared"].items()})
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_decode_and_caches_match_reference(arch):
+    """Prefill of 16 tokens (the encoder-decoder: 24 frames and 16 tokens;
+    qwen2-vl: the 8 patch embeddings first) and every decode step to 24;
+    then every cache: conv and SSM state, each shared site's k/v, self k/v,
+    cross k/v."""
+    model, rmodel, rp = _pair(arch)
+    inputs = _family_inputs(arch)
+    enc_len = SEQ if model.cfg.family == "encdec" else 0
+    want, rcache = _reference_run(rmodel, rp, inputs, enc_len)
+    noise = _noise(lambda params: _reference_run(rmodel, params, inputs, enc_len)[0], rp)
+    cache = model.init_cache(BATCH, SEQ, enc_len=enc_len)
+    lg, _ = model.prefill(_torch_inputs(_prefill_inputs(inputs, PREFIX)), cache)
+    rows = [lg]
+    for t in range(PREFIX, SEQ):
+        lg, _ = model.decode_step(_torch_inputs(_step_inputs(inputs, t)), cache, t)
+        rows.append(lg)
+    for got, w in zip(rows, want):
+        _gate(got, w, noise)
+    ref = _reference_caches(model, rmodel, rcache)
+    assert len(cache) == len(ref) == len(model.layers) + model.shared_sites()
+    for layer_cache, want_cache in zip(cache, ref):
+        assert set(layer_cache) == set(want_cache)
+        for k in layer_cache:
+            assert layer_cache[k].dtype == getattr(torch, str(want_cache[k].dtype))
+            _close(layer_cache[k], want_cache[k], rtol=1e-4, atol=1e-4)
+    kinds = set(model.kinds())
+    if "mamba" in kinds:
+        assert cache[0]["state"].dtype == torch.float32
+    if model.shared_sites():
+        assert model.shared_sites() == 3 and cache[-1]["k"].abs().sum() > 0
+    if "dec_cross" in kinds:
+        assert cache[-1]["ck"].shape == (BATCH, model.cfg.num_heads, SEQ, model.cfg.head_dim)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_matches_forward_in_the_port(arch):
+    """Prefill + stepwise decode logits == full-forward logits (per position)."""
+    cfg = configs.get_config(arch, reduced=True)
+    model = load_reference_params(Model(cfg, device="cpu"), reference_weights(cfg, 5))
+    inputs = _torch_inputs(_family_inputs(arch, seed=2))
+    with torch.no_grad():
+        full = model.logits(model.forward(inputs))
+    cache = model.init_cache(BATCH, SEQ, enc_len=SEQ if cfg.family == "encdec" else 0)
+    lg, _ = model.prefill(_prefill_inputs(inputs, PREFIX), cache)
+    errs = [float((lg[:, 0] - full[:, PREFIX - 1]).abs().max())]
+    for t in range(PREFIX, SEQ):
+        lg, _ = model.decode_step(_step_inputs(inputs, t), cache, t)
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    assert max(errs) < 2e-4, errs
+
+
+def test_cross_cache_sized_for_other_frames_is_replaced_as_the_reference_returns_it():
+    """A cache made with ``enc_len`` 0 (the reference ``Engine``'s default)
+    takes the prefill's cross K/V as they come, and decodes as one sized
+    for the frames."""
+    model, _, _ = _pair("seamless-m4t-large-v2")
+    inputs = _torch_inputs(_family_inputs("seamless-m4t-large-v2"))
+    rows = []
+    for enc_len in (SEQ, 0):
+        cache = model.init_cache(BATCH, SEQ, enc_len=enc_len)
+        model.prefill(_prefill_inputs(inputs, PREFIX), cache)
+        assert cache[-1]["ck"].shape == (BATCH, model.cfg.num_heads, SEQ, model.cfg.head_dim)
+        rows.append(model.decode_step(_step_inputs(inputs, PREFIX), cache, PREFIX)[0])
+    assert torch.equal(rows[0], rows[1])
+
+
+def test_mrope_positions_change_qwen2_vl_and_the_patches_take_the_prefix():
+    """Positions whose coordinates differ change the output against ``arange``
+    on all three (where M-RoPE is RoPE), and the first P tokens' ids no
+    longer matter once patch embeddings take their place."""
+    model, _, _ = _pair("qwen2-vl-72b")
+    inputs = _torch_inputs(_family_inputs("qwen2-vl-72b"))
+    plain = dict(inputs)
+    plain["positions"] = torch.arange(SEQ)[None, :, None].expand(BATCH, SEQ, 3)
+    other = dict(inputs)
+    other["tokens"] = inputs["tokens"].clone()
+    other["tokens"][:, :model.cfg.num_patches] = 0
+    with torch.no_grad():
+        h = model.forward(inputs)
+        assert not torch.allclose(h, model.forward(plain))
+        assert torch.equal(h, model.forward(other))
+        with pytest.raises(ValueError, match="patch embeddings"):
+            model.forward({**inputs, "tokens": inputs["tokens"][:, :4],
+                           "positions": inputs["positions"][:, :4]})
+
+
+def test_zamba2_shared_block_has_one_set_of_weights_and_a_cache_a_site():
+    """One shared block's parameters (the reference's unstacked
+    ``shared_attn`` tree), a KV cache for each of its sites: ceil(5 / 2) = 3
+    in the reduced config, ceil(81 / 6) = 14 at full size."""
+    model, rmodel, _ = _pair("zamba2-7b")
+    names = sorted(n for n, _ in model.named_parameters() if n.startswith("shared_attn."))
+    want = jax.tree_util.tree_flatten_with_path(rmodel.abstract_params()["shared_attn"],
+                                                is_leaf=lambda x: hasattr(x, "init"))[0]
+    assert names == sorted("shared_attn." + ".".join(k.key for k in path) for path, _ in want)
+    assert model.shared_sites() == rmodel._n_shared_sites() == 3
+    cache = model.init_cache(BATCH, SEQ)
+    assert len(cache) == model.cfg.num_layers + 3
+    assert [sorted(c) for c in cache[-3:]] == [["k", "v"]] * 3
+    full = configs.get_config("zamba2-7b")
+    assert math.ceil(full.num_layers / full.shared_attn_every) == RModel(
+        rconfigs.get_config("zamba2-7b"))._n_shared_sites() == 14
+
+
 def test_gemma2_local_global_masks_differ_in_the_port():
     cfg = configs.get_config("gemma2-2b", reduced=True)
     cfg_glob = dataclasses.replace(cfg, sliding_window=0, local_global_pattern=False)
@@ -211,13 +468,6 @@ def test_gemma2_local_global_masks_differ_in_the_port():
     # equal while every key lies inside the window, different past it
     assert torch.equal(h1[:, :16], h2[:, :16])
     assert not torch.allclose(h1[:, 16:], h2[:, 16:])
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_families_not_ported_raise(arch):
-    cfg = configs.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(cfg, device="cpu")
 
 
 def test_model_needs_a_card_by_default():
@@ -281,7 +531,7 @@ def test_make_inputs_bit_equal_to_reference(arch, kind):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + FAMILIES)
 def test_weight_round_trip_is_the_identity(arch):
     cfg = configs.get_config(arch, reduced=True)
     tree = reference_weights(cfg, 9)
@@ -479,3 +729,96 @@ def test_decode_attention_matches_reference(index, window):
                                      index, window=window, attn_softcap=50.0)
     _close(got, rattn.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), index,
                                        window=window, attn_softcap=50.0))
+
+
+def test_layernorm_matches_reference():
+    """Ported although the reference calls it nowhere."""
+    rng = np.random.default_rng(6)
+    x = _rand(rng, 2, 5, 64, scale=3.0) + 1.5
+    p = {"scale": _rand(rng, 64), "bias": _rand(rng, 64, scale=0.1)}
+    got = layers.layernorm(torch.as_tensor(x), {k: torch.as_tensor(v) for k, v in p.items()})
+    _close(got, rlayers.layernorm(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}))
+    specs = layers.layernorm_specs(64, "float32")
+    ref = rlayers.layernorm_specs(64, "float32")
+    assert {k: (v.shape, v.init) for k, v in specs.items()} == \
+        {k: (v.shape, v.init) for k, v in ref.items()}
+
+
+@pytest.mark.parametrize("sections,theta", [((4, 6, 6), 1e6), ((16, 24, 24), 1e6),
+                                            ((2, 3, 3), 10000.0)])
+def test_apply_mrope_matches_reference(sections, theta):
+    """On positions whose (t, h, w) differ, where M-RoPE is not RoPE."""
+    hd = 2 * sum(sections)
+    rng = np.random.default_rng(hd)
+    x = _rand(rng, 2, 3, 20, hd)
+    pos = configs.mrope_positions(2, 20, 8, seed=hd)
+    assert (pos[:, :8, 0] != pos[:, :8, 1]).any() and (pos[:, :8, 1] != pos[:, :8, 2]).any()
+    got = layers.apply_mrope(torch.as_tensor(x), torch.as_tensor(pos), sections, theta)
+    _close(got, rlayers.apply_mrope(jnp.asarray(x), jnp.asarray(pos), sections, theta))
+    plain = layers.apply_rope(torch.as_tensor(x), torch.as_tensor(pos[..., 0]), theta)
+    assert not torch.allclose(got, plain)  # the h and w sections rotate by their own coordinates
+    same = np.broadcast_to(pos[..., :1], pos.shape).copy()
+    assert torch.equal(layers.apply_mrope(torch.as_tensor(x), torch.as_tensor(same), sections,
+                                          theta),
+                       layers.apply_rope(torch.as_tensor(x), torch.as_tensor(pos[..., 0]), theta))
+
+
+@pytest.mark.parametrize("s,d", [(24, 64), (4096, 1024), (7, 10)])
+def test_sinusoidal_positions_equal_reference(s, d):
+    got = layers.sinusoidal_positions(s, d)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(rlayers.sinusoidal_positions(s, d)))
+
+
+@pytest.mark.parametrize("senc", [12, 40])
+def test_cross_attention_matches_reference(senc):
+    cfg = configs.get_config("seamless-m4t-large-v2", reduced=True)
+    rcfg = rconfigs.get_config("seamless-m4t-large-v2", reduced=True)
+    rng = np.random.default_rng(senc)
+    p = {k: _rand(rng, *spec.shape, scale=0.2) for k, spec in attention.gqa_specs(cfg).items()}
+    x, enc = _rand(rng, 2, 9, cfg.d_model), _rand(rng, 2, senc, cfg.d_model)
+    tp = {k: torch.as_tensor(v) for k, v in p.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    got, (k, v) = attention.cross_attention(torch.as_tensor(x), tp, cfg,
+                                            enc_out=torch.as_tensor(enc))
+    want, (rk, rv) = rattn.cross_attention(jnp.asarray(x), jp, rcfg, enc_out=jnp.asarray(enc))
+    _close(got, want)
+    _close(k, rk)
+    _close(v, rv)
+    assert k.shape == (2, cfg.num_heads, senc, cfg.head_dim)
+    again, kv = attention.cross_attention(torch.as_tensor(x), tp, cfg, kv=(k, v))
+    assert torch.equal(again, got) and kv[0] is k
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-72b"])
+def test_encoder_attention_matches_reference(arch):
+    """Bidirectional, rope on q and k; under qwen2-vl's config the M-RoPE
+    branch of ``_project_qkv`` on 3-D positions, with its biases."""
+    cfg = configs.get_config(arch, reduced=True)
+    rcfg = rconfigs.get_config(arch, reduced=True)
+    rng = np.random.default_rng(7)
+    p = {k: _rand(rng, *spec.shape, scale=0.2) for k, spec in attention.gqa_specs(cfg).items()}
+    x = _rand(rng, 2, 14, cfg.d_model)
+    if cfg.mrope_sections:
+        pos = configs.mrope_positions(2, 14, cfg.num_patches, seed=3)
+    else:
+        pos = np.broadcast_to(np.arange(14, dtype=np.int32) + 5, (2, 14)).copy()
+    got = attention.encoder_attention(torch.as_tensor(x), {k: torch.as_tensor(v) for k, v in p.items()},
+                                      cfg, torch.as_tensor(pos))
+    want = rattn.encoder_attention(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, rcfg,
+                                   jnp.asarray(pos))
+    _close(got, want)
+
+
+def test_rope_takes_the_first_coordinate_of_3d_positions_without_mrope():
+    """The reference's ``_project_qkv`` rotates by ``positions[..., 0]``
+    when positions are 3-D and the config has no M-RoPE sections."""
+    cfg = configs.get_config("qwen1.5-4b", reduced=True)
+    rng = np.random.default_rng(8)
+    p = {k: torch.as_tensor(_rand(rng, *spec.shape, scale=0.2))
+         for k, spec in attention.gqa_specs(cfg).items()}
+    x = torch.as_tensor(_rand(rng, 2, 6, cfg.d_model))
+    pos3 = torch.as_tensor(configs.mrope_positions(2, 6, 4, seed=1))
+    q3, k3, _ = attention._project_qkv(x, p, cfg, pos3)
+    q2, k2, _ = attention._project_qkv(x, p, cfg, pos3[..., 0])
+    assert torch.equal(q3, q2) and torch.equal(k3, k2)

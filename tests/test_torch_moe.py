@@ -242,3 +242,75 @@ def test_dispatch_slots_and_scratch_row():
     assert order.tolist() == [0, 3, 7, 1, 2, 4, 6, 5]
     assert keep.tolist() == [True, True, False, True, True, False, False, True]
     assert slot.tolist() == [0, 1, 6, 2, 3, 6, 6, 4]
+
+
+# ---------------------------------------------------------------------------
+# Training through the router: the reference cannot differentiate its LP
+# ---------------------------------------------------------------------------
+
+
+def _model(arch, router):
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights
+
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), router=router)
+    return load_reference_params(Model(cfg, device="cpu"), reference_weights(cfg, 1))
+
+
+def _train_step(model):
+    """One step of a plain training loop: forward, a next-token loss,
+    backward, SGD."""
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, model.cfg.vocab_size, (2, 17)))
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    logits = model.logits(model.forward({"tokens": toks[:, :-1]}))
+    loss = torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                             toks[:, 1:].reshape(-1))
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_backward_through_the_lp_router_raises_as_the_reference(arch):
+    """The reference raises ``ValueError`` at its first training step under
+    ``router="lp"`` (reverse mode does not go through its simplex
+    ``lax.while_loop``); the port raises the same error from the LP bias's
+    backward, before the optimizer moves any parameter."""
+    model = _model(arch, "lp")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with pytest.raises(ValueError, match="simplex loop.*router='topk'"):
+        _train_step(model)
+    for n, p in model.named_parameters():
+        assert torch.equal(p.detach(), before[n]), n
+    # the reference's own error, for the record
+    rcfg = dataclasses.replace(rconfigs.get_config(arch, reduced=True), router="lp")
+    logits = jnp.asarray(_logits(np.random.default_rng(0), 8, rcfg.num_experts))
+    with pytest.raises(ValueError, match="Reverse-mode differentiation"):
+        jax.grad(lambda lg: rmoe._lp_balance_bias(None, lg, rcfg).sum())(logits)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_topk_router_still_trains(arch):
+    model = _model(arch, "topk")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _train_step(model)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    assert float(model.get_parameter("layers.1.ffn.router").grad.abs().sum()) > 0
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])]
+    assert "layers.1.ffn.router" in moved and "embed.embedding" in moved
+
+
+@pytest.mark.parametrize("arch,t", [("deepseek-v2-lite-16b", 24), ("dbrx-132b", 5)])
+def test_lp_bias_bits_unchanged_by_the_autograd_node(arch, t):
+    """The bias through the autograd node, under grad mode, ``no_grad`` and
+    ``inference_mode``, has the bits of the LP bias computed directly."""
+    cfg, _ = _cfgs(arch, router="lp")
+    logits = torch.as_tensor(_logits(np.random.default_rng(t), t, cfg.num_experts, scale=2.0))
+    direct = moe._lp_bias(logits, cfg)
+    grad_in = logits.clone().requires_grad_(True)
+    via = moe._lp_balance_bias(grad_in, cfg)
+    assert via.requires_grad and torch.equal(via.detach(), direct)
+    with torch.no_grad():
+        assert torch.equal(moe._lp_balance_bias(logits, cfg), direct)
+    with torch.inference_mode():
+        assert torch.equal(moe._lp_balance_bias(logits, cfg), direct)

@@ -4,6 +4,14 @@
     PYTHONPATH=src python3 tools/lm_reference_fixture.py [--out tests/data/lm_gemma2_2b_reference.npz]
     PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch deepseek-v2-lite-16b \
         --layers 3 --router topk,lp --out tests/data/lm_deepseek_v2_lite_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch mamba2-130m --prompt-len 100 \
+        --out tests/data/lm_mamba2_130m_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch zamba2-7b --layers 7 \
+        --prompt-len 100 --out tests/data/lm_zamba2_7b_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch seamless-m4t-large-v2 \
+        --out tests/data/lm_seamless_m4t_large_v2_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch qwen2-vl-72b --layers 2 \
+        --prompt-len 320 --out tests/data/lm_qwen2_vl_72b_reference.npz
 
 Runs ``repro.models.Model`` (JAX on the CPU: ``JAX_PLATFORMS`` defaults
 to ``cpu`` here, so that no float32 product is rounded to TF32) on
@@ -31,7 +39,20 @@ and softmax all float64, the reference's own float32 steps widened by
 every weight leaf (``weights_digest``), which a run that regenerates the
 weights checks first.
 
-``--layers`` cuts the config's depth (the widths stay).  ``--router``
+Configs that take more than tokens get their prompt's other inputs
+from the same ``make_inputs`` call (the encoder-decoder's frames, the
+vision frontend's patch embeddings, in the config's dtype) and, under
+M-RoPE, positions whose coordinates differ
+(``repro_torch.configs.mrope_positions``, or the caller's): the
+positions are stored (``positions``), the float inputs are regenerated
+by whoever reads the fixture and checked against ``extras_digest``
+(their first values, ``weights_digest``'s rule); ``input_dtype`` names
+the dtype they were made in.  The decode steps take tokens alone, as
+``Engine.generate`` runs them; the encoder-decoder's cache is sized to
+its frames (``enc_len``).
+
+``--layers`` cuts the config's depth, the encoder's too (the widths
+stay).  ``--router``
 names the MoE routers to run, comma-separated: each router's arrays are
 stored under its name (``topk__logits``, ``lp__logits``, ...; see
 ``repro_torch.models.convert.fixture_view``), and under ``lp`` every
@@ -72,17 +93,24 @@ SUBSET = 2048
 SEED = 0
 
 
-def _run(model, params, prompts, steps, feed=None):
-    """Prefill, then ``steps`` decode steps, greedy unless ``feed`` gives the
-    tokens; returns (tokens (B, P + steps), logits (B, steps + 1, V))."""
+def _run(model, params, prompts, steps, feed=None, extras=None):
+    """Prefill (the prompt's tokens and ``extras``: frames, patch
+    embeddings, positions), then ``steps`` decode steps, greedy unless
+    ``feed`` gives the tokens; returns (tokens (B, P + steps), logits
+    (B, steps + 1, V))."""
     import jax
     import jax.numpy as jnp
 
     b, p = prompts.shape
+    extras = extras or {}
     prefill = jax.jit(model.prefill)
     decode = jax.jit(model.decode_step, donate_argnums=(2,))
-    cache = model.init_cache(b, p + steps)
-    logits, cache = prefill(params, {"tokens": jnp.asarray(prompts)}, cache)
+    enc_len = extras["frames"].shape[1] if "frames" in extras else 0
+    cache = model.init_cache(b, p + steps, enc_len=enc_len)
+    first = {"tokens": jnp.asarray(prompts)}
+    for k, v in extras.items():
+        first[k] = jnp.asarray(v, model.cfg.dtype if v.dtype.kind == "f" else v.dtype)
+    logits, cache = prefill(params, first, cache)
     rows = [np.asarray(logits[:, -1], np.float32)]
     tokens = [prompts]
     for i in range(steps):
@@ -110,18 +138,19 @@ def _ulp_nudge(params, seed):
 @contextlib.contextmanager
 def _float64_everywhere():
     """Trace the reference with every ``jnp.float32`` of its layers,
-    attention and MoE read as ``jnp.float64`` (its norms, rotary angles,
-    attention scores and softmax, logits, the router and its LP): with
+    attention, Mamba2 mixer, model and MoE read as ``jnp.float64`` (its
+    norms, rotary angles, attention scores and softmax, SSD scan and
+    states, sinusoidal positions, logits, the router and its LP): with
     float64 weights, a run with no float32 step.  Only this tool's view of the modules changes."""
     import jax.numpy as jnp
 
-    from repro.models import attention, layers, moe
+    from repro.models import attention, layers, mamba2, model, moe
 
     class Wide:
         def __getattr__(self, name):
             return jnp.float64 if name == "float32" else getattr(jnp, name)
 
-    saved = [(mod, mod.jnp) for mod in (attention, layers, moe)]
+    saved = [(mod, mod.jnp) for mod in (attention, layers, mamba2, model, moe)]
     for mod, _ in saved:
         mod.jnp = Wide()
     try:
@@ -182,15 +211,36 @@ def capture_router_lps():
         simplex.solve_batched = orig
 
 
+def prompt_inputs(cfg, prompts: int, prompt_len: int, seed: int, positions=None) -> dict:
+    """The prompt's inputs for ``cfg`` as NumPy arrays: ``make_inputs``'
+    tokens, frames and patch embeddings (float32 holding values of the
+    config's dtype), and under M-RoPE ``positions`` (the caller's, else
+    ``mrope_positions``)."""
+    from repro.configs import Shape, make_inputs
+    from repro_torch.configs import mrope_positions
+
+    made = make_inputs(cfg, Shape("lm_reference", prompt_len, prompts, "prefill"), seed=seed)
+    out = {k: np.asarray(v, np.float32) if k in ("frames", "patch_embeds") else np.asarray(v)
+           for k, v in made.items()}
+    if cfg.mrope_sections:
+        out["positions"] = (np.asarray(positions, np.int32) if positions is not None else
+                            mrope_positions(prompts, prompt_len, cfg.num_patches, seed))
+    else:
+        out.pop("positions", None)
+    return out
+
+
 def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int = SEED,
                   prompts: int = PROMPTS, prompt_len: int = PROMPT_LEN, steps: int = STEPS,
-                  subset: int = SUBSET, layers: int = 0, router: str = "") -> dict:
+                  subset: int = SUBSET, layers: int = 0, router: str = "",
+                  positions=None) -> dict:
     """The fixture's arrays for ``arch`` (reduced or full width), cut to
-    ``layers`` layers if given, with the MoE ``router`` if given."""
+    ``layers`` layers if given (the encoder too), with the MoE ``router``
+    if given, and M-RoPE ``positions`` (B, prompt_len, 3) if given."""
     import jax
     import jax.numpy as jnp
 
-    from repro.configs import Shape, get_config, make_inputs
+    from repro.configs import get_config
     from repro.models import Model
     from repro.models.blocks import plan
     from repro_torch.configs import get_config as port_config
@@ -200,12 +250,15 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
     cut = {}
     if layers:
         cut["num_layers"] = layers
+        if get_config(arch, reduced=reduced).enc_layers:
+            cut["enc_layers"] = layers
     if router:
         cut["router"] = router
     cfg = dataclasses.replace(get_config(arch, reduced=reduced), **cut)
     tree = reference_weights(dataclasses.replace(port_config(arch, reduced=reduced), **cut), seed)
-    prompt = np.asarray(make_inputs(cfg, Shape("lm_reference", prompt_len, prompts, "prefill"),
-                                    seed=seed)["tokens"])
+    extras = prompt_inputs(cfg, prompts, prompt_len, seed, positions)
+    prompt = extras.pop("tokens")
+    floats = {k: v for k, v in extras.items() if k != "positions"}
     digest = weights_digest(tree)
     params = {}
     for key in list(tree):  # one leaf at a time: the NumPy copy goes as the JAX one comes
@@ -214,21 +267,22 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
         t0 = time.perf_counter()
         model32 = Model(dataclasses.replace(cfg, dtype="float32"))
         lps.active = True
-        tokens, logits32 = _run(model32, params, prompt, steps)
+        tokens, logits32 = _run(model32, params, prompt, steps, extras=extras)
         jax.effects_barrier()
         lps.active = False
         t32 = time.perf_counter() - t0
         # the function's own float32 sensitivity: every weight one ulp away
-        _, logits_ulp = _run(model32, _ulp_nudge(params, seed + 2), prompt, steps, feed=tokens)
+        _, logits_ulp = _run(model32, _ulp_nudge(params, seed + 2), prompt, steps, feed=tokens,
+                             extras=extras)
         # the reference with every step in float64
         with _float64_everywhere():
             _, logits64 = _run(Model(dataclasses.replace(cfg, dtype="float64")),
                                jax.tree_util.tree_map(lambda a: a.astype(jnp.float64), params),
-                               prompt, steps, feed=tokens)
+                               prompt, steps, feed=tokens, extras=extras)
         params = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), params)
         t0 = time.perf_counter()
         _, logits16 = _run(Model(dataclasses.replace(cfg, dtype="bfloat16")), params, prompt,
-                           steps, feed=tokens)
+                           steps, feed=tokens, extras=extras)
         t16 = time.perf_counter() - t0
     del params
     ids = vocab_subset(cfg.vocab_size, subset, seed + 1)
@@ -249,7 +303,13 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
         bf16_rel_l2_all=np.float64(np.linalg.norm(a - b) / np.linalg.norm(b)),
         weights_digest=digest, reference_seconds=np.array([t32, t16]),
         layers=np.int64(cfg.num_layers), router=np.array(cfg.router),
+        input_dtype=np.array(cfg.dtype), extras_keys=np.array(sorted(floats), dtype=str),
+        extras_digest=weights_digest(floats) if floats else np.zeros(0),
     )
+    if "positions" in extras:
+        out["positions"] = extras["positions"]
+    if cfg.enc_layers:
+        out["enc_layers"] = np.int64(cfg.enc_layers)
     if lps.rows:
         offset, moe_layers = 0, []
         for g in plan(cfg):
@@ -264,7 +324,8 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
 
 
 #: Arrays every router's run shares in a fixture of several routers.
-SHARED = ("arch", "seed", "prompt_len", "steps", "vocab_ids", "weights_digest", "layers")
+SHARED = ("arch", "seed", "prompt_len", "steps", "vocab_ids", "weights_digest", "layers",
+          "input_dtype", "extras_keys", "extras_digest")
 
 
 def build_router_fixtures(arch: str, routers, **kw) -> dict:
@@ -288,6 +349,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gemma2-2b")
     ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers")
+    ap.add_argument("--prompt-len", type=int, default=PROMPT_LEN, help="tokens a prompt")
     ap.add_argument("--router", default="",
                     help="MoE routers to run, comma-separated (e.g. topk,lp)")
     ap.add_argument("--out", default=str(ROOT / "tests" / "data" / "lm_gemma2_2b_reference.npz"))
@@ -300,9 +362,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     routers = [r for r in args.router.split(",") if r]
     if routers:
-        fx = build_router_fixtures(args.arch, routers, layers=args.layers)
+        fx = build_router_fixtures(args.arch, routers, layers=args.layers,
+                                   prompt_len=args.prompt_len)
     else:
-        fx = build_fixture(args.arch, layers=args.layers)
+        fx = build_fixture(args.arch, layers=args.layers, prompt_len=args.prompt_len)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(args.out, **fx)
     print(f"wrote {args.out} in {time.perf_counter() - t0:.1f} s")
