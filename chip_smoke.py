@@ -200,10 +200,38 @@ line is printed:
    4,096-token prompt's.  qwen2-vl-72b has no serve row (143 GB in
    bfloat16).
 
+   Slice 12, training, after slice 11, with the launch counts set to 0
+   before and read after.  ``lm_train_reference``: gemma2-2b at full
+   width cut to 2 layers, float32, three train steps (``accum=2``, 4 x
+   128 tokens of ``SyntheticLM``, lr 1e-3 after 2 warm-up steps) against
+   ``tests/data/lm_train_gemma2_2b_reference.npz``
+   (``tools/lm_reference_fixture.py --train``): each step's loss and
+   ``grad_norm``, and each leaf's parameter change at 8,192 sampled
+   elements, against the reference's float32 run and its float64 run,
+   each within the largest of a floor, 4x the reference's one-ulp noise
+   and 2x its own float32 error against that float64 run, lr equal; the
+   same run with TF32 products must fail the gates.
+   ``lm_train``: gemma2-2b at full width and depth, bfloat16 with float32
+   master weights, remat, 2 microbatches of 2 x 4,096 tokens, through
+   ``TrainDriver`` with checkpointing off: one warm-up and four timed
+   steps (CUDA events), tokens/s, each step's loss (finite) and
+   ``grad_norm``, peak memory, the step's bound.  ``lm_train_ssm``:
+   mamba2-130m at full width and depth, bfloat16, 8 x 4,096 tokens a
+   step: an uninterrupted run of 5 steps, then one checkpointed every 2
+   steps, preempted at step 3 and resumed from step 2 by a new model and
+   driver, bit-equal to the uninterrupted run (deterministic algorithms
+   on); step ms, the checkpoints' bytes and write ms.  ``lm_eval_lp``:
+   deepseek-v2-lite-16b cut to 3 layers, float32, ``make_eval_step``
+   under ``router="lp"``: the loss against
+   ``tests/data/lm_eval_deepseek_v2_lite_reference.npz``, one simplex
+   launch a MoE layer (2), all of the cluster variant, each captured LP
+   bit-identical on ``simplex_plain``.  A ``main_path_summary`` for
+   ``slice12_train``: every count 0 but the simplex kernel's.
+
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
 revised launch the resident variant.  The ``kernels`` line counts the
-launches of every path, and each entry's ``serve_path_launches`` those
+launches of every path (slice 12's eval step among them), and each entry's ``serve_path_launches`` those
 of slice 7.
 
 Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
@@ -3266,6 +3294,461 @@ def lm_families_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
                 hybrid_serve=hybrid_serve, encdec=encdec, encdec_serve=encdec_serve, vlm=vlm)
 
 
+# -- slice 12: training (gemma2-2b, mamba2-130m) and the eval step under lp --
+
+#: ``lm_train_reference``'s fixture (``tools/lm_reference_fixture.py
+#: --train``: gemma2-2b at full width cut to 2 layers, three float32
+#: steps) and ``lm_eval_lp``'s (``--eval``: deepseek-v2-lite-16b, 3
+#: layers, ``router="lp"``).
+LM_TRAIN_FIXTURE = ROOT / "tests" / "data" / "lm_train_gemma2_2b_reference.npz"
+LM_EVAL_FIXTURE = ROOT / "tests" / "data" / "lm_eval_deepseek_v2_lite_reference.npz"
+#: The training gates: each step's loss and ``grad_norm`` (relative error)
+#: and each leaf's parameter change at the fixture's samples (relative L2
+#: without the fixture's ``flip_share`` of the samples that differ most:
+#: Adam steps an element by about ``lr * sign(g)``, and one whose gradient
+#: lies within rounding of zero may step either way), against the
+#: reference's float32 run and against its float64 run, each within the
+#: largest of a floor, ``LM_NOISE_FACTOR`` times the quantity's one-ulp
+#: noise and ``LM_F64_FACTOR`` times the reference's own float32 error
+#: against its float64 run.  ``lr`` equal.  The same run with TF32
+#: products must fail them.  Unlike ``lm_tolerances``, the float64 gate
+#: also takes the noise term: a quantity here is one number, and the
+#: reference's own error on it is one draw that can lie far below its
+#: noise (``grad_norm`` of step 0: 1.8e-5 against a one-ulp noise of
+#: 3.0e-4; the port on the card missed float64 by 1.8e-4), where
+#: ``lm_tolerances`` takes the largest error over a fixture's rows.
+LM_TRAIN_SCALAR_FLOOR = 1e-5
+LM_TRAIN_LEAF_FLOOR = 1e-4
+#: ``lm_train``: gemma2-2b, all 26 layers, bfloat16 with float32 master
+#: weights, remat: microbatches of rows, microbatches a step, tokens a row,
+#: timed steps after one warm-up step.
+LM_TRAIN_MICRO = 2
+LM_TRAIN_ACCUM = 2
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_TIMED = 4
+#: ``lm_train_ssm``: mamba2-130m, rows of ``LM_TRAIN_SEQ`` tokens, steps,
+#: the checkpoint interval and the preempted step.
+LM_SSM_TRAIN_BATCH = 8
+LM_SSM_TRAIN_STEPS = 5
+LM_SSM_CKPT_EVERY = 2
+LM_SSM_PREEMPT_AT = 3
+#: ``lm_eval_lp``: the eval loss against the fixture's, by the training
+#: gates' rule with this floor.
+LM_EVAL_FLOOR = 1e-5
+
+
+def lm_sample_slices(fixture):
+    """(leaf path, its sampled flat indices) for each leaf of the fixture."""
+    out, at = [], 0
+    for path, n in zip(fixture["leaf_paths"], fixture["sample_sizes"]):
+        out.append((str(path), np.asarray(fixture["sample_idx"][at:at + int(n)])))
+        at += int(n)
+    return out
+
+
+def lm_tree_samples(tree, fixture) -> np.ndarray:
+    """A reference-layout NumPy tree's values at the fixture's samples."""
+    from repro_torch.sharding import leaves
+
+    flat = {"/".join(p): a for p, a in leaves(tree)}
+    return np.concatenate([np.asarray(flat[p]).ravel()[idx].astype(np.float64)
+                           for p, idx in lm_sample_slices(fixture)])
+
+
+def lm_model_samples(model, fixture) -> np.ndarray:
+    """The model's parameters at the fixture's samples (flat indices into
+    each reference leaf, whose stacked layers are the model's in order)."""
+    from repro_torch.models.convert import reference_leaf_of
+
+    names = {}
+    for name, leaf in reference_leaf_of(model).items():
+        names.setdefault(leaf, []).append(name)
+    params = dict(model.named_parameters())
+    out = []
+    for path, idx in lm_sample_slices(fixture):
+        flat = torch.cat([params[n].detach().reshape(-1) for n in names[path]])
+        out.append(flat[torch.as_tensor(idx, device=model.device)].double().cpu().numpy())
+    return np.concatenate(out)
+
+
+def lm_train_gates(run, fixture, floor_scalar=LM_TRAIN_SCALAR_FLOOR,
+                   floor_leaf=LM_TRAIN_LEAF_FLOOR) -> dict:
+    """``run`` (``loss``, ``grad_norm``, ``lr`` a step, ``delta`` at the
+    samples) against the fixture by the training gates: each quantity's
+    error over its gate (``ratios``), the worst, and ``ok``."""
+    from repro_torch.models.convert import trimmed_rel
+
+    errors = {}  # quantity -> (error against float32, against float64, gate)
+
+    def gate(name, err, err64, floor, noise, own):
+        errors[name] = (err, err64, max(floor, LM_NOISE_FACTOR * noise, LM_F64_FACTOR * own))
+
+    for key in ("loss", "grad_norm"):
+        for i, got in enumerate(run[key]):
+            ref, f64 = float(fixture[key][i]), float(fixture[f"f64_{key}"][i])
+            gate(f"{key}[{i}]", abs(got / ref - 1.0), abs(got / f64 - 1.0), floor_scalar,
+                 float(fixture[f"noise_{key}"][i]), abs(ref / f64 - 1.0))
+    share = float(fixture["flip_share"])
+    at = 0
+    for j, (path, idx) in enumerate(lm_sample_slices(fixture)):
+        sl = slice(at, at + idx.size)
+        at += idx.size
+        got, ref, f64 = run["delta"][sl], fixture["delta"][sl], fixture["f64_delta"][sl]
+        gate(f"delta/{path}", trimmed_rel(got, ref, share), trimmed_rel(got, f64, share),
+             floor_leaf, float(fixture["noise_delta"][j]), trimmed_rel(ref, f64, share))
+    ratios = {k: max(e, e64) / tol for k, (e, e64, tol) in errors.items()}
+    lr_equal = [float(a) for a in run["lr"]] == [float(b) for b in fixture["lr_steps"]]
+    top = max(ratios, key=ratios.get)
+    return dict(worst_ratio=ratios[top], worst=top, lr_equal=lr_equal,
+                errors={k: [float(f"{x:.4g}") for x in v] for k, v in errors.items()},
+                ok=bool(ratios[top] <= 1.0 and lr_equal))
+
+
+def lm_train_run(model, fixture, batches) -> dict:
+    """The fixture's three steps of the port's train step on ``model``:
+    each step's loss, ``grad_norm`` and ``lr``, and the parameters at the
+    samples afterwards."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    ocfg = opt.OptConfig(lr=float(fixture["lr"]), warmup_steps=int(fixture["warmup_steps"]))
+    state = opt.init(dict(model.named_parameters()), ocfg)
+    step = make_train_step(model, ocfg, accum=int(fixture["accum"]), remat=True)
+    out = {"loss": [], "grad_norm": [], "lr": []}
+    for b in batches:
+        state, m = step(state, to_device(b, model.device))
+        for k in out:
+            out[k].append(float(m[k]))
+    out["after"] = lm_model_samples(model, fixture)
+    return out
+
+
+def lm_train_reference_case(rt_configs, dev) -> dict:
+    """``lm_train_reference``: the fixture's float32 run (gemma2-2b at full
+    width, cut to the fixture's depth) through the port's train step on
+    the card against the reference's, by the training gates; then the
+    same with TF32 products, which must fail them."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights, weights_digest
+
+    check(LM_TRAIN_FIXTURE.exists(), f"the training fixture {LM_TRAIN_FIXTURE} is missing")
+    fixture = dict(np.load(LM_TRAIN_FIXTURE))
+    cfg = rt_configs.get_config(str(fixture["arch"]))
+    cut = dataclasses.replace(cfg, num_layers=int(fixture["layers"]), dtype="float32")
+    t0 = time.perf_counter()
+    tree = reference_weights(cut, int(fixture["seed"]))
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
+          "lm_train_reference: the weights drawn here differ from the fixture's")
+    data = SyntheticLM(DataConfig(cut.vocab_size, int(fixture["seq"]), int(fixture["batch"]),
+                                  seed=int(fixture["seed"])))
+    batches = [data.batch(s) for s in range(int(fixture["steps"]))]
+    check(np.array_equal(np.concatenate([b["tokens"].ravel()[:16] for b in batches]),
+                         fixture["tokens_digest"]),
+          "lm_train_reference: the batches made here differ from the fixture's")
+    start = lm_tree_samples(tree, fixture)
+
+    def run(tf32: bool) -> dict:
+        model = load_reference_params(Model(cut, device=dev), tree)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            t1 = time.perf_counter()
+            out = lm_train_run(model, fixture, batches)
+            out["wall_s"] = time.perf_counter() - t1
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out["delta"] = out.pop("after") - start
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    port = run(False)
+    res = lm_train_gates(port, fixture)
+    control = lm_train_gates(run(True), fixture) if dev.type == "cuda" else None
+    emit("lm_train_reference", arch=cfg.name, layers=cut.num_layers, dtype="float32",
+         steps=len(batches), batch=int(fixture["batch"]), seq=int(fixture["seq"]),
+         accum=int(fixture["accum"]), weights_s=gen_s, wall_s=port["wall_s"],
+         loss=port["loss"], reference_loss=fixture["loss"].tolist(),
+         grad_norm=port["grad_norm"], reference_grad_norm=fixture["grad_norm"].tolist(),
+         lr=port["lr"], floors=[LM_TRAIN_SCALAR_FLOOR, LM_TRAIN_LEAF_FLOOR],
+         samples=int(fixture["sample_idx"].size), flip_share=float(fixture["flip_share"]),
+         tf32_control=None if control is None else
+         dict(worst_ratio=control["worst_ratio"], worst=control["worst"], ok=control["ok"]),
+         **res)
+    check(res["ok"], f"lm_train_reference: the port's steps differ from the fixture's: "
+                     f"{res['worst']} at {res['worst_ratio']} of its gate")
+    check(control is None or not control["ok"],
+          "lm_train_reference: the gates pass the TF32 control too")
+    return res
+
+
+def lm_train_bound(model, tokens: int, batch: int, seq: int) -> dict:
+    """The least time of a train step on the card, from the code's work:
+    the products with the weights (the tied unembedding included) at
+    ``8 N tokens`` (forward, recomputed forward, backward) at the bfloat16
+    peak; the attention's causal score products (within the window) run
+    as forward, recompute and backward: those whose operands are bfloat16
+    (q k^T twice, dO v^T once) at the bfloat16 peak, the five with a
+    float32 operand (p v twice, and the gradients of v, q and k) at the
+    float32 peak; the update's 30 bytes a parameter (float32 gradient,
+    m, v and master read, m, v and master written, the bfloat16 parameter
+    written) at the memory rate."""
+    cfg = model.cfg
+    n_mm = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    flops_mm = 8.0 * n_mm * tokens
+    windows = lm_self_windows(model)
+    pairs = sum(lm_keys(windows, q) for q in range(seq))  # (query, key) pairs, all layers
+    unit = 2.0 * (tokens // seq) * cfg.num_heads * cfg.head_dim * pairs
+    flops_bf16 = flops_mm + 3 * unit
+    flops_f32 = 5 * unit
+    params = sum(p.numel() for p in model.parameters())
+    update_bytes = 30.0 * params
+    ms = dict(matmul_ms=flops_mm / PEAK_FLOPS_BF16 * 1e3,
+              attention_ms=(3 * unit / PEAK_FLOPS_BF16 + flops_f32 / PEAK_FLOPS[torch.float32])
+              * 1e3, update_ms=update_bytes / HBM_BYTES_PER_S * 1e3)
+    return dict(bound_ms=sum(ms.values()), flops_bf16=flops_bf16, flops_f32=flops_f32,
+                update_bytes=update_bytes, **ms)
+
+
+def lm_timed_driver(model, step_fn, data, ckpt_dir, events, every=10 ** 9):
+    """A ``TrainDriver`` over ``data`` whose steps are bracketed by CUDA
+    events (appended to ``events``), logging every step."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.runtime.fault import DriverConfig, TrainDriver
+
+    def timed(state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(state, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return TrainDriver(DriverConfig(ckpt_dir, ckpt_every=every, log_every=1), model, timed,
+                       data.batch, put_fn=lambda b: to_device(b, model.device))
+
+
+def lm_train_case(rt_configs, dev, *, seed) -> dict:
+    """``lm_train``: gemma2-2b at full width and depth in bfloat16 with
+    float32 master weights, remat and ``accum`` microbatches, on
+    ``SyntheticLM``, through ``TrainDriver`` with checkpointing off: one
+    warm-up step, then ``LM_TRAIN_TIMED`` timed ones."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    model = lm_init_model(rt_configs, dev, "gemma2-2b", seed, "lm_train_setup")
+    cfg = model.cfg
+    batch = LM_TRAIN_MICRO * LM_TRAIN_ACCUM
+    ocfg = opt.OptConfig()
+    torch.cuda.reset_peak_memory_stats()
+    state = opt.init(dict(model.named_parameters()), ocfg)
+    step = make_train_step(model, ocfg, accum=LM_TRAIN_ACCUM, remat=True)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ, batch, seed=seed))
+    events = []
+    t0 = time.perf_counter()
+    state, hist = lm_timed_driver(model, step, data, None, events).run(state, 1 + LM_TRAIN_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [s.elapsed_time(e) for s, e in events]
+    timed = ms[1:]
+    tokens = batch * LM_TRAIN_SEQ
+    bound = lm_train_bound(model, tokens, batch, LM_TRAIN_SEQ)
+    losses = [m["loss"] for _, m in hist]
+    res = dict(step_ms_median=float(np.median(timed)), step_ms_min=float(min(timed)),
+               step_ms_max=float(max(timed)), warmup_step_ms=ms[0],
+               tokens_per_s=tokens / (float(np.median(timed)) * 1e-3),
+               loss=losses, grad_norm=[m["grad_norm"] for _, m in hist],
+               lr=[m["lr"] for _, m in hist], peak_memory_bytes=peak,
+               bound_share=bound["bound_ms"] / float(np.median(timed)), wall_s=wall, **bound)
+    emit("lm_train", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         params=sum(p.numel() for p in model.parameters()), micro_batch=LM_TRAIN_MICRO,
+         accum=LM_TRAIN_ACCUM, seq=LM_TRAIN_SEQ, tokens_per_step=tokens, remat=True,
+         master_weights=ocfg.master_weights, nvidia_smi=smi_line(), **res)
+    check(all(np.isfinite(losses)) and all(np.isfinite(res["grad_norm"])),
+          f"lm_train: non-finite loss or grad_norm: {losses}, {res['grad_norm']}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_train_ssm_case(rt_configs, dev, *, seed) -> dict:
+    """``lm_train_ssm``: mamba2-130m at full width and depth in bfloat16,
+    ``LM_SSM_TRAIN_BATCH`` rows of ``LM_TRAIN_SEQ`` tokens a step.  An
+    uninterrupted run, then a run checkpointed every ``LM_SSM_CKPT_EVERY``
+    steps and preempted at ``LM_SSM_PREEMPT_AT``, resumed by a new model
+    and driver from the newest checkpoint: its parameters and optimizer
+    state bit-equal to the uninterrupted run's (deterministic algorithms
+    on).  Step ms, the checkpoints' bytes and write ms."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.runtime.fault import Preemption
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = rt_configs.get_config("mamba2-130m")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ, LM_SSM_TRAIN_BATCH, seed=seed))
+    torch.cuda.reset_peak_memory_stats()
+
+    def setup(ckpt_dir, events):
+        model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+        ocfg = opt.OptConfig(lr=1e-3, warmup_steps=2)
+        state = opt.init(dict(model.named_parameters()), ocfg)
+        driver = lm_timed_driver(model, make_train_step(model, ocfg, remat=True), data,
+                                 ckpt_dir, events, every=LM_SSM_CKPT_EVERY)
+        return model, state, driver
+
+    writes = []
+    save = ckpt.save
+
+    def timed_save(directory, step, tree):
+        t1 = time.perf_counter()
+        final = save(directory, step, tree)
+        writes.append(dict(step=step, ms=(time.perf_counter() - t1) * 1e3,
+                           bytes=os.path.getsize(os.path.join(final, "arrays.npz"))))
+        return final
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ckpt.save = timed_save
+    try:
+        events = []
+        model_a, state_a, driver = setup(None, events)
+        state_a, hist_a = driver.run(state_a, LM_SSM_TRAIN_STEPS)
+        with tempfile.TemporaryDirectory() as tmp:
+            _, state_b, driver = setup(tmp, [])
+            try:
+                driver.run(state_b, LM_SSM_TRAIN_STEPS, preempt_at=LM_SSM_PREEMPT_AT)
+                preempted = False
+            except Preemption:
+                preempted = True
+            resumed_from = ckpt.latest_step(tmp)
+            del driver, state_b
+            model_c, state_c, driver = setup(tmp, [])
+            with torch.no_grad():  # the restore must overwrite these
+                for p in model_c.parameters():
+                    p.zero_()
+            state_c, hist_c = driver.run(state_c, LM_SSM_TRAIN_STEPS)
+    finally:
+        ckpt.save = save
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    same = [torch.equal(bits(a), bits(b)) if a.dtype != torch.bfloat16 else
+            torch.equal(a.view(torch.int16), b.view(torch.int16))
+            for a, b in zip(model_a.parameters(), model_c.parameters())]
+    same_state = all(torch.equal(bits(getattr(state_a, f)[k]), bits(getattr(state_c, f)[k]))
+                     for f in ("m", "v", "master") for k in state_a.m)
+    ms = [s.elapsed_time(e) for s, e in events]
+    res = dict(steps=LM_SSM_TRAIN_STEPS, preempted_at=LM_SSM_PREEMPT_AT if preempted else None,
+               resumed_from=resumed_from, resumed_steps=[s for s, _ in hist_c],
+               params_bit_equal=sum(same), params=len(same), opt_state_bit_equal=same_state,
+               loss=[m["loss"] for _, m in hist_a],
+               resumed_loss=[m["loss"] for _, m in hist_c],
+               step_ms_median=float(np.median(ms[1:])), warmup_step_ms=ms[0],
+               tokens_per_s=LM_SSM_TRAIN_BATCH * LM_TRAIN_SEQ / (float(np.median(ms[1:])) * 1e-3),
+               checkpoint_writes=writes, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit("lm_train_ssm", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         batch=LM_SSM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, ckpt_every=LM_SSM_CKPT_EVERY,
+         deterministic_algorithms=True, nvidia_smi=smi_line(), **res)
+    check(preempted and resumed_from == LM_SSM_PREEMPT_AT - 1
+          and res["resumed_steps"][0] == resumed_from,
+          f"lm_train_ssm: preempted {preempted}, resumed from {resumed_from}")
+    check(all(same) and same_state,
+          f"lm_train_ssm: {sum(same)} of {len(same)} parameters bit-equal after the restart, "
+          f"optimizer state equal: {same_state}")
+    check(all(np.isfinite(res["loss"])), f"lm_train_ssm: non-finite loss {res['loss']}")
+    del model_a, model_c, state_a, state_c, driver
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_eval_lp_case(rt_configs, dev, *, counters) -> dict:
+    """``lm_eval_lp``: deepseek-v2-lite-16b at the fixture's depth in
+    float32, ``make_eval_step`` under ``router="lp"`` on the fixture's
+    batch: the loss against the reference's eval loss (the training
+    gates' rule), one simplex launch a MoE layer, all of the cluster
+    variant, and every captured LP bit-identical on ``simplex_plain``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import simplex_cuda
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights, weights_digest
+    from repro_torch.train.train_step import make_eval_step
+
+    check(LM_EVAL_FIXTURE.exists(), f"the eval fixture {LM_EVAL_FIXTURE} is missing")
+    fixture = dict(np.load(LM_EVAL_FIXTURE))
+    cfg = rt_configs.get_config(str(fixture["arch"]))
+    cut = dataclasses.replace(cfg, num_layers=int(fixture["layers"]), router=str(fixture["router"]),
+                              dtype="float32")
+    t0 = time.perf_counter()
+    tree = reference_weights(cut, int(fixture["seed"]))
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
+          "lm_eval_lp: the weights drawn here differ from the fixture's")
+    model = load_reference_params(Model(cut, device=dev), tree)
+    del tree
+    batch = SyntheticLM(DataConfig(cut.vocab_size, int(fixture["seq"]), int(fixture["batch"]),
+                                   seed=int(fixture["seed"]))).batch(0)
+    check(np.array_equal(batch["tokens"].ravel()[:64], fixture["tokens_digest"]),
+          "lm_eval_lp: the batch made here differs from the fixture's")
+    eval_step = make_eval_step(model)
+    before = launch_counts(counters)
+    with SimplexSpy(simplex_cuda) as spy:
+        t1 = time.perf_counter()
+        loss = float(eval_step(to_device(batch, dev)))
+        wall = time.perf_counter() - t1
+    launched = count_delta(counters, before)
+    replayed = [replay_plain(rec) for rec in spy.records]
+    ref, f64 = float(fixture["loss"]), float(fixture["f64_loss"])
+    own = abs(ref / f64 - 1.0)
+    tol = max(LM_EVAL_FLOOR, LM_NOISE_FACTOR * float(fixture["noise_loss"]), LM_F64_FACTOR * own)
+    tol64 = max(LM_EVAL_FLOOR, LM_F64_FACTOR * own)
+    err, err64 = abs(loss / ref - 1.0), abs(loss / f64 - 1.0)
+    n_moe = moe_layer_count(model)
+    res = dict(loss=loss, reference_loss=ref, f64_loss=f64, err=err, tol=tol, err_f64=err64,
+               tol_f64=tol64, router_lps=spy.calls, reference_router_lps=int(fixture["router_lps"]),
+               simplex_launches=launched["simplex"],
+               simplex_cluster_launches=launched["simplex.cluster"],
+               captured_bit_identical=sum(replayed), wall_s=wall, weights_s=gen_s,
+               ok=bool(err <= tol and err64 <= tol64))
+    emit("lm_eval_lp", arch=cfg.name, layers=cut.num_layers, moe_layers=n_moe,
+         batch=int(fixture["batch"]), seq=int(fixture["seq"]), **res)
+    check(res["ok"], f"lm_eval_lp: the eval loss {loss} differs from the reference's {ref}")
+    check(spy.calls == n_moe == int(fixture["router_lps"]) and launched["simplex"] == n_moe
+          and launched["simplex.cluster"] == n_moe,
+          f"lm_eval_lp: {spy.calls} router LPs, launches {launched}, not {n_moe}")
+    check(all(replayed), f"lm_eval_lp: {sum(replayed)} of {len(replayed)} captured router LPs "
+                         "bit-identical to simplex_plain")
+    del model, eval_step
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_train_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
+    """Slice 12, training: ``lm_train_reference``, ``lm_train``,
+    ``lm_train_ssm`` and ``lm_eval_lp``, with the launch counts set to 0
+    before and read after: only the simplex kernel launches, from the
+    eval step's router LPs."""
+    reset()
+    t0 = time.perf_counter()
+    reference = lm_train_reference_case(rt_configs, dev)
+    train = lm_train_case(rt_configs, dev, seed=seed)
+    ssm = lm_train_ssm_case(rt_configs, dev, seed=seed)
+    evl = lm_eval_lp_case(rt_configs, dev, counters=counters)
+    launched = launch_counts(counters)
+    emit("main_path_summary", path="slice12_train", launches=launched,
+         wall_s=time.perf_counter() - t0)
+    check(not any(v for k, v in launched.items() if not k.startswith("simplex")),
+          f"the training paths launched another kernel of the port: {launched}")
+    check(launched["simplex"] == launched["simplex.cluster"] == evl["simplex_launches"] > 0,
+          f"the eval step's simplex launches are not all of the cluster variant: {launched}")
+    return dict(reference=reference, train=train, ssm=ssm, eval=evl, launches=launched)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of every generated input")
@@ -3725,8 +4208,14 @@ def run(args, pool) -> int:
     # kernel of the port on them; the counts must not move).
     lm_families_phase(rt_configs, dev, seed=args.seed, counters=counters, reset=reset_counts)
 
+    # Slice 12, training: gemma2-2b and mamba2-130m train steps (no kernel of
+    # the port), and the eval step under router="lp" on deepseek-v2-lite-16b
+    # (one simplex launch a MoE layer).
+    slice12 = lm_train_phase(rt_configs, dev, seed=args.seed, counters=counters,
+                             reset=reset_counts)["launches"]
+
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
-                + slice10[k] for k in slice1}
+                + slice10[k] + slice12[k] for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -1,1 +1,2 @@
-"""Command-line entry points, after ``repro/launch``: ``serve_lp``."""
+"""Command-line entry points, after ``repro/launch``: ``serve_lp``, ``train``
+(and ``op_stats``, the operation counter)."""

@@ -1,0 +1,81 @@
+"""End-to-end training driver (fault-tolerant).
+
+Follows ``repro/launch/train.py``, with the same flags and ``--device``
+(default: the card; ``cpu`` to run on the host).  Weights come from
+``Model.init`` with a ``torch.Generator`` seeded ``--seed``.
+
+Examples:
+  # reduced-config smoke train on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch mamba2-130m \\
+      --reduced --seq 256 --batch 8 --steps 50 --ckpt ck
+
+  # resume after a crash: the identical command restores the newest checkpoint.
+
+The reference's ``tpu_env_flags`` (XLA flags for TPU pods) and its
+buffer donation have no counterpart here.  ``--model-axis`` above 1
+(tensor parallelism over a device mesh) comes with the multi-device
+slice (``ROADMAP.md``, item 6.5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+import torch
+
+from ..configs import ARCH_IDS, get_config
+from ..core.lp import resolve_device
+from ..data.pipeline import DataConfig, SyntheticLM, to_device
+from ..models.model import Model
+from ..runtime.fault import DriverConfig, TrainDriver
+from ..train import optimizer as opt_mod
+from ..train.train_step import make_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default="mamba2-130m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--preempt-at", type=int, default=None,
+                    help="simulate a failure at this step (testing)")
+    ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+    if args.model_axis != 1:
+        raise NotImplementedError(
+            "--model-axis above 1 needs the multi-device slice (ROADMAP.md, item 6.5)")
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(args.seed))
+    ocfg = opt_mod.OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1))
+    opt_state = opt_mod.init(dict(model.named_parameters()), ocfg)
+    step_fn = make_train_step(model, ocfg, accum=args.accum, remat=True)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch, seed=args.seed))
+
+    def log(step, m):
+        print(f"step {step:5d} loss {m['loss']:.4f} gnorm {m['grad_norm']:.3f} "
+              f"lr {m['lr']:.2e} {m['steps_per_s']:.2f} it/s", flush=True)
+
+    driver = TrainDriver(
+        DriverConfig(args.ckpt, ckpt_every=args.ckpt_every, log_every=10),
+        model, train_step=step_fn, data_fn=data.batch,
+        put_fn=lambda b: to_device(b, dev), log_fn=log,
+    )
+    opt_state, hist = driver.run(opt_state, args.steps, preempt_at=args.preempt_at)
+    print(f"done: final loss {hist[-1][1]['loss']:.4f}")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

@@ -16,8 +16,18 @@ take their weights from NumPy:
   ``Model`` (layer ``i`` of group ``gj`` into ``layers.(o + i)``, where
   ``o`` counts the layers of the groups before it; an unstacked leaf
   under its own path), casting to each parameter's dtype;
-  ``reference_params(model)`` is the way back.
+  ``reference_params(model)`` is the way back (``exact=True`` keeps
+  each parameter's dtype, bfloat16 included, as CPU tensors);
+* ``reference_leaf_of(model)`` names each parameter's reference leaf
+  (the int8 gradient transform shares a scale over it);
+* ``reference_opt_state(model, state)`` and
+  ``load_reference_opt_state(model, tree)`` move the optimizer state
+  (``train/optimizer.py:OptState``: ``step``, ``m``, ``v``, ``master``)
+  between the port's name-keyed dicts and the reference's layout (the
+  same stacked ``g{i}`` leaves), so that a checkpoint of ``{"params",
+  "opt"}`` restores in either package.
 
+``trimmed_rel`` compares the training fixtures' parameter changes.
 ``logit_summary`` and ``compare_to_summary`` reduce logits to what a
 committed fixture stores (a fixed vocabulary subset, the argmax, the
 logsumexp, the top-2 margin) and hold new logits against it;
@@ -108,15 +118,22 @@ def weights_digest(tree, head: int = 8) -> np.ndarray:
                            for _, a in leaves(tree)])
 
 
-def load_reference_params(model: Model, tree) -> Model:
-    """Copy a reference-layout tree into ``model`` (cast to each parameter's
-    dtype, moved to its device).  A missing, extra or misshapen leaf raises."""
-    params = dict(model.named_parameters())
+def _tensor(arr) -> torch.Tensor:
+    """A NumPy array or a tensor as a tensor (NumPy's bits kept)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach()
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _copy_from_reference(model: Model, tree, targets: Dict[str, torch.Tensor]) -> None:
+    """Copy a reference-layout tree into ``targets`` (parameter name ->
+    tensor of the parameter's shape; cast to each target's dtype, moved
+    to its device).  A missing, extra or misshapen leaf raises."""
     offsets = _group_offsets(model.cfg)
     seen = set()
     with torch.no_grad():
         for path, arr in leaves(tree):
-            arr = np.asarray(arr)
+            arr = _tensor(arr)
             if path[0] in offsets:
                 o = offsets[path[0]]
                 names = [f"layers.{o + i}.{'.'.join(path[1:])}" for i in range(arr.shape[0])]
@@ -124,40 +141,109 @@ def load_reference_params(model: Model, tree) -> Model:
             else:
                 names, parts = [".".join(path)], [arr]
             for name, part in zip(names, parts):
-                if name not in params:
+                if name not in targets:
                     raise KeyError(f"{'/'.join(path)}: the model has no parameter {name}")
-                p = params[name]
-                if tuple(p.shape) != tuple(part.shape):
-                    raise ValueError(f"{name}: shape {tuple(part.shape)} != {tuple(p.shape)}")
-                p.copy_(torch.from_numpy(np.ascontiguousarray(part)))
+                t = targets[name]
+                if tuple(t.shape) != tuple(part.shape):
+                    raise ValueError(f"{name}: shape {tuple(part.shape)} != {tuple(t.shape)}")
+                t.copy_(part)
                 seen.add(name)
-    missing = sorted(set(params) - seen)
+    missing = sorted(set(targets) - seen)
     if missing:
         raise KeyError(f"the tree has no weights for {missing}")
+
+
+def load_reference_params(model: Model, tree) -> Model:
+    """Copy a reference-layout tree (NumPy arrays or tensors) into
+    ``model`` (cast to each parameter's dtype, moved to its device).  A
+    missing, extra or misshapen leaf raises."""
+    _copy_from_reference(model, tree, dict(model.named_parameters()))
     return model
 
 
-def reference_params(model: Model):
-    """The model's parameters as a reference-layout NumPy tree (bfloat16
-    parameters come back as float32)."""
+def _to_reference(model: Model, named: Dict[str, torch.Tensor], exact: bool):
+    """Name-keyed tensors of the parameters' shapes as a reference-layout
+    tree: NumPy (bfloat16 widened to float32), or with ``exact`` CPU
+    tensors of their own dtype."""
     cfg = model.cfg
     offsets = _group_offsets(cfg)
     counts = {f"g{i}": g.count for i, g in enumerate(plan(cfg))}
     tree: Dict = {}
 
-    def arr(t: torch.Tensor) -> np.ndarray:
+    def arr(t: torch.Tensor):
         t = t.detach().cpu()
+        if exact:
+            return t
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
+    stack = torch.stack if exact else np.stack
     for path, _ in leaves(_reference_specs(cfg)):
         if path[0] in offsets:
             sub, o = ".".join(path[1:]), offsets[path[0]]
-            parts = [arr(model.get_parameter(f"layers.{o + i}.{sub}"))
-                     for i in range(counts[path[0]])]
-            _set(tree, path, np.stack(parts))
+            parts = [arr(named[f"layers.{o + i}.{sub}"]) for i in range(counts[path[0]])]
+            _set(tree, path, stack(parts))
         else:
-            _set(tree, path, arr(model.get_parameter(".".join(path))))
+            _set(tree, path, arr(named[".".join(path)]))
     return tree
+
+
+def reference_params(model: Model, exact: bool = False):
+    """The model's parameters as a reference-layout tree: NumPy arrays
+    (bfloat16 parameters come back as float32), or with ``exact`` CPU
+    tensors in each parameter's own dtype (a bfloat16 parameter keeps its
+    bits)."""
+    return _to_reference(model, dict(model.named_parameters()), exact)
+
+
+def reference_leaf_of(model: Model) -> Dict[str, str]:
+    """Each parameter's leaf in the reference's tree, by name: the path
+    joined with ``/`` (``layers.3.attn.wq`` -> ``g0/attn/wq`` when layer 3
+    lies in group ``g0``)."""
+    offsets = _group_offsets(model.cfg)
+    counts = {f"g{i}": g.count for i, g in enumerate(plan(model.cfg))}
+    out = {}
+    for path, _ in leaves(_reference_specs(model.cfg)):
+        if path[0] in offsets:
+            sub, o = ".".join(path[1:]), offsets[path[0]]
+            for i in range(counts[path[0]]):
+                out[f"layers.{o + i}.{sub}"] = "/".join(path)
+        else:
+            out[".".join(path)] = "/".join(path)
+    return out
+
+
+def reference_opt_state(model: Model, state):
+    """The port's ``OptState`` (name-keyed float32 dicts) in the
+    reference's layout: an ``OptState`` whose ``m``, ``v`` and ``master``
+    (``None`` if absent) are reference-layout trees of CPU tensors, and
+    ``step`` a () int32 CPU tensor."""
+    def tree(d):
+        return None if d is None else _to_reference(model, d, exact=True)
+
+    return type(state)(state.step.detach().cpu(), tree(state.m), tree(state.v),
+                       tree(state.master))
+
+
+def load_reference_opt_state(model: Model, tree):
+    """A reference-layout optimizer state (``step``, ``m``, ``v``,
+    ``master``; NumPy arrays or tensors; any object with those fields) as
+    the port's ``OptState`` on the model's device, float32 moments and
+    master, an int32 ``step``."""
+    from ..train.optimizer import OptState
+
+    dev = model.device
+
+    def named(t):
+        if t is None:
+            return None
+        out = {n: torch.empty(p.shape, dtype=torch.float32, device=dev)
+               for n, p in model.named_parameters()}
+        _copy_from_reference(model, t, out)
+        return out
+
+    step = _tensor(np.asarray(tree.step) if not isinstance(tree.step, torch.Tensor)
+                   else tree.step).to(device=dev, dtype=torch.int32).reshape(())
+    return OptState(step, named(tree.m), named(tree.v), named(tree.master))
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +279,20 @@ def rel_l2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """``||a - b|| / ||b||`` over the last axis, in float64."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
+def trimmed_rel(a, b, share: float) -> float:
+    """Relative L2 of ``a`` against ``b`` without the ``share`` of the
+    elements (at least one) that differ most: the training fixtures'
+    comparison of parameter changes, where Adam steps an element by about
+    ``lr * sign(g)`` and an element whose gradient lies within rounding of
+    zero may step either way."""
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    keep = np.argsort(np.abs(a - b))[:a.size - max(1, int(a.size * share))]
+    if not keep.size:
+        return 0.0
+    nb = np.linalg.norm(b[keep])
+    return float(np.linalg.norm(a[keep] - b[keep]) / nb) if nb else float(np.any(a[keep] != 0))
 
 
 def fixture_view(fixture, router: str) -> Dict[str, np.ndarray]:

@@ -10,6 +10,13 @@ attention block is ``shared_attn``, run before each sub-stack of
 is ``enc_norm``.  The reference's ``params`` argument is gone: the
 module holds its parameters.
 
+``forward(inputs, remat=True)`` recomputes each layer in the backward
+pass: one ``torch.utils.checkpoint.checkpoint`` a layer (and a zamba2
+shared-block site), where the reference wraps its scanned layers in
+``jax.checkpoint`` with the ``nothing_saveable`` policy.  Only the layer
+boundaries stay alive between the forward and the backward; the losses
+and gradients are the same bits as without it.
+
 Caches are preallocated tensors, written in place by ``prefill`` and
 ``decode_step`` (the reference donates them to its jitted step): a list
 with one dict a layer, then one a shared-attention site (zamba2).  GQA
@@ -27,6 +34,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.lp import resolve_device
 from ..sharding import ParamSpec, leaves, materialize
@@ -192,32 +200,41 @@ class Model(nn.Module):
     def _layer_cache(self, cache, i):
         return cache[i] if cache is not None else None
 
-    def _run(self, inputs, *, cache=None, cache_index=None, offset: int = 0) -> torch.Tensor:
+    @staticmethod
+    def _block_out(block, x, remat: bool, **kw) -> torch.Tensor:
+        """``block(x, **kw)``'s hidden states; with ``remat`` (and grad mode
+        on) recomputed in the backward pass instead of kept."""
+        if remat and torch.is_grad_enabled():
+            return checkpoint(lambda h: block(h, **kw)[0], x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return block(x, **kw)[0]
+
+    def _run(self, inputs, *, cache=None, cache_index=None, offset: int = 0,
+             remat: bool = False) -> torch.Tensor:
         x = self._embed_inputs(inputs)
         b, s = x.shape[0], x.shape[1]
         positions = self._positions(inputs, b, s, offset)
         if self._hybrid():
-            x = self._run_hybrid(x, positions, cache, cache_index)
+            x = self._run_hybrid(x, positions, cache, cache_index, remat=remat)
         else:
             for i, layer in enumerate(self.layers):
-                x, _ = layer(x, positions=positions, cache=self._layer_cache(cache, i),
-                             cache_index=cache_index)
+                x = self._block_out(layer, x, remat, positions=positions,
+                                cache=self._layer_cache(cache, i), cache_index=cache_index)
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
 
-    def _run_hybrid(self, x, positions, cache, cache_index):
+    def _run_hybrid(self, x, positions, cache, cache_index, remat: bool = False):
         """zamba2: the shared block (site j's own cache) before each
         sub-stack of ``shared_attn_every`` mamba layers."""
         every, n = self.cfg.shared_attn_every, self.cfg.num_layers
         for site, lo in enumerate(range(0, n, every)):
-            x, _ = self.shared_attn(x, positions=positions,
-                                    cache=self._layer_cache(cache, n + site),
-                                    cache_index=cache_index)
+            x = self._block_out(self.shared_attn, x, remat, positions=positions,
+                            cache=self._layer_cache(cache, n + site), cache_index=cache_index)
             for i in range(lo, min(lo + every, n)):
-                x, _ = self.layers[i](x, cache=self._layer_cache(cache, i),
-                                      cache_index=cache_index)
+                x = self._block_out(self.layers[i], x, remat, cache=self._layer_cache(cache, i),
+                                cache_index=cache_index)
         return x
 
-    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The encoder: frames (B, Senc, D) plus sinusoidal positions,
         the encoder layers, ``enc_norm``."""
         cfg = self.cfg
@@ -227,30 +244,32 @@ class Model(nn.Module):
         x = frames + pos_table[None]
         positions = self._positions({}, b, senc)
         for layer in self.layers[:cfg.enc_layers]:
-            x, _ = layer(x, positions=positions)
+            x = self._block_out(layer, x, remat, positions=positions)
         return rmsnorm(x, self.enc_norm, cfg.norm_eps)
 
     def _decode_stack(self, tokens, *, enc_out=None, cache=None, cache_index=None,
-                      offset: int = 0) -> torch.Tensor:
+                      offset: int = 0, remat: bool = False) -> torch.Tensor:
         """The decoder layers over ``tokens`` at positions from ``offset``."""
         cfg = self.cfg
         x = embed(tokens, self.embed["embedding"], cfg)
         positions = self._positions({}, x.shape[0], x.shape[1], offset)
         for i in range(cfg.enc_layers, len(self.layers)):
-            x, _ = self.layers[i](x, positions=positions, enc_out=enc_out,
-                                  cache=self._layer_cache(cache, i), cache_index=cache_index)
+            x = self._block_out(self.layers[i], x, remat, positions=positions, enc_out=enc_out,
+                            cache=self._layer_cache(cache, i), cache_index=cache_index)
         return rmsnorm(x, self.final_norm, cfg.norm_eps)
 
-    def _forward_encdec(self, inputs, *, cache=None, cache_index=None) -> torch.Tensor:
-        enc_out = self._encode(inputs["frames"])
+    def _forward_encdec(self, inputs, *, cache=None, cache_index=None,
+                        remat: bool = False) -> torch.Tensor:
+        enc_out = self._encode(inputs["frames"], remat=remat)
         return self._decode_stack(inputs["tokens"], enc_out=enc_out, cache=cache,
-                                  cache_index=cache_index, offset=cache_index or 0)
+                                  cache_index=cache_index, offset=cache_index or 0, remat=remat)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Final hidden states (B, S, D) of the full forward."""
+    def forward(self, inputs: Dict[str, torch.Tensor], remat: bool = False) -> torch.Tensor:
+        """Final hidden states (B, S, D) of the full forward; ``remat``
+        recomputes each layer in the backward pass (the module's docstring)."""
         if self.cfg.family == "encdec":
-            return self._forward_encdec(inputs)
-        return self._run(inputs)
+            return self._forward_encdec(inputs, remat=remat)
+        return self._run(inputs, remat=remat)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden, self.embed.get("unembed", self.embed["embedding"]), self.cfg)

@@ -1,2 +1,4 @@
-"""Robustness: seeded fault injection (``chaos.py``) and straggler
-mitigation (``straggler.py``), after ``repro/runtime``."""
+"""Robustness: seeded fault injection (``chaos.py``), straggler
+mitigation (``straggler.py``) and the restartable training driver
+(``fault.py``), after ``repro/runtime``; the autotuner and the roofline
+model (``autotune.py``, ``roofline.py``)."""

@@ -1218,3 +1218,147 @@ def test_family_engine_on_the_card_by_default(arch):
     ref = Engine(host, max_len=34, enc_len=enc_len, device="cpu").generate(inputs, steps=10)
     agree = (out.cpu() == ref).int().cumprod(dim=1).sum(dim=1)
     assert int(agree.min()) >= 1
+
+
+# ---------------------------------------------------------------------------
+# Training (slice 12)
+# ---------------------------------------------------------------------------
+
+#: A train step on the card against the CPU, float32 with TF32 off: the two
+#: devices sum in other orders, so the gradients differ at rounding level
+#: (about 5e-5 relative on these configs) and Adam's first step moves an
+#: element whose gradient lies within rounding of zero either way.  Gates:
+#: the loss of each step, its grad_norm, and each parameter's change
+#: without its most differing 0.1% of elements (relative L2).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_CHANGE_RTOL = 1e-2
+TRAIN_ARCHS = ["gemma2-2b", "deepseek-v2-lite-16b", "mamba2-130m", "zamba2-7b",
+               "seamless-m4t-large-v2", "qwen2-vl-72b"]
+
+
+def _train_inputs(cfg, step, device):
+    from repro_torch import configs
+
+    out = configs.make_inputs(cfg, configs.Shape("t", 24, 4, "train"), step, device="cpu")
+    if cfg.mrope_sections:
+        out["positions"] = torch.as_tensor(configs.mrope_positions(4, 24, cfg.num_patches, step))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def _train_two_steps(cfg, tree, device):
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    model = load_reference_params(Model(cfg, device=device), tree)
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=2)
+    state = optimizer.init(dict(model.named_parameters()), ocfg)
+    step = make_train_step(model, ocfg, accum=2, remat=True)
+    metrics = []
+    for s in range(2):
+        state, m = step(state, _train_inputs(cfg, s, device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return model, state, metrics
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights, trimmed_rel
+
+    _need_card()
+    cfg = configs.get_config(arch, reduced=True)
+    tree = reference_weights(cfg, 3)
+    card, card_state, card_m = _train_two_steps(cfg, tree, torch.device("cuda"))
+    host, host_state, host_m = _train_two_steps(cfg, tree, torch.device("cpu"))
+    assert card.device.type == "cuda" and card_state.m["embed.embedding"].device.type == "cuda"
+    for a, b in zip(card_m, host_m):
+        assert abs(a["loss"] / b["loss"] - 1) <= TRAIN_LOSS_RTOL, (a, b)
+        assert abs(a["grad_norm"] / b["grad_norm"] - 1) <= TRAIN_NORM_RTOL, (a, b)
+        assert a["lr"] == b["lr"]
+    start = dict(load_reference_params(Model(cfg, device="cpu"), tree).named_parameters())
+    for (n, p), q in zip(card.named_parameters(), host.parameters()):
+        p0 = start[n].detach()
+        assert trimmed_rel((p.detach().cpu() - p0).numpy(), (q.detach() - p0).numpy(), 1e-3) \
+            <= TRAIN_CHANGE_RTOL, n
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-lite-16b"])
+def test_eval_step_under_lp_launches_the_simplex_kernel_per_moe_layer(arch):
+    """``make_eval_step`` under ``router="lp"`` on the card: one simplex
+    launch a MoE layer, all of the cluster variant, each launch's LP
+    bit-identical on ``simplex_plain``, and the loss the CPU's within
+    float32 rounding."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights
+    from repro_torch.train.train_step import make_eval_step
+
+    _need_card()
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), router="lp")
+    tree = reference_weights(cfg, 3)
+    card = load_reference_params(Model(cfg), tree)
+    batch = _train_inputs(cfg, 0, torch.device("cuda"))
+    records = []
+    orig = simplex_cuda.simplex
+
+    def spy(tab, basis, phase, c_ext, feas, cap, **kw):
+        inputs = [t.clone() for t in (tab, basis, phase, c_ext, feas)]
+        out = orig(tab, basis, phase, c_ext, feas, cap, **kw)
+        records.append((inputs, cap, kw, basis.clone(), [t.clone() for t in out]))
+        return out
+
+    before, cluster = simplex_cuda.launches, simplex_cuda.variant_launches["cluster"]
+    simplex_cuda.simplex = spy
+    try:
+        loss = float(make_eval_step(card)(batch))
+    finally:
+        simplex_cuda.simplex = orig
+    n_moe = sum(k.endswith("_moe") for k in card.kinds())
+    assert simplex_cuda.launches - before == len(records) == n_moe
+    assert simplex_cuda.variant_launches["cluster"] - cluster == n_moe
+    for inputs, cap, kw, basis, out in records:
+        tab, b, ph, c_ext, feas = (t.clone() for t in inputs)
+        plain = simplex_cuda.simplex_plain(tab, b, ph, c_ext, feas, cap, **kw)
+        assert all(_same(x, y) for x, y in zip(list(plain) + [b], out + [basis]))
+    host = load_reference_params(Model(cfg, device="cpu"), tree)
+    want = float(make_eval_step(host)({k: v.cpu() for k, v in batch.items()}))
+    assert abs(loss / want - 1) <= TRAIN_LOSS_RTOL
+
+
+def test_checkpoint_written_on_the_card_restores_on_the_cpu(tmp_path):
+    """The driver's checkpoint of a model and optimizer state on the card
+    restores on the CPU with the same bits (bfloat16 parameters too)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.models import Model
+    from repro_torch.runtime.fault import DriverConfig, TrainDriver
+    from repro_torch.train import optimizer
+
+    _need_card()
+    cfg = dataclasses.replace(configs.get_config("mamba2-130m", reduced=True), dtype="bfloat16")
+    card = Model(cfg).init(torch.Generator(device="cuda").manual_seed(1))
+    state = optimizer.init(dict(card.named_parameters()), optimizer.OptConfig())
+    ckpt.save(str(tmp_path), 7, TrainDriver(DriverConfig(str(tmp_path)), card, None, None)
+              .state(state))
+    host = Model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
+    host_state = optimizer.init(dict(host.named_parameters()), optimizer.OptConfig())
+    step, host_state = TrainDriver(DriverConfig(str(tmp_path)), host, None, None) \
+        .resume_or_init(host_state)
+    assert step == 7 and host_state.master["embed.embedding"].device.type == "cpu"
+    dtypes = set()
+    for (n, a), b in zip(card.named_parameters(), host.parameters()):
+        assert a.dtype == b.dtype
+        dtypes.add(a.dtype)
+        width = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        assert torch.equal(a.detach().cpu().view(width), b.detach().view(width)), n
+    assert torch.bfloat16 in dtypes
+    for k in state.m:
+        assert torch.equal(state.master[k].cpu(), host_state.master[k])

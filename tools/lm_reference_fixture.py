@@ -12,6 +12,10 @@
         --out tests/data/lm_seamless_m4t_large_v2_reference.npz
     PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch qwen2-vl-72b --layers 2 \
         --prompt-len 320 --out tests/data/lm_qwen2_vl_72b_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --train \
+        --out tests/data/lm_train_gemma2_2b_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --eval --arch deepseek-v2-lite-16b \
+        --layers 3 --router lp --out tests/data/lm_eval_deepseek_v2_lite_reference.npz
 
 Runs ``repro.models.Model`` (JAX on the CPU: ``JAX_PLATFORMS`` defaults
 to ``cpu`` here, so that no float32 product is rounded to TF32) on
@@ -65,6 +69,20 @@ jitted run by :func:`capture_router_lps`.
 ``chip_smoke.py``'s ``lm_reference`` and ``lm_serve`` phases hold the
 port against it on the card; ``tests/test_torch_lm_serve.py`` builds the
 same fixture for the reduced config in memory.
+
+``--train`` writes the training fixture instead
+(:func:`build_train_fixture`): gemma2-2b at full width cut to 2 layers
+(``--layers``), the reference's train step (``accum=2``, remat, lr 1e-3
+after 2 warm-up steps) three times on ``SyntheticLM`` batches of 4 x 128
+tokens, in float32, with the weights one ulp away (two draws: the
+largest change of each quantity is its noise), and with every step in
+float64 (``_float64_everywhere(train=True)``); each run's loss,
+``grad_norm`` and ``lr`` a step, and each leaf's parameter change at
+8,192 sampled elements (:func:`change_samples`).  ``--eval`` writes the
+eval-step fixture (:func:`build_eval_fixture`): ``make_eval_step`` under
+``--router`` (default ``lp``) on one batch of 2 x 256 tokens, the same
+three runs' losses and the count of router LPs.  On the chip machine's
+CPU they took 273 s and 146 s.
 
 Full width needs about 45 GB of host memory (the float32 weights as
 NumPy and as JAX arrays, then a nudged and a float64 copy) and a few
@@ -136,28 +154,39 @@ def _ulp_nudge(params, seed):
 
 
 @contextlib.contextmanager
-def _float64_everywhere():
+def _float64_everywhere(train: bool = False):
     """Trace the reference with every ``jnp.float32`` of its layers,
     attention, Mamba2 mixer, model and MoE read as ``jnp.float64`` (its
     norms, rotary angles, attention scores and softmax, SSD scan and
     states, sinusoidal positions, logits, the router and its LP): with
-    float64 weights, a run with no float32 step.  Only this tool's view of the modules changes."""
+    float64 weights, a run with no float32 step.  With ``train``, the
+    train step's and the optimizer's too (the logits' cast before the
+    cross-entropy, the accumulators, the moments and master weights), and
+    the attention's ``np.float32`` score scale.  Only this tool's view of
+    the modules changes."""
     import jax.numpy as jnp
 
     from repro.models import attention, layers, mamba2, model, moe
+    from repro.train import optimizer, train_step
 
     class Wide:
-        def __getattr__(self, name):
-            return jnp.float64 if name == "float32" else getattr(jnp, name)
+        def __init__(self, mod, wide):
+            self.mod, self.wide = mod, wide
 
-    saved = [(mod, mod.jnp) for mod in (attention, layers, mamba2, model, moe)]
-    for mod, _ in saved:
-        mod.jnp = Wide()
+        def __getattr__(self, name):
+            return self.wide if name == "float32" else getattr(self.mod, name)
+
+    mods = [attention, layers, mamba2, model, moe] + ([train_step, optimizer] if train else [])
+    saved = [(mod, "jnp", mod.jnp) for mod in mods]
+    if train:
+        saved.append((attention, "np", attention.np))
+    for mod, name, orig in saved:
+        setattr(mod, name, Wide(orig, jnp.float64 if name == "jnp" else np.float64))
     try:
         yield
     finally:
-        for mod, orig in saved:
-            mod.jnp = orig
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
 
 
 class RouterLPs:
@@ -323,6 +352,184 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training fixtures (``--train``, ``--eval``)
+# ---------------------------------------------------------------------------
+
+#: ``--train``: the run (steps, tokens a row, rows, microbatches, the
+#: optimizer's lr and warm-up), the seeds of the one-ulp nudges, the
+#: elements sampled from each leaf's change, and the share of the most
+#: differing samples a comparison leaves out
+#: (``repro_torch.models.convert.trimmed_rel``).
+TRAIN_STEPS = 3
+TRAIN_SEQ = 128
+TRAIN_BATCH = 4
+TRAIN_ACCUM = 2
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 2
+TRAIN_NUDGES = (2, 3)
+TRAIN_SAMPLE = 8192
+FLIP_SHARE = 1e-3
+#: ``--eval``: the batch of the eval step.
+EVAL_SEQ = 256
+EVAL_BATCH = 2
+
+
+def _leaf_paths(tree):
+    from repro_torch.sharding import leaves
+
+    return [(path, np.asarray(arr)) for path, arr in leaves(tree)]
+
+
+def change_samples(tree, seed: int, size: int = TRAIN_SAMPLE):
+    """Each leaf's sampled flat indices (sorted; all of a leaf of at most
+    ``size`` elements), drawn leaf by leaf in sorted-path order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for path, arr in _leaf_paths(tree):
+        n = arr.size
+        idx = np.arange(n) if n <= size else np.sort(rng.choice(n, size, replace=False))
+        out.append(("/".join(path), idx.astype(np.int64)))
+    return out
+
+
+def _train_run(cfg, tree, batches, samples, dtype):
+    """The reference's jitted train step (``TRAIN_ACCUM`` microbatches,
+    remat) over ``batches`` from ``tree`` (NumPy) in ``dtype``: the
+    metrics of each step and each leaf's change at its samples (float64)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import Model
+    from repro.train import optimizer, train_step
+
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    step = jax.jit(train_step.make_train_step(Model(dataclasses.replace(cfg, dtype=dtype)), ocfg,
+                                              accum=TRAIN_ACCUM, remat=True))
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), tree)
+    opt = optimizer.init(params, ocfg)
+    metrics = {"loss": [], "grad_norm": [], "lr": []}
+    for b in batches:
+        params, opt, m = step(params, opt, {k: jnp.asarray(v) for k, v in b.items()})
+        for k in metrics:
+            metrics[k].append(float(m[k]))
+    del opt
+    final = dict(("/".join(p), a) for p, a in _leaf_paths(jax.tree_util.tree_map(np.asarray, params)))
+    start = dict(("/".join(p), a) for p, a in _leaf_paths(tree))
+    delta = {path: final[path].ravel()[idx].astype(np.float64)
+             - start[path].ravel()[idx].astype(np.float64) for path, idx in samples}
+    return {k: np.asarray(v) for k, v in metrics.items()}, delta
+
+
+def _nudge_np(tree, seed):
+    """``_ulp_nudge`` on a NumPy tree."""
+    rng = np.random.default_rng(seed)
+
+    def nudge(a):
+        up = rng.random(a.shape, dtype=np.float32) < 0.5
+        return np.nextafter(a, np.where(up, np.float32(np.inf), np.float32(-np.inf)))
+
+    import jax
+
+    return jax.tree_util.tree_map(nudge, tree)
+
+
+def build_train_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int = SEED,
+                        layers: int = 2, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
+                        batch: int = TRAIN_BATCH, sample: int = TRAIN_SAMPLE) -> dict:
+    """The training fixture: the reference's train step ``steps`` times on
+    ``SyntheticLM`` batches (seed ``seed``), from ``reference_weights``
+    (cut to ``layers``): in float32, with the weights one ulp away
+    (``TRAIN_NUDGES``), and with every step in float64; each run's loss,
+    ``grad_norm`` and ``lr`` a step, and each leaf's change at its
+    samples (``change_samples``)."""
+    from repro.configs import get_config
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.configs import get_config as port_config
+    from repro_torch.models.convert import reference_weights, trimmed_rel, weights_digest
+
+    cut = {"num_layers": layers} if layers else {}
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced), dtype="float32", **cut)
+    tree = reference_weights(dataclasses.replace(port_config(arch, reduced=reduced), **cut), seed)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=seed))
+    batches = [data.batch(s) for s in range(steps)]
+    samples = change_samples(tree, seed + 7, sample)
+    t0 = time.perf_counter()
+    m32, d32 = _train_run(cfg, tree, batches, samples, "float32")
+    t32 = time.perf_counter() - t0
+    noise = {"loss": np.zeros(steps), "grad_norm": np.zeros(steps)}
+    noise_delta = np.zeros(len(samples))
+    for nudge in TRAIN_NUDGES:
+        mn, dn = _train_run(cfg, _nudge_np(tree, seed + nudge), batches, samples, "float32")
+        for k in noise:
+            noise[k] = np.maximum(noise[k], np.abs(mn[k] / m32[k] - 1.0))
+        noise_delta = np.maximum(noise_delta, [trimmed_rel(dn[p], d32[p], FLIP_SHARE)
+                                               for p, _ in samples])
+    with _float64_everywhere(train=True):
+        m64, d64 = _train_run(cfg, tree, batches, samples, "float64")
+    paths = [p for p, _ in samples]
+    sizes = np.asarray([idx.size for _, idx in samples], np.int64)
+    return dict(
+        kind=np.array("train"), arch=np.array(arch), seed=np.int64(seed),
+        layers=np.int64(cfg.num_layers), steps=np.int64(steps), seq=np.int64(seq),
+        batch=np.int64(batch), accum=np.int64(TRAIN_ACCUM), lr=np.float64(TRAIN_LR),
+        warmup_steps=np.int64(TRAIN_WARMUP), nudges=np.asarray(TRAIN_NUDGES),
+        flip_share=np.float64(FLIP_SHARE), weights_digest=weights_digest(tree),
+        tokens_digest=np.concatenate([b["tokens"].ravel()[:16] for b in batches]),
+        loss=m32["loss"], grad_norm=m32["grad_norm"], lr_steps=m32["lr"],
+        f64_loss=m64["loss"], f64_grad_norm=m64["grad_norm"], f64_lr=m64["lr"],
+        noise_loss=noise["loss"], noise_grad_norm=noise["grad_norm"],
+        leaf_paths=np.asarray(paths), sample_sizes=sizes,
+        sample_idx=np.concatenate([idx for _, idx in samples]),
+        delta=np.concatenate([d32[p] for p in paths]),
+        f64_delta=np.concatenate([d64[p] for p in paths]),
+        noise_delta=noise_delta, reference_seconds=np.float64(t32),
+    )
+
+
+def build_eval_fixture(arch: str = "deepseek-v2-lite-16b", *, reduced: bool = False,
+                       seed: int = SEED, layers: int = 3, router: str = "lp",
+                       seq: int = EVAL_SEQ, batch: int = EVAL_BATCH) -> dict:
+    """The eval fixture: the reference's ``make_eval_step`` (under
+    ``router``) on one ``SyntheticLM`` batch, from ``reference_weights``
+    (cut to ``layers``), in float32, with the weights one ulp away, and
+    with every step in float64; and the router LPs it solved."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.models import Model
+    from repro.train import train_step
+    from repro_torch.configs import get_config as port_config
+    from repro_torch.models.convert import reference_weights, weights_digest
+
+    cut = {"router": router, **({"num_layers": layers} if layers else {})}
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced), dtype="float32", **cut)
+    tree = reference_weights(dataclasses.replace(port_config(arch, reduced=reduced), **cut), seed)
+    b = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=seed)).batch(0)
+
+    def loss(t, dtype="float32"):
+        step = jax.jit(train_step.make_eval_step(Model(dataclasses.replace(cfg, dtype=dtype))))
+        return float(step(jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), t),
+                          {k: jnp.asarray(v) for k, v in b.items()}))
+
+    with capture_router_lps() as lps:
+        lps.active = True
+        l32 = loss(tree)
+        jax.effects_barrier()
+        lps.active = False
+    noise = max(abs(loss(_nudge_np(tree, seed + n)) / l32 - 1.0) for n in TRAIN_NUDGES)
+    with _float64_everywhere(train=True):
+        l64 = loss(tree, "float64")
+    return dict(kind=np.array("eval"), arch=np.array(arch), seed=np.int64(seed),
+                layers=np.int64(cfg.num_layers), router=np.array(router), seq=np.int64(seq),
+                batch=np.int64(batch), weights_digest=weights_digest(tree),
+                tokens_digest=b["tokens"].ravel()[:64], loss=np.float64(l32),
+                noise_loss=np.float64(noise), f64_loss=np.float64(l64),
+                router_lps=np.int64(len(lps.rows)))
+
+
 #: Arrays every router's run shares in a fixture of several routers.
 SHARED = ("arch", "seed", "prompt_len", "steps", "vocab_ids", "weights_digest", "layers",
           "input_dtype", "extras_keys", "extras_digest")
@@ -352,14 +559,34 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=PROMPT_LEN, help="tokens a prompt")
     ap.add_argument("--router", default="",
                     help="MoE routers to run, comma-separated (e.g. topk,lp)")
-    ap.add_argument("--out", default=str(ROOT / "tests" / "data" / "lm_gemma2_2b_reference.npz"))
+    ap.add_argument("--train", action="store_true",
+                    help="write the training fixture (build_train_fixture) instead")
+    ap.add_argument("--eval", action="store_true",
+                    help="write the eval-step fixture (build_eval_fixture) instead")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.out is None:
+        name = ("lm_train_gemma2_2b_reference.npz" if args.train else
+                "lm_eval_deepseek_v2_lite_reference.npz" if args.eval else
+                "lm_gemma2_2b_reference.npz")
+        args.out = str(ROOT / "tests" / "data" / name)
     sys.path.insert(0, str(ROOT / "src"))
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_enable_x64", True)  # as the tests run the reference
     t0 = time.perf_counter()
+    if args.train or args.eval:
+        if args.train:
+            fx = build_train_fixture(args.arch, layers=args.layers or 2)
+        else:
+            fx = build_eval_fixture(args.arch, layers=args.layers or 3, router=args.router or "lp")
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(args.out, **fx)
+        print(f"wrote {args.out} in {time.perf_counter() - t0:.1f} s")
+        print({k: (v.tolist() if v.size <= 8 else f"{v.shape} {v.dtype}") for k, v in fx.items()
+               if k not in ("sample_idx", "delta", "f64_delta")})
+        return 0
     routers = [r for r in args.router.split(",") if r]
     if routers:
         fx = build_router_fixtures(args.arch, routers, layers=args.layers,
