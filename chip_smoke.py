@@ -228,6 +228,26 @@ line is printed:
    bit-identical on ``simplex_plain``.  A ``main_path_summary`` for
    ``slice12_train``: every count 0 but the simplex kernel's.
 
+   Slice 13, the LP system over a device mesh, after slice 12
+   (``mesh_phase``; ``slice13_mesh`` lines).  (a) NCCL with one rank on
+   the card, a (1, 1) mesh: type 1's 50,000 LPs through
+   ``solve(problem, mesh=mesh)``, bit-identical to slice 1's result, one
+   simplex launch of the cluster variant.  (b) MESH_RANKS gloo ranks
+   sharing the card, spawned from here, each with the same inputs on the
+   host, on meshes (data=4) and (data=2, model=2): type 1; type 2's
+   first 9,999 LPs (padded to the blocks and trimmed); type 1 as an
+   ``LPBatch`` with ``every_k`` + ``basis`` (held to slice 6's
+   ``compaction="off"``); shared type 1 on the revised kernel; hyperbox
+   4,000,000 x 5; ``LPEngine(mesh=...)`` in flush and continuous mode on
+   the serve mix (the box requests first, one admission wave; 512 LPs a
+   step); ``dp_allreduce_int8`` of a (4, 2^20) float32 gradient against
+   the plain computation.  Every gathered result must be bit-identical,
+   by a SHA-256 of its bits, to the one-process result of the same rows;
+   every rank reports its launches (each kernel of the row on its own
+   rows, all of the main variant), wall time and peak memory; a rank's
+   type-1 peak must lie below the unsplit run's.  These rows are "4 ranks
+   sharing one card": they say nothing about scaling.
+
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
 revised launch the resident variant.  The ``kernels`` line counts the
@@ -236,7 +256,8 @@ of slice 7.
 
 Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
 entries list their variants with their case names; the simplex entry's
-``lm_router`` holds the router's case), the ``nvidia-smi``
+``lm_router`` holds the router's case; ``launches`` counts slice 13's
+ranks too, and ``mesh_path_launches`` gives them per rank), the ``nvidia-smi``
 name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  The
 script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -283,6 +304,17 @@ PDHG_FIELDS = ("x", "y", "ax", "x_sum", "y_sum", "ax_sum", "inner", "x_grow", "y
 SERVE_REQUESTS = 4096
 SERVE_BOXES = 64
 SERVE_BOX_N = 28
+
+# Slice 13, the LP system over a mesh: ranks that share the one card,
+# type 2's first MESH_ODD_LPS LPs (an odd batch, padded and trimmed), the
+# (4, 2**20) gradient of the int8 all-reduce, the group's time limit.
+MESH_RANKS = 4
+MESH_SIZES = dict(type1=50_000, type2=10_000, shared=50_000, box=4_000_000)
+MESH_ODD_LPS = 9999
+MESH_GRAD = (4, 1 << 20)
+MESH_TIMEOUT_S = 600
+MESH_SOURCES = ("type1_feasible_100x100", "type2_infeasible_start_200x100",
+                "hyperbox_4000000x5")
 
 
 def emit(phase: str, **fields) -> None:
@@ -335,6 +367,32 @@ class Timer:
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({4: torch.int32, 8: torch.int64}[t.element_size()]) if t.is_floating_point() else t
+
+
+def sol_digest(sol, rows=None) -> str:
+    """SHA-256 of a solution's bits (objective, x, status, iterations, basis), or
+    of rows ``rows`` only: how the mesh phase holds a gathered result to the
+    one-process result of the same rows."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("objective", "x", "status", "iterations", "basis"):
+        t = getattr(sol, f, None)
+        if t is not None:
+            h.update(bits(t if rows is None else t[rows]).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def requests_digest(sols) -> str:
+    """SHA-256 over the per-request solutions of a serve run, in request order."""
+    import hashlib
+
+    return hashlib.sha256("".join(sol_digest(s) for s in sols).encode()).hexdigest()
+
+
+#: One-process digests of the main paths' results, by row: what the mesh
+#: phase (slice 13) holds its gathered results to.
+MESH_REFS: dict = {}
 
 
 def launch_counts(counters) -> dict:
@@ -1015,6 +1073,9 @@ def run_row(rt, dev, *, name, problem, counters, oracle_data, lps, extra):
                finite_objective_share=float(np.isfinite(sol.objective.cpu().numpy()).mean()))
     check(sum(delta.values()) > 0, f"main-path row {name} launched no kernel")
     check(tuple(sol.x.shape) == (lps, problem.n), f"row {name}: x has shape {tuple(sol.x.shape)}")
+    if name in MESH_SOURCES:
+        MESH_REFS[name] = sol_digest(sol)
+        MESH_REFS[f"{name}[:{MESH_ODD_LPS}]"] = sol_digest(sol, slice(0, MESH_ODD_LPS))
     if oracle_data is not None:
         row["oracle"] = oracle_check(*oracle_data, status, sol.objective.cpu().numpy(), 256)
         check(row["oracle"]["status_agreement"] >= 0.99,
@@ -1067,6 +1128,7 @@ def shared_row(rt, dev, *, name, bsz, m, n, feasible, seed, counters, dense_row,
                dense_row_max_memory_allocated=dense_row["max_memory_allocated"],
                oracle=oracle_check(*sample, status, sol.objective.cpu().numpy(), k))
     emit("main_path", **row)
+    MESH_REFS[name] = sol_digest(sol)
     reruns.append((name, bsz, lambda: rt.solve(sb)))
     check(delta["revised"] > 0, f"row {name} did not launch the revised kernel")
     check(tuple(sol.x.shape) == (bsz, n), f"row {name}: x has shape {tuple(sol.x.shape)}")
@@ -3749,6 +3811,329 @@ def lm_train_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
     return dict(reference=reference, train=train, ssm=ssm, eval=evl, launches=launched)
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: the LP system over a device mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_inputs(rt, seed: int) -> dict:
+    """The mesh phase's inputs, on the host, from the seeds of the rows they
+    repeat: every rank is given the same full batches and moves only its
+    own rows to the card."""
+    from repro_torch.core.lp import LPBatch, random_shared_lp_batch
+
+    cpu = torch.device("cpu")
+    size = MESH_SIZES
+    a, b, c, _ = chunked_lp_batch(np.random.default_rng(seed), size["type1"], 100, 100, True,
+                                  torch.float32, cpu, chunk=5000)
+    a2, b2, c2, _ = chunked_lp_batch(np.random.default_rng(seed + 1), size["type2"], 200, 100,
+                                     False, torch.float32, cpu, chunk=5000)
+    k = MESH_ODD_LPS
+    lo, hi, d = chunked_hyperbox(np.random.default_rng(seed + 2), size["box"], 5, torch.float32,
+                                 cpu)
+    return dict(
+        type1=rt.LPProblem.make(c, a, bu=b, device="cpu"),
+        type1_batch=LPBatch(a, b, c),
+        odd=rt.LPProblem.make(c2[:k].clone(), a2[:k].clone(), bu=b2[:k].clone(), device="cpu"),
+        shared=random_shared_lp_batch(np.random.default_rng(seed + 30), size["shared"], 100,
+                                      100, True, device="cpu"),
+        box=rt.LPProblem.make(d, lo=lo, hi=hi, device="cpu"),
+        serve=serve_requests(rt),
+        grad=torch.as_tensor(np.random.default_rng(seed + 50).standard_normal(MESH_GRAD)
+                             .astype(np.float32)))
+
+
+def mesh_serve(rt, mesh, problems, mode):
+    """The serve mix through ``LPEngine(mesh=...)``, driven by the step count
+    (every rank submits the same requests in the same steps), in the
+    order of the unsplit serve phase (a box after every 64 LPs): 512
+    requests a step in continuous mode, whose box waves the mesh's blocks
+    need not divide (the front door pads a boxlike problem to whole
+    blocks), or all of them and one flush.  Returns the per-request solutions in request order."""
+    from repro_torch.serve.engine import LPEngine
+
+    if mode == "flush":
+        eng = LPEngine(rt.SolveOptions(), flush_every=1 << 30, mesh=mesh)
+        tickets = [eng.submit(p) for p in problems]
+        eng.flush()
+    else:
+        eng = LPEngine(rt.SolveOptions(), flush_every=1 << 30, max_inflight=1024,
+                       step_iters=64, mesh=mesh)
+        tickets = []
+        for lo in range(0, len(problems), 512):
+            tickets += [eng.submit(p) for p in problems[lo:lo + 512]]
+            eng.step()
+        while eng.pending_count or eng.inflight_count:
+            eng.step()
+    check(eng.stats.retries == 0 and eng.stats.dead_lettered == 0,
+          f"mesh serve {mode}: {eng.stats.retries} retries, {eng.stats.dead_lettered} dead letters")
+    return [eng.result(t) for t in tickets], eng.stats
+
+
+def mesh_int8_row(mesh, grad) -> dict:
+    """``dp_allreduce_int8`` of this rank's block of ``grad`` against the plain
+    computation: one scale from the global max, every block quantized, the
+    int32 sum over the data axis dequantized and divided by its size."""
+    import torch.distributed as dist
+    from repro_torch.core.spmd import mesh_device
+    from repro_torch.train.compression import _quantize_with, dp_allreduce_int8
+
+    dev = mesh_device(mesh)
+    group = mesh.get_group("data")
+    size, block = dist.get_world_size(group), dist.get_rank(group)
+    per = grad.shape[0] // size
+    g = grad.to(dev)
+    out = dp_allreduce_int8({"g": g[block * per:(block + 1) * per]}, mesh)["g"]
+    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+    q = _quantize_with(g, scale).to(torch.int32).reshape(size, per, -1).sum(dim=0)
+    plain = q.to(torch.float32) * scale / torch.tensor(float(size), device=dev)
+    return dict(bit_equal_to_plain=bool(torch.equal(bits(out), bits(plain))),
+                max_abs_err=max_abs_diff(out, plain), shape=list(out.shape))
+
+
+def mesh_rank_rows(rt, mesh, inputs, counters, reset) -> list:
+    """Every row of the phase on one mesh, from this rank: per row its
+    launches (set to 0 just before), wall time, peak memory and the digest
+    of the whole solution it returned."""
+    rows = []
+
+    def run(name, fn, ref):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = dict(row=name, wall_s=wall, launches=launch_counts(counters),
+                   max_memory_allocated=int(torch.cuda.max_memory_allocated()), ref=ref)
+        if isinstance(out, tuple):  # a serve run: (solutions, stats)
+            row.update(digest=requests_digest(out[0]), spliced=out[1].spliced,
+                       resumed=out[1].resumed)
+        elif isinstance(out, dict):
+            row.update(out)
+        else:
+            row.update(digest=sol_digest(out), lps=int(out.status.shape[0]))
+        rows.append(row)
+
+    run("type1", lambda: rt.solve(inputs["type1"], mesh=mesh), "type1_feasible_100x100")
+    run(f"odd_type2_first_{MESH_ODD_LPS}", lambda: rt.solve(inputs["odd"], mesh=mesh),
+        f"type2_infeasible_start_200x100[:{MESH_ODD_LPS}]")
+    run("rounds_type1_every_k_basis",
+        lambda: rt.solve(inputs["type1_batch"], rt.SolveOptions(
+            compaction="every_k", resume="basis", compact_every=128), mesh=mesh),
+        "rounds_type1")
+    run("shared_type1", lambda: rt.solve(inputs["shared"], mesh=mesh), "shared_type1_100x100")
+    run("hyperbox_4000000x5", lambda: rt.solve(inputs["box"], mesh=mesh), "hyperbox_4000000x5")
+    run("serve_flush", lambda: mesh_serve(rt, mesh, inputs["serve"], "flush"), "serve")
+    run("serve_continuous", lambda: mesh_serve(rt, mesh, inputs["serve"], "continuous"),
+        "serve")
+    run("dp_allreduce_int8", lambda: mesh_int8_row(mesh, inputs["grad"]), None)
+    return rows
+
+
+def mesh_rank_main(rank: int, world: int, store: str, out_dir: str, seed: int) -> None:
+    """One of the gloo ranks that share the card: both meshes, every row."""
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)
+    out = dict(rank=rank)
+    try:
+        import repro_torch as rt
+        from torch.distributed.device_mesh import DeviceMesh
+        from repro_torch.kernels import hyperbox_cuda, pdhg_cuda, revised_cuda, simplex_cuda
+        from repro_torch.launch import mesh as mesh_lib
+
+        counters = {"simplex": simplex_cuda, "hyperbox": hyperbox_cuda, "revised": revised_cuda,
+                    "pdhg": pdhg_cuda}
+
+        def reset():
+            for mod in counters.values():
+                mod.launches = 0
+                for variant in getattr(mod, "variant_launches", {}):
+                    mod.variant_launches[variant] = 0
+
+        mesh_lib.init_distributed("gloo", timeout_s=MESH_TIMEOUT_S / 2, rank=rank,
+                                  world_size=world, store=dist.FileStore(store, world))
+        t0 = time.perf_counter()
+        inputs = mesh_inputs(rt, seed)
+        out["inputs_s"] = time.perf_counter() - t0
+        meshes = {"data4": (world, 1), "data2_model2": (world // 2, 2)}
+        for name, shape in meshes.items():
+            mesh = DeviceMesh("cuda", torch.arange(world).reshape(shape),
+                              mesh_dim_names=("data", "model"))
+            out[name] = dict(coordinate=list(mesh.get_coordinate()),
+                             rows=mesh_rank_rows(rt, mesh, inputs, counters, reset))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent reads it and fails the run
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    if "error" in out:
+        os._exit(1)
+
+
+def mesh_nccl_case(rt, dev, *, seed, counters, reset, type1_row) -> dict:
+    """Part (a): NCCL with one rank on the card, a (1, 1) mesh, type 1's
+    50,000 LPs through ``solve(..., mesh=mesh)``, bit-identical to slice 1's
+    unsplit result."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    a, b, c, _ = chunked_lp_batch(np.random.default_rng(seed), 50_000, 100, 100, True,
+                                  torch.float32, dev, chunk=5000)
+    problem = rt.LPProblem.make(c, a, bu=b)
+    del a, b, c
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
+        mesh_lib.init_distributed("nccl", timeout_s=300.0, rank=0, world_size=1,
+                                  store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            mesh = mesh_lib.make_local_mesh()
+            reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sol = rt.solve(problem, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(counters)
+            peak = int(torch.cuda.max_memory_allocated())
+            # Once more, after the counts were read: the first call also set
+            # up NCCL's communicator.
+            t0 = time.perf_counter()
+            rt.solve(problem, mesh=mesh)
+            torch.cuda.synchronize()
+            again = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    same = sol_digest(sol) == MESH_REFS["type1_feasible_100x100"]
+    row = dict(part="nccl_1rank", mesh=[1, 1], backend="nccl", row="type1", lps=50_000,
+               wall_s=wall, again_wall_s=again, unsplit_wall_s=type1_row["wall_s"],
+               launches=launches,
+               max_memory_allocated=peak,
+               unsplit_max_memory_allocated=type1_row["max_memory_allocated"],
+               bit_identical_to_unsplit=same)
+    emit("slice13_mesh", **row)
+    check(same, "slice13_mesh: the NCCL (1, 1) mesh solve of type 1 differs from slice 1's")
+    check(launches["simplex"] == 1 and launches["simplex.cluster"] == 1,
+          f"slice13_mesh: the NCCL type-1 solve launched {launches}")
+    del problem, sol
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_gloo_case(*, seed, type1_row) -> list:
+    """Part (b): MESH_RANKS gloo ranks sharing the card, spawned from here, on
+    meshes (data=4) and (data=2, model=2).  Every gathered result must be
+    bit-identical (by digest) to the one-process result of the same rows.
+    Returns each rank's per-mesh launch counts."""
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
+        procs = [ctx.Process(target=mesh_rank_main,
+                             args=(r, MESH_RANKS, os.path.join(tmp, "store"), tmp, seed))
+                 for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        check(not alive, f"slice13_mesh: {len(alive)} ranks passed {MESH_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            path = os.path.join(tmp, f"rank{r}.json")
+            check(os.path.exists(path), f"slice13_mesh: rank {r} wrote no result "
+                  f"(exit code {procs[r].exitcode})")
+            with open(path) as fh:
+                ranks.append(json.load(fh))
+    errors = [f"rank {r['rank']}:\n{r['error']}" for r in ranks if "error" in r]
+    check(not errors, "slice13_mesh: " + "\n".join(errors))
+    unsplit_peak = type1_row["max_memory_allocated"]
+    for mesh_name in ("data4", "data2_model2"):
+        for i, first in enumerate(ranks[0][mesh_name]["rows"]):
+            per = [r[mesh_name]["rows"][i] for r in ranks]
+            name = first["row"]
+            if first["ref"] is not None:
+                same = [p["digest"] == MESH_REFS[first["ref"]] for p in per]
+            else:
+                same = [p["bit_equal_to_plain"] for p in per]
+            row = dict(part="gloo_4ranks_sharing_one_card", mesh=mesh_name, row=name,
+                       label="4 ranks sharing one card: says nothing about scaling",
+                       bit_identical=same,
+                       ranks=[dict(coordinate=r[mesh_name]["coordinate"], wall_s=p["wall_s"],
+                                   launches={k: v for k, v in p["launches"].items() if v},
+                                   max_memory_allocated=p["max_memory_allocated"],
+                                   **{k: p[k] for k in ("spliced", "resumed", "max_abs_err")
+                                      if k in p})
+                              for r, p in zip(ranks, per)])
+            if name == "type1":
+                row["unsplit_max_memory_allocated"] = unsplit_peak
+                row["unsplit_wall_s"] = type1_row["wall_s"]
+            emit("slice13_mesh", **row)
+            check(all(same), f"slice13_mesh {mesh_name} {name}: a rank's result is not "
+                  f"bit-identical to the one-process result: {same}")
+            for p in per:
+                kernel = {"type1": "simplex", "rounds_type1_every_k_basis": "simplex",
+                          f"odd_type2_first_{MESH_ODD_LPS}": "simplex",
+                          "shared_type1": "revised", "hyperbox_4000000x5": "hyperbox",
+                          "serve_flush": "simplex", "serve_continuous": "simplex"}.get(name)
+                if kernel is None:
+                    continue
+                check(p["launches"][kernel] > 0,
+                      f"slice13_mesh {mesh_name} {name}: a rank launched no {kernel} kernel")
+                variant = {"simplex": "cluster", "revised": "resident"}.get(kernel)
+                if variant:
+                    check(p["launches"][f"{kernel}.{variant}"] == p["launches"][kernel],
+                          f"slice13_mesh {mesh_name} {name}: a launch left the {variant} "
+                          f"variant: {p['launches']}")
+                if name == "type1" and mesh_name == "data4":
+                    check(p["max_memory_allocated"] < unsplit_peak,
+                          f"slice13_mesh: a rank's type-1 peak {p['max_memory_allocated']} "
+                          f"is not below the unsplit run's {unsplit_peak}")
+    emit("slice13_mesh_group", ranks=MESH_RANKS, wall_s=wall,
+         inputs_s=[r["inputs_s"] for r in ranks])
+    return [{m: sum_counts(row["launches"] for row in r[m]["rows"])
+             for m in ("data4", "data2_model2")} for r in ranks]
+
+
+def sum_counts(dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def mesh_phase(rt, dev, *, seed, counters, reset, type1_row) -> dict:
+    """Slice 13: (a) NCCL with one rank, then (b) gloo ranks sharing the card.
+
+    Returns the launches of (a) in this process and each rank's of (b)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nccl = mesh_nccl_case(rt, dev, seed=seed, counters=counters, reset=reset,
+                          type1_row=type1_row)
+    per_rank = mesh_gloo_case(seed=seed, type1_row=type1_row)
+    emit("main_path_summary", path="slice13_mesh", launches_nccl_1rank=nccl,
+         launches_per_rank=per_rank, wall_s=time.perf_counter() - t0)
+    return dict(nccl=nccl, per_rank=per_rank)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of every generated input")
@@ -4087,6 +4472,7 @@ def run(args, pool) -> int:
         base=rt.SolveOptions(compact_every=k_rounds), counters=counters, kernel="simplex",
         variant="cluster", fields=simplex_fields,
         modes=[("every_k", "basis"), ("chunked", "scratch")])
+    MESH_REFS["rounds_type1"] = sol_digest(type1_off)
     rounds_case(rt, name="type2_10000x200x100_f32_lpc", problem=type2,
                 base=rt.SolveOptions(compact_every=k_rounds), counters=counters,
                 kernel="simplex", variant="cluster", fields=simplex_fields,
@@ -4132,6 +4518,7 @@ def run(args, pool) -> int:
     serve_plan = serve_kernel_cases(rt, dev, timer, problems=serve_problems,
                                     pdhg_batch=pdhg_batch)
     oneshot = rt.SolveSession(device=dev).solve(serve_problems)
+    MESH_REFS["serve"] = requests_digest(oneshot)
     warm = serve_problems[:256]
     cont_kw = dict(flush_every=1 << 30, max_inflight=1024, step_iters=64)
     cal = LPEngine(rt.SolveOptions(), device=dev, **cont_kw)
@@ -4214,17 +4601,30 @@ def run(args, pool) -> int:
     slice12 = lm_train_phase(rt_configs, dev, seed=args.seed, counters=counters,
                              reset=reset_counts)["launches"]
 
+    # Slice 13, the LP system over a device mesh: NCCL with one rank on the
+    # card, then gloo ranks sharing it, each solving its own rows on its own
+    # launches (their counts are the ranks' own, set to 0 before each row).
+    mesh = mesh_phase(rt, dev, seed=args.seed, counters=counters, reset=reset_counts,
+                      type1_row=rows[0])
+    slice13 = sum_counts([mesh["nccl"]] + [r[m] for r in mesh["per_rank"] for m in r])
+
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
-                + slice10[k] + slice12[k] for k in slice1}
+                + slice10[k] + slice12[k] + slice13.get(k, 0) for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
+        key = f"{name}.{extra['variant']}" if "variant" in extra else name
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=f"src/repro/kernels/{replaces}", launches=n,
                     max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=None,
-                    serve_path_launches=slice7[f"{name}.{extra['variant']}" if "variant" in extra
-                                               else name], **extra)
+                    serve_path_launches=slice7[key],
+                    mesh_path_launches=dict(
+                        nccl_1rank=mesh["nccl"].get(key, 0),
+                        gloo_ranks_sharing_one_card={
+                            m: [r[m].get(key, 0) for r in mesh["per_rank"]]
+                            for m in ("data4", "data2_model2")}),
+                    **extra)
 
     # The global variant's row: type 1's LPs, timed beside the cluster
     # variant in the same case (the same bits, so the same error and bound).

@@ -28,6 +28,12 @@ Routing:
 
 A solve runs where its tensors live: problems built with
 ``device="cpu"`` solve on the CPU through the kernels' plain versions.
+
+``mesh`` (a ``torch.distributed`` ``DeviceMesh``, ``launch/mesh.py``)
+splits the batch dimension across the mesh's ``batch_axes``: every rank
+calls ``solve`` with the same input, solves its own block of rows on
+the mesh's device, and gets back the whole solution
+(``core/dispatch.py``, ``core/spmd.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from .core.backends import SolveOptions, SolveStats
 from .core.bucketing import ShapeGrid, bucket_problems, scatter_solutions
 from .core.lp import INFEASIBLE, LPBatch, LPSolution, SharedLPBatch
 from .core.problem import LPProblem, canonicalize, solve_box, uncanonicalize
+from .core.spmd import resolve_split, solution_rows, to_device
 
 Solvable = Union[LPProblem, LPBatch, SharedLPBatch, Sequence[LPProblem]]
 
@@ -49,21 +56,26 @@ def solve(
     problem: Solvable,
     options: Optional[SolveOptions] = None,
     *,
+    mesh=None,
+    batch_axes: Sequence[str] = ("data",),
     grid: Optional[ShapeGrid] = None,
     stats: Optional[SolveStats] = None,
 ) -> Union[LPSolution, List[LPSolution]]:
     """Solve general-form LP problem(s); see the module docstring for routing.
 
     ``options`` defaults to ``SolveOptions()`` (backend ``"cuda"``);
-    ``grid`` pins the shape classes of a list input; ``stats`` collects
-    counters.  Returns one ``LPSolution``, or a list for a list input.
+    ``mesh`` splits the batch over its ``batch_axes`` (every rank calls
+    with the same input and gets the whole answer); ``grid`` pins the
+    shape classes of a list input; ``stats`` collects counters.  Returns
+    one ``LPSolution``, or a list for a list input.
     """
     if isinstance(problem, (LPBatch, SharedLPBatch)):
-        return _dispatch.solve_canonical(problem, options, stats=stats)
+        return _dispatch.solve_canonical(problem, options, stats=stats, mesh=mesh,
+                                         batch_axes=batch_axes)
     if isinstance(problem, LPProblem):
-        return _solve_problem(problem, options, stats)
+        return _solve_problem(problem, options, stats, mesh, batch_axes)
     if isinstance(problem, (list, tuple)):
-        return _solve_many(problem, options, grid, stats)
+        return _solve_many(problem, options, grid, stats, mesh, batch_axes)
     raise TypeError(
         "repro_torch.solve expects LPProblem, LPBatch, SharedLPBatch, or a list of "
         f"LPProblem; got {type(problem).__name__}"
@@ -76,20 +88,26 @@ def solve_hyperbox(
     directions,
     options: Optional[SolveOptions] = None,
     *,
+    mesh=None,
+    batch_axes: Sequence[str] = ("data",),
     stats: Optional[SolveStats] = None,
     device=None,
 ) -> LPSolution:
     """Support of the box [lo, hi] in each direction (paper Sec. 6).
 
     ``lo``/``hi`` broadcast to ``directions`` (B, n); inputs go to
-    ``device`` (None = the card).  Support values come back in
-    ``objective``, maximizing vertices in ``x``.
+    ``device`` (None = the card), or under a ``mesh`` each rank's block
+    to the mesh's device (B must split evenly over ``batch_axes``).
+    Support values come back in ``objective``, maximizing vertices in
+    ``x``.
     """
-    return _dispatch.solve_hyperbox(lo, hi, directions, options, stats=stats, device=device)
+    return _dispatch.solve_hyperbox(lo, hi, directions, options, stats=stats, device=device,
+                                    mesh=mesh, batch_axes=batch_axes)
 
 
 def _solve_problem(
-    problem: LPProblem, options: Optional[SolveOptions], stats: Optional[SolveStats] = None
+    problem: LPProblem, options: Optional[SolveOptions], stats: Optional[SolveStats] = None,
+    mesh=None, batch_axes: Sequence[str] = ("data",),
 ) -> LPSolution:
     if problem.batch == 0:
         return _dispatch.empty_solution(problem.n, problem.dtype, problem.device)
@@ -99,27 +117,43 @@ def _solve_problem(
             if stats is not None:
                 stats.record(sol)
             return sol
-        return _solve_box_via_backend(problem, options or SolveOptions(), stats)
+        return _solve_box_via_backend(problem, options or SolveOptions(), stats, mesh,
+                                      batch_axes)
     canon = canonicalize(problem)
-    sol = _dispatch.solve_canonical(canon.batch, options, stats=stats)
-    return uncanonicalize(canon, sol)
+    sol = _dispatch.solve_canonical(canon.batch, options, stats=stats, mesh=mesh,
+                                    batch_axes=batch_axes)
+    # A split solve's answer lives on the mesh's device, its input may not.
+    return uncanonicalize(to_device(canon, sol.status.device), sol)
 
 
 def _solve_box_via_backend(
-    problem: LPProblem, options: SolveOptions, stats: Optional[SolveStats] = None
+    problem: LPProblem, options: SolveOptions, stats: Optional[SolveStats] = None,
+    mesh=None, batch_axes: Sequence[str] = ("data",),
 ) -> LPSolution:
     """Boxlike solve through the backend's hyperbox path (sign-adjusted).
 
     The kernel maximizes, so minimize flips the direction and the sign of
     the support value; empty boxes report INFEASIBLE (the kernels assume
-    lo <= hi).
+    lo <= hi).  Under a mesh the rows are padded with copies of the last
+    to whole blocks of the batch axes, and the copies' answers dropped:
+    the reference solves a boxlike problem in closed form, unsplit, at
+    any batch size (only its ``solve_hyperbox`` requires whole blocks).
     """
     sign = 1.0 if problem.maximize else -1.0
+    bounds = [problem.lo, problem.hi, sign * problem.c]
+    split = resolve_split(mesh, batch_axes)
+    extra = 0 if split is None else -problem.batch % split.div
+    if extra:
+        bounds = [torch.cat([t, t[-1:].expand(extra, -1)]) for t in bounds]
     sol = _dispatch.solve_hyperbox(
-        problem.lo, problem.hi, sign * problem.c, options, stats=stats,
-        device=problem.device,
+        *bounds, options, stats=None if extra else stats,
+        device=problem.device, mesh=mesh, batch_axes=batch_axes,
     )
-    infeasible = (problem.lo > problem.hi).any(dim=-1)
+    if extra:
+        sol = solution_rows(sol, slice(0, problem.batch))
+        if stats is not None:
+            stats.record(sol)
+    infeasible = (problem.lo > problem.hi).any(dim=-1).to(sol.status.device)
     bad = -float("inf") if problem.maximize else float("inf")
     objective = torch.where(infeasible, bad, sign * sol.objective)
     x = torch.where(infeasible[:, None], 0.0, sol.x)
@@ -132,9 +166,11 @@ def _solve_many(
     options: Optional[SolveOptions],
     grid: Optional[ShapeGrid],
     stats: Optional[SolveStats] = None,
+    mesh=None,
+    batch_axes: Sequence[str] = ("data",),
 ) -> List[LPSolution]:
     if not problems:
         return []
     buckets = bucket_problems(problems, grid)
-    sols = [_solve_problem(b.problem, options, stats) for b in buckets]
+    sols = [_solve_problem(b.problem, options, stats, mesh, batch_axes) for b in buckets]
     return scatter_solutions(buckets, sols, len(problems))

@@ -99,10 +99,10 @@ DEFAULT_ROUTE_FRONTIER = 500
 class SolveOptions:
     """Solver configuration — one frozen record instead of loose knobs.
 
-    Only the fields this port honours so far are here; the reference's
-    ``mesh`` arrives with the slice that ports it, and
-    ``unroll``/``dynamic_caps``/``tile_b`` have no meaning in the port
-    (``ROADMAP.md``, "TPU mechanics not carried over").
+    Only the fields this port honours are here.  A device mesh is an
+    argument of the entry points (``solve(..., mesh=)``), as in the
+    reference; ``unroll``/``dynamic_caps``/``tile_b`` have no meaning in
+    the port (``ROADMAP.md``, "TPU mechanics not carried over").
 
     Parameters
     ----------

@@ -63,7 +63,18 @@ worker threads, each on its own CUDA stream, and re-dispatches a chunk
 that misses the straggler deadline (:func:`_speculative_chunks`);
 :func:`admission_order` is the serve loop's admission policy.
 
-Not here yet (a later slice): mesh sharding.
+Under a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``; ``batch_axes``
+name the axes that split the batch) every entry point here runs as one
+process a rank: each rank is given the same full batch, solves its own
+block of rows on its own device, and returns the same full solution
+(``core/spmd.py``).  A round without a carried state pads the batch to a
+multiple of the batch axes' product and trims the padding off again; a
+carried state stays with the rank that owns its rows, and later rounds
+hand each survivor to its owner.  The counters equal the unsplit
+solve's on every rank.  A round that fails on any rank fails on every
+rank with the same exception class, so the retries and the propagation
+above happen on all ranks together.  Speculation does not run under a
+mesh, as in the reference.
 """
 
 from __future__ import annotations
@@ -79,6 +90,7 @@ import torch
 from ..runtime import chaos as _chaos
 from . import pdhg as _pdhg
 from . import revised as _revised
+from . import spmd as _spmd
 from .backends import (
     SHARED_BACKENDS,
     Backend,
@@ -226,7 +238,7 @@ def _round_plan(batch, options: SolveOptions, incremental: bool = False,
 def resolve_backend(options: SolveOptions, shared: bool = False,
                     shape: Optional[Tuple[int, int]] = None, dtype=None,
                     batch: Optional[int] = None, stats: Optional[SolveStats] = None,
-                    device=None) -> SolveOptions:
+                    device=None, mesh=None) -> SolveOptions:
     """Resolve the open config knobs for a batch of ``batch`` LPs of ``shape``
     = (m, n) in ``dtype`` on ``device``.
 
@@ -249,8 +261,13 @@ def resolve_backend(options: SolveOptions, shared: bool = False,
     rejects them, and a batch routed to the simplex leg drops
     ``crossover``, which polishes first-order answers only (the
     reference raises there, so ``"auto"`` with ``crossover=True`` could
-    not serve traffic on both sides of the frontier).
+    not serve traffic on both sides of the frontier).  Under a ``mesh``
+    with ``autotune="trial"``, the one resolution that depends on timing,
+    every rank takes the mesh's first rank's winner.
     """
+    if mesh is not None and options.autotune == "trial":
+        mine = resolve_backend(options, shared, shape, dtype, batch, stats, device)
+        return _spmd.broadcast_choice(mesh, mine)
     if shared:
         promote = {"cuda": "cuda-shared", "torch": "torch-shared"}
         if options.backend in promote:
@@ -306,8 +323,11 @@ def state_health(state) -> Optional[torch.Tensor]:
     Covers every state record (the tableau of a
     :class:`~repro_torch.core.lp.ResumeState`, ``binv``/``xb`` of the
     revised record, the PDHG iterates).  None for a state with no
-    floating tensor.
+    floating tensor.  A state split over a mesh carries the mask of
+    every row, gathered with the round's solution.
     """
+    if isinstance(state, _spmd.ShardedState):
+        return state.healthy
     ok = None
     for f in dataclasses.fields(state):
         leaf = getattr(state, f.name)
@@ -391,24 +411,32 @@ def solve_canonical(
     batch: Union[LPBatch, SharedLPBatch],
     options: Optional[SolveOptions] = None,
     stats: Optional[SolveStats] = None,
+    mesh=None,
+    batch_axes: Sequence[str] = ("data",),
 ) -> LPSolution:
     """Solve a canonical batch (``max c.x, Ax <= b, x >= 0``): the round scheduler.
 
     ``options`` picks the round plan (:func:`_round_plan`: one round, the
     legacy ``first_cap`` two-pass, or ``compaction`` with scratch or
     basis ``resume``; compaction wins over ``first_cap``).  Runs where
-    the batch's tensors live.  A ``SharedLPBatch`` runs on the shared
+    the batch's tensors live, or split over ``mesh``'s ``batch_axes``
+    (each rank on its own rows, on the mesh's device; every rank returns
+    the whole solution).  A ``SharedLPBatch`` runs on the shared
     backends, or densified on an explicitly named other backend; an
     ``LPBatch`` on a shared backend raises ``ValueError``.  ``stats``
     accumulates the counters of every dispatch (one sync each).  Returns
     one result row per input LP, in input order.
     """
     options = options or SolveOptions()
+    split = _spmd.resolve_split(mesh, batch_axes)
     if batch.batch == 0:
-        return empty_solution(batch.n, batch.a.dtype, batch.a.device)
+        return empty_solution(batch.n, batch.a.dtype,
+                              batch.a.device if split is None else split.device)
     shared = isinstance(batch, SharedLPBatch)
     options = resolve_backend(options, shared, (batch.m, batch.n), dtype=batch.a.dtype,
-                              batch=batch.batch, stats=stats, device=batch.a.device)
+                              batch=batch.batch, stats=stats,
+                              device=batch.a.device if split is None else split.device,
+                              mesh=mesh if split is not None else None)
     if shared and options.backend not in SHARED_BACKENDS:
         # An explicit non-shared backend (pdhg, reference, a plug-in): honour the
         # request by densifying, correctness over the memory win.
@@ -438,8 +466,8 @@ def solve_canonical(
             active = torch.nonzero(sol.status == ITER_LIMIT).flatten().cpu().numpy()
             if active.size == 0:
                 break
-            idx = torch.as_tensor(active, device=batch.b.device)
-            sub = batch.take(idx)  # a shared batch gathers b/c, never A
+            idx = torch.as_tensor(active, device=sol.status.device)
+            sub = batch.take(torch.as_tensor(active, device=batch.b.device))
             sub_state = None
             if state is not None:
                 # Survivors are a subset of the rows the last round held.
@@ -447,7 +475,8 @@ def solve_canonical(
                 sub_state = state.take(torch.as_tensor(local, device=batch.b.device))
                 state = None  # the round's gathered copy is all that is needed
         part, part_state = dispatch_round_safe(sub, base.replace(max_iters=cap), stats,
-                                               state=sub_state, want_state=want_state)
+                                               state=sub_state, want_state=want_state,
+                                               mesh=mesh, batch_axes=batch_axes)
         if options.guardrails:
             part = apply_guardrails(part, part_state)
         if stats is not None and sub_state is not None:
@@ -461,22 +490,35 @@ def solve_canonical(
         state = part_state
         if carry_iters:
             iter_offset += cap
+
+    def post(fn, sol):
+        # Row-local post-passes: under a mesh each rank takes its own rows.
+        if split is None:
+            return fn(batch, sol)
+        return _spmd.map_rows(split, fn, batch, sol)
+
     if options.backend == "pdhg":
         # Both post-passes run once, on the merged solution.  Confirmation
         # first: it may revoke a heuristic flag, and crossover polishes
         # only real optima.
-        sol = _pdhg.confirm_certificates(batch, sol, options)
+        sol = post(lambda b, s: _pdhg.confirm_certificates(b, s, options), sol)
         if options.crossover:
-            sol = _pdhg.crossover(batch, sol, options)
+            sol = post(lambda b, s: _pdhg.crossover(b, s, options), sol)
     if options.quarantine:
         # Last: it reads only NUMERICAL rows, which neither post-pass touches.
-        sol = _quarantine_resolve(batch, sol, options, stats)
+        # Each rank counts its own re-solved rows; the mesh sums them.
+        counted = SolveStats()
+        sol = post(lambda b, s: _quarantine_resolve(b, s, options, counted), sol)
+        if stats is not None:
+            stats.quarantined += (counted.quarantined if split is None
+                                  else _spmd.total(split, counted.quarantined))
     return sol
 
 
 def dispatch_round_safe(
     batch: Union[LPBatch, SharedLPBatch], options: SolveOptions,
     stats: Optional[SolveStats] = None, state=None, want_state: bool = False,
+    mesh=None, batch_axes: Sequence[str] = ("data",),
 ):
     """:func:`dispatch_round` with retry from the carried state.
 
@@ -490,12 +532,17 @@ def dispatch_round_safe(
     ``options.retry_budget`` failed retries, or at once on an error in
     ``runtime/chaos.py:NON_TRANSIENT``, the exception propagates.  The
     clean path is one ``try``.  Counters booked by an aborted attempt's
-    finished chunks are not rolled back.
+    finished chunks are not rolled back.  Under a mesh every rank sees
+    the same failure (:meth:`~repro_torch.core.spmd.BatchSplit.agree`),
+    so all ranks retry, or raise, together.
     """
     budget = options.retry_budget
+    # Unsplit rounds keep dispatch_round's unsplit call (wrappers of it stay valid).
+    split = {} if mesh is None else dict(mesh=mesh, batch_axes=batch_axes)
     for attempt in range(budget + 1):
         try:
-            return dispatch_round(batch, options, stats, state=state, want_state=want_state)
+            return dispatch_round(batch, options, stats, state=state, want_state=want_state,
+                                  **split)
         except Exception as exc:
             if attempt >= budget or not _chaos.is_transient(exc):
                 raise
@@ -517,9 +564,19 @@ def _solve_chunk(backend: Backend, cur, cur_state, options: SolveOptions, want_s
     return backend.solve_canonical(cur, options), None
 
 
+def _state_bytes_per_lp(backend: Backend, batch, options: SolveOptions) -> int:
+    """One LP's solver-state bytes on ``backend`` (``SolveStats.tableau_bytes``)."""
+    if backend.name == "pdhg":
+        return _pdhg.state_bytes_per_lp(batch.m, batch.n, batch.a.dtype)
+    if backend.name in SHARED_BACKENDS:
+        return _revised.state_bytes_per_lp(batch.m, batch.n, batch.a.dtype)
+    return TableauSpec(batch.m, batch.n, options.effective_layout).bytes_per_lp(batch.a.dtype)
+
+
 def dispatch_round(
     batch: Union[LPBatch, SharedLPBatch], options: SolveOptions,
     stats: Optional[SolveStats] = None, state=None, want_state: bool = False,
+    mesh=None, batch_axes: Sequence[str] = ("data",),
 ):
     """One dispatch round: chunk, solve, concatenate, record -> ``(LPSolution, state)``.
 
@@ -532,21 +589,19 @@ def dispatch_round(
     ``runtime/chaos.py:ChaosMonkey`` is consulted before the round, before
     each chunk and on the outgoing state.  With ``options.speculation``
     a round of several chunks goes through :func:`_speculative_chunks`.
+    Under a ``mesh`` the round is split over its ``batch_axes``
+    (:func:`_dispatch_split`).
     """
+    split = _spmd.resolve_split(mesh, batch_axes)
+    if split is not None:
+        return _dispatch_split(batch, options, stats, state, want_state, split)
     monkey = _chaos.active()
     chaos_round = monkey.on_round(options.backend) if monkey is not None else None
     backend = get_backend(options.backend)
     bsz = batch.batch
     chunk = options.chunk_size or bsz
     if stats is not None:
-        if backend.name == "pdhg":
-            per_lp = _pdhg.state_bytes_per_lp(batch.m, batch.n, batch.a.dtype)
-        elif backend.name in SHARED_BACKENDS:
-            per_lp = _revised.state_bytes_per_lp(batch.m, batch.n, batch.a.dtype)
-        else:
-            per_lp = TableauSpec(batch.m, batch.n, options.effective_layout).bytes_per_lp(
-                batch.a.dtype)
-        stats.record_tableau(min(chunk, bsz) * per_lp)
+        stats.record_tableau(min(chunk, bsz) * _state_bytes_per_lp(backend, batch, options))
     ranges = [slice(lo, min(lo + chunk, bsz)) for lo in range(0, bsz, chunk)]
     if options.speculation and len(ranges) > 1:
         parts, state_parts = _speculative_chunks(batch, state, options, backend, want_state,
@@ -576,6 +631,80 @@ def dispatch_round(
         if poisoned and stats is not None:
             stats.faults_injected += poisoned
     return sol, out_state
+
+
+def _dispatch_split(batch, options: SolveOptions, stats: Optional[SolveStats], state,
+                    want_state: bool, split: "_spmd.BatchSplit"):
+    """One round split over a mesh: :func:`dispatch_round` on this rank's rows,
+    then one agreement and one gather.
+
+    Without a :class:`~repro_torch.core.spmd.ShardedState` the batch (and
+    a full ``state``, given to every rank) is padded with copies of its
+    last row to a multiple of ``split.div`` and cut into equal blocks,
+    the reference's plan under a mesh; a rank solves its block in chunks
+    of ``chunk_size // div`` and keeps the rows that are not padding.
+    With one, each rank solves the rows it owns from its own state rows.
+    The chaos hooks act on this rank's part.  The outgoing state is a
+    ``ShardedState`` that holds this rank's rows.  ``stats`` books what
+    the unsplit round books (the merged solution in chunks of
+    ``chunk_size``), the same on every rank.
+    """
+    backend = get_backend(options.backend)
+    bsz = batch.batch
+    if isinstance(state, _spmd.ShardedState):
+        owner = state.owner
+        solved = np.nonzero(owner == split.block)[0]
+        local_state = state.local
+        order = np.argsort(owner, kind="stable")  # row numbers in block order
+    else:
+        owner, per = split.even_owner(bsz)
+        solved = np.minimum(np.arange(split.block * per, (split.block + 1) * per), bsz - 1)
+        local_state = None if state is None else state.take(_rows(solved, state))
+        order = None
+    keep = int(np.count_nonzero(owner == split.block))
+    counts = np.bincount(owner, minlength=split.div).tolist()
+    chunk = None if options.chunk_size is None else max(1, options.chunk_size // split.div)
+    local = SolveStats()  # this rank's counters; the merged solution is booked below
+    local_sol = out_state = health = exc = None
+    try:
+        if solved.size:
+            cur = _spmd.to_device(batch.take(_rows(solved, batch)), split.device)
+            if local_state is not None:
+                local_state = _spmd.to_device(local_state, split.device)
+            local_sol, out_state = dispatch_round(
+                cur, options.replace(chunk_size=chunk, speculation=False), local,
+                state=local_state, want_state=want_state)
+            if keep < solved.size:  # this block's padding replicas
+                local_sol = _spmd.solution_rows(local_sol, slice(0, keep))
+                if want_state:
+                    out_state = out_state.take(slice(0, keep))
+            if want_state:
+                health = state_health(out_state)
+        elif _chaos.active() is not None:
+            _chaos.active().on_round(options.backend)  # a rank with no rows counts the round too
+    except Exception as err:  # agreed in the gather: every rank raises
+        exc = err
+    sol, healthy, (grew,) = _spmd.gather_solution(
+        split, local_sol, counts, batch.n, batch.a.dtype, exc, health, header=[local.compiles])
+    sol, healthy = _spmd.in_row_order(sol, order, healthy)
+    if stats is not None:
+        stats.faults_injected += local.faults_injected
+        chunk = options.chunk_size or bsz
+        stats.record_tableau(min(chunk, bsz) * _state_bytes_per_lp(backend, batch, options))
+        for k, lo in enumerate(range(0, bsz, chunk)):
+            if backend.cache_size:
+                stats.record_cache(0, grew if k == 0 else 0)
+            stats.record(_spmd.solution_rows(sol, slice(lo, lo + chunk)))
+    out = _spmd.ShardedState(out_state, owner, split.block, healthy) if want_state else None
+    return sol, out
+
+
+def _rows(rows: np.ndarray, record):
+    """Rows ``rows`` of a batch or state as an index: a slice where they are a
+    run (a view, no copy of the rank's block), else an index tensor."""
+    if rows.size and np.all(np.diff(rows) == 1):
+        return slice(int(rows[0]), int(rows[-1]) + 1)
+    return torch.as_tensor(rows, device=_spmd._device_of(record))
 
 
 def _cross_streams(value, stream: "torch.cuda.Stream") -> None:
@@ -658,25 +787,59 @@ def solve_hyperbox(
     options: Optional[SolveOptions] = None,
     stats: Optional[SolveStats] = None,
     device=None,
+    mesh=None,
+    batch_axes: Sequence[str] = ("data",),
 ) -> LPSolution:
     """Closed-form box-LP batch through the selected backend.
 
     ``lo``/``hi`` broadcast to ``directions`` (B, n).  Array-likes and
     tensors go to ``device`` (None = the card; raises without one).
+    Under a ``mesh`` each rank solves its block of B / (the batch axes'
+    product) rows on the mesh's device and every rank returns the whole
+    solution; a B that does not split evenly raises ``ValueError`` on
+    every rank, as the reference's sharded placement does (the box path
+    does not pad).
     """
     options = options or SolveOptions()
     if options.backend == "auto":
         # Box LPs are closed-form: the simplex/first-order question of
         # "auto" does not arise, and the hyperbox kernel answers them.
         options = options.replace(backend="cuda")
-    dev = resolve_device(device)
+    split = _spmd.resolve_split(mesh, batch_axes)
+    dev = resolve_device(device) if split is None else None
     directions = _tensor(directions, device=dev)
     dtype = directions.dtype
-    lo = _tensor(lo, dtype=dtype, device=dev)
-    hi = _tensor(hi, dtype=dtype, device=dev)
-    if directions.shape[0] == 0:
-        return empty_solution(directions.shape[-1], dtype, dev)
-    sol = get_backend(options.backend).solve_hyperbox(lo, hi, directions, options)
+    lo = _tensor(lo, dtype=dtype, device=directions.device)
+    hi = _tensor(hi, dtype=dtype, device=directions.device)
+    backend = get_backend(options.backend)
+    if split is None:
+        if directions.shape[0] == 0:
+            return empty_solution(directions.shape[-1], dtype, dev)
+        sol = backend.solve_hyperbox(lo, hi, directions, options)
+    else:
+        sol = _hyperbox_split(backend, lo, hi, directions, options, split)
     if stats is not None:
         stats.record(sol)
+    return sol
+
+
+def _hyperbox_split(backend: Backend, lo, hi, directions, options: SolveOptions,
+                    split: "_spmd.BatchSplit") -> LPSolution:
+    """This rank's block of box LPs on its device, then the gather."""
+    bsz, n = directions.shape
+    if bsz % split.div:
+        raise ValueError(
+            f"solve_hyperbox: {bsz} box LPs do not split evenly over the mesh's batch axes "
+            f"{split.axes} ({split.div} blocks); the box path does not pad")
+    if bsz == 0:
+        return empty_solution(n, directions.dtype, split.device)
+    per = bsz // split.div
+    rows = slice(split.block * per, (split.block + 1) * per)
+    local, exc = None, None
+    try:
+        local = backend.solve_hyperbox(
+            *(t.expand(bsz, n)[rows].to(split.device) for t in (lo, hi, directions)), options)
+    except Exception as err:  # agreed in the gather: every rank raises
+        exc = err
+    sol, _, _ = _spmd.gather_solution(split, local, [per] * split.div, n, directions.dtype, exc)
     return sol

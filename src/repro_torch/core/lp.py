@@ -205,11 +205,14 @@ def concat_states(parts):
     Works for every state record of the library (:class:`ResumeState`,
     the revised and PDHG records): each is a frozen dataclass of
     batch-leading tensors, as the reference's pytree concatenation
-    assumes.
+    assumes.  A record with a ``concat`` of its own (a state split over a
+    mesh, ``core/spmd.py:ShardedState``) concatenates itself.
     """
     first = parts[0]
     if len(parts) == 1:
         return first
+    if hasattr(first, "concat"):
+        return type(first).concat(parts)
     return type(first)(*(torch.cat([getattr(p, f.name) for p in parts])
                          for f in dataclasses.fields(first)))
 

@@ -2,9 +2,10 @@
 
 Follows ``repro/core/session.py``.
 
-* :class:`SolveSession` pins one ``SolveOptions`` and one
-  :class:`~repro_torch.core.backends.SolveStats` record for a traffic
-  profile, and holds the serve loop's solver surface: the resolved
+* :class:`SolveSession` pins one ``SolveOptions``, one
+  :class:`~repro_torch.core.backends.SolveStats` record and optionally a
+  device mesh for a traffic profile, and holds the serve loop's solver
+  surface: the resolved
   options of a shape, the iteration-0 state of newly admitted LPs, and
   one capped continuation round.  In the port the counters
   ``compiles``/``cache_hits`` count kernel specialisations (kernel
@@ -33,9 +34,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from . import dispatch as _dispatch
+from . import spmd as _spmd
 from .backends import SolveOptions, SolveStats, get_backend, kernel_cache_size
 from .bucketing import ShapeGrid, next_pow2
 from .lp import (OPTIMAL, LPBatch, LPSolution, ResumeState, SharedLPBatch, _tensor,
@@ -48,9 +51,7 @@ def _on(value, device: torch.device):
     """``value`` (a problem, a batch, or a list of problems) with its tensors on ``device``."""
     if isinstance(value, (list, tuple)):
         return [_on(v, device) for v in value]
-    moved = {f.name: getattr(value, f.name).to(device) for f in dataclasses.fields(value)
-             if isinstance(getattr(value, f.name), torch.Tensor)}
-    return dataclasses.replace(value, **moved)
+    return _spmd.to_device(value, device)
 
 
 class SolveSession:
@@ -59,7 +60,9 @@ class SolveSession:
     Every call goes through the session's ``options`` and accumulates into
     its ``stats``.  The session runs on ``device`` (None = the card, which
     raises without one; pass ``device="cpu"`` for the CPU): problems and
-    batches are moved there first.
+    batches are moved there first.  With a ``mesh`` each rank solves its
+    own rows on the mesh's device, and inputs stay where they are until
+    a rank takes its rows.
 
     Parameters
     ----------
@@ -70,30 +73,38 @@ class SolveSession:
     stats : SolveStats, optional
         The record to accumulate into; a fresh one by default.
     device : str or torch.device, optional
-        Where the session solves.
+        Where the session solves (under a ``mesh``, the mesh's device).
+    mesh : DeviceMesh, optional
+        Split every batch over the mesh's ``"data"`` axis.
     """
 
-    def __init__(self, options: Optional[SolveOptions] = None, *,
+    def __init__(self, options: Optional[SolveOptions] = None, *, mesh=None,
                  grid: Optional[ShapeGrid] = None, stats: Optional[SolveStats] = None,
                  device=None):
         self.options = options or SolveOptions()
         self.grid = grid
         self.stats = stats if stats is not None else SolveStats()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._split = _spmd.resolve_split(mesh, ("data",))
+        self.device = self._split.device if self._split is not None else resolve_device(device)
         self._pinned: Dict[tuple, SolveOptions] = {}
+
+    def _place(self, value):
+        # Under a mesh a rank moves only its own rows (the dispatch does).
+        return value if self._split is not None else _on(value, self.device)
 
     def solve(self, problem: Union[LPProblem, LPBatch, SharedLPBatch, Sequence[LPProblem]]
               ) -> Union[LPSolution, List[LPSolution]]:
         """Solve through the pinned configuration, recording into ``stats``."""
         from .. import api  # api imports this package
 
-        return api.solve(_on(problem, self.device), self.options, grid=self.grid,
+        return api.solve(self._place(problem), self.options, mesh=self.mesh, grid=self.grid,
                          stats=self.stats)
 
     def solve_hyperbox(self, lo, hi, directions) -> LPSolution:
         """Box-LP batch through the pinned configuration (paper Sec. 6)."""
         return _dispatch.solve_hyperbox(lo, hi, directions, self.options, stats=self.stats,
-                                        device=self.device)
+                                        device=self.device, mesh=self.mesh)
 
     # -- the serve loop's solver surface -------------------------------------
 
@@ -112,14 +123,17 @@ class SolveSession:
         if hit is None:
             hit = self._pinned[key] = _dispatch.resolve_backend(
                 self.options, shape=(m, n), dtype=dtype, batch=batch, stats=self.stats,
-                device=self.device)
+                device=self.device, mesh=self.mesh if self._split is not None else None)
         return hit
 
-    def init_state(self, batch, options: Optional[SolveOptions] = None):
+    def init_state(self, batch, options: Optional[SolveOptions] = None, joining=None):
         """The iteration-0 resume state of a canonical batch (the splice input).
 
         Resuming it for K steps is bit-identical to a cold solve at cap K.
         ``options`` must name a concrete backend (default: the session's).
+        Under a mesh the state is a ``ShardedState``: each new row goes to
+        the least loaded rank beside ``joining`` (the in-flight state it
+        will be spliced onto), and each rank builds its own rows' state.
         """
         options = options or self.options
         backend = get_backend(options.backend)
@@ -127,9 +141,25 @@ class SolveSession:
             raise ValueError(f"backend {backend.name!r} has no init_canonical hook; "
                              "it cannot splice new LPs into in-flight rounds")
         before = backend.cache_size() if backend.cache_size else None
-        state = backend.init_canonical(_on(batch, self.device), options)
+        split = self._split
+        if split is None:
+            state = backend.init_canonical(_on(batch, self.device), options)
+        else:
+            owner = _spmd.assign_owners(split, joining, batch.batch)
+            mine = np.nonzero(owner == split.block)[0]
+            local, exc = None, None
+            try:
+                if mine.size:
+                    rows = batch.take(torch.as_tensor(mine, device=batch.b.device))
+                    local = backend.init_canonical(_spmd.to_device(rows, split.device), options)
+            except Exception as err:  # agreed below: every rank raises
+                exc = err
+            state = _spmd.ShardedState(local, owner, split.block)
+        grown = backend.cache_size() - before if before is not None else 0
+        if split is not None:
+            (grown,) = split.agree(exc, [grown])  # the same booking on every rank
         if before is not None:
-            self.stats.record_cache(before, backend.cache_size())
+            self.stats.record_cache(0, grown)
         return state
 
     def resume_round(self, batch, state, cap: int, options: Optional[SolveOptions] = None):
@@ -146,9 +176,9 @@ class SolveSession:
         """
         base = (options or self.options).replace(
             max_iters=int(cap), compaction="off", first_cap=None, resume="scratch")
-        sol, out_state = _dispatch.dispatch_round_safe(_on(batch, self.device), base,
+        sol, out_state = _dispatch.dispatch_round_safe(self._place(batch), base,
                                                        self.stats, state=state,
-                                                       want_state=True)
+                                                       want_state=True, mesh=self.mesh)
         if base.guardrails:
             sol = _dispatch.apply_guardrails(sol, out_state)
         self.stats.resumed += batch.batch

@@ -17,12 +17,20 @@ multiply and add a separately rounded operation (as in the plain
 PyTorch versions), and there is no ``--use_fast_math``.  ``-Xptxas -v``
 records each kernel's registers, shared memory and spills in a ``.log``
 beside the library (:func:`ptxas_report`).
+
+Several processes may build at once (the ranks of a mesh, each loading
+the kernels it launches): :func:`compile_source` holds a file lock
+beside the library, so ranks that miss it run one ``nvcc`` between
+them, and it writes the log and then the library through temporary
+files renamed into place, so a reader never sees half of either.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -113,32 +121,55 @@ def library_path(name: str) -> Path:
     return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _file_lock(path: Path):
+    """An exclusive ``flock`` on ``path`` for the block (across processes)."""
+    with open(path, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def compile_source(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
 
     Returns ``{"name", "path", "built", "seconds", "log"}``; ``log`` is the
     compiler's ``-Xptxas -v`` output of the build that made the library.
+    Safe across processes: the build runs under a file lock, and the log
+    and the library each appear whole, the log first.
     """
     path = library_path(name)
     log = path.with_suffix(".log")
-    if path.exists() and log.exists():
+
+    def cached():
         return dict(name=name, path=str(path), built=False, seconds=0.0,
                     log=log.read_text())
+
+    if path.exists() and log.exists():
+        return cached()
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f".{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    text = proc.stdout + proc.stderr
-    log.write_text(text)
-    os.replace(tmp, path)
+    with _file_lock(path.with_suffix(".lock")):
+        if path.exists() and log.exists():  # another process built it meanwhile
+            return cached()
+        stem = f".{path.name}.{os.getpid()}.{threading.get_ident()}"
+        tmp = path.with_name(f"{stem}.tmp")
+        tmp_log = path.with_name(f"{stem}.log.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        text = proc.stdout + proc.stderr
+        tmp_log.write_text(text)
+        os.replace(tmp_log, log)
+        os.replace(tmp, path)
     return dict(name=name, path=str(path), built=True, seconds=seconds, log=text)
 
 

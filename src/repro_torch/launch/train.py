@@ -13,8 +13,8 @@ Examples:
 
 The reference's ``tpu_env_flags`` (XLA flags for TPU pods) and its
 buffer donation have no counterpart here.  ``--model-axis`` above 1
-(tensor parallelism over a device mesh) comes with the multi-device
-slice (``ROADMAP.md``, item 6.5).
+(tensor parallelism over a device mesh) comes with the LM half of the
+multi-device work (``ROADMAP.md``, item 6.5b).
 """
 
 from __future__ import annotations
@@ -53,7 +53,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_axis != 1:
         raise NotImplementedError(
-            "--model-axis above 1 needs the multi-device slice (ROADMAP.md, item 6.5)")
+            "--model-axis above 1 needs the LM half of the multi-device work "
+            "(ROADMAP.md, item 6.5b)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)

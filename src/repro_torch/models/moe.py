@@ -17,8 +17,9 @@ Differences from the reference, none of which changes a result:
 
 * The dispatch keeps the reference's group axis with g = 1: without a
   mesh, ``partition.axis_size("batch")`` is 1 (expert parallelism, g > 1,
-  comes with the multi-device slice).  The reference's
-  ``partition.constrain`` calls do nothing on one device and are left out.
+  comes with ``ROADMAP.md`` item 6.5b).  The reference's
+  ``partition.constrain`` calls do nothing on one device and are left out
+  until then.
 * ``jax.lax.top_k`` breaks ties toward the lower index; ``torch.topk``
   does not promise that order, so the top k come from a stable
   descending sort.
@@ -189,7 +190,7 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     """
     b, s, d = x.shape
     t = b * s
-    g = 1  # the reference's partition.axis_size("batch") without a mesh
+    g = 1  # the reference's partition.axis_size("batch") without a mesh (item 6.5b)
     tl = t // g
     cap = _capacity(tl, cfg)
 

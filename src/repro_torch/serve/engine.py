@@ -28,6 +28,15 @@ batch-1 code path.  A CUDA launch takes any batch size, so the port
 dispatches waves and survivors as they are (``ROADMAP.md``, "TPU
 mechanics not carried over").
 
+Under a ``mesh`` (``LPEngine(mesh=...)``) every rank runs the same
+engine on the same requests: the flush path solves through
+``api._solve_problem(..., mesh, ("data",))``, and the continuous path's
+groups carry ``ShardedState``s (``core/spmd.py``), each rank resuming
+the rows it owns.  Admission is driven by the step count, so ranks that
+submit the same requests in the same steps take the same decisions; the
+one decision that depends on timing, ``autotune="trial"``, takes the
+mesh's first rank's winner.
+
 ``serve/loadgen.py`` replays open-loop Poisson traces against both modes;
 ``launch/serve_lp.py`` is the command-line server.
 """
@@ -63,6 +72,7 @@ from ..core.problem import (
     validate_problem,
 )
 from ..core.session import SolveSession, _on
+from ..core.spmd import ShardedState
 from ..runtime import chaos as _chaos
 
 
@@ -162,6 +172,15 @@ def _scatter_rows(full: torch.Tensor, idx: torch.Tensor, part: torch.Tensor) -> 
     return out
 
 
+def _scatter_state(state, idx: torch.Tensor, part):
+    """``state`` with rows ``idx`` replaced by ``part``'s (a split state by its owners)."""
+    if isinstance(state, ShardedState):
+        return state.scatter(idx, part)
+    return dataclasses.replace(state, **{
+        f.name: _scatter_rows(getattr(state, f.name), idx, getattr(part, f.name))
+        for f in dataclasses.fields(state)})
+
+
 class LPEngine:
     """LP server over one persistent session: flush mode and continuous mode.
 
@@ -233,6 +252,9 @@ class LPEngine:
         (``deadline_misses`` counts completions past their deadline).
     device : str or torch.device, optional
         Where the engine solves.
+    mesh : DeviceMesh, optional
+        Split every solve and round over the mesh's ``"data"`` axis; every
+        rank drives the engine alike and gets every result.
     """
 
     def __init__(
@@ -248,13 +270,16 @@ class LPEngine:
         starvation_rounds: int = 8,
         clock: Callable[[], float] = time.monotonic,
         device=None,
+        mesh=None,
     ):
         if admission not in ("edf", "fifo"):
             raise ValueError(f'admission must be "edf" or "fifo", got {admission!r}')
         self.options = options or SolveOptions()
         self.flush_every = flush_every
         self.grid = grid
-        self.session = SolveSession(self.options, grid=grid, stats=stats, device=device)
+        self.mesh = mesh
+        self.session = SolveSession(self.options, mesh=mesh, grid=grid, stats=stats,
+                                    device=device)
         self.step_iters = int(step_iters)
         self.max_inflight = max_inflight
         self.admission = admission
@@ -414,7 +439,7 @@ class LPEngine:
         if not backend.supports_splice:
             self._complete_oneshot(tickets, stacked, true_ns, completed)
             return
-        state = self.session.init_state(cb, resolved)
+        state = self.session.init_state(cb, resolved, joining=None if g is None else g.state)
         batch = LPBatch(cb.a, cb.b, cb.c)
         if g is None:
             full_cap = _dispatch._full_cap(cb, resolved, backend)
@@ -444,7 +469,7 @@ class LPEngine:
         """Admission-time completion through the one-shot solve path."""
         from .. import api  # lazy: api imports the core this module imports
 
-        sol = api._solve_problem(stacked, self.options, self.stats)
+        sol = api._solve_problem(stacked, self.options, self.stats, self.mesh, ("data",))
         for row, (t, tn) in enumerate(zip(tickets, true_ns)):
             self._finish(t, LPSolution(objective=sol.objective[row:row + 1],
                                        x=sol.x[row:row + 1, :tn],
@@ -529,10 +554,7 @@ class LPEngine:
                 done_inc[rows] = sol.iterations.cpu().numpy()
                 obj = _scatter_rows(obj, ridx, sol.objective)
                 x = _scatter_rows(x, ridx, sol.x)
-                new_state = dataclasses.replace(new_state, **{
-                    f.name: _scatter_rows(getattr(new_state, f.name), ridx,
-                                          getattr(part_state, f.name))
-                    for f in dataclasses.fields(new_state)})
+                new_state = _scatter_state(new_state, ridx, part_state)
         # Every dispatch succeeded: commit the round's bookkeeping.
         for i in range(nrows):
             g.done[i] += int(done_inc[i])

@@ -1,0 +1,172 @@
+"""Logical-axis partitioning with divisibility fallback.
+
+Follows ``repro/sharding/partition.py``.  Model code names its tensor
+dimensions by *logical* axes; a rules table maps them to physical mesh
+axes.  An assignment that does not divide a dimension evenly is dropped
+to replication, so the same code runs on one device, a 256-rank mesh and
+a 512-rank multi-pod mesh without per-architecture tuning.
+
+    with partition.activate(mesh):
+        spec = partition.resolve_spec(x.shape, ("batch", "seq_tp", None))
+        x = partition.constrain(x, ("batch", "seq_tp", None))
+
+``activate`` takes a ``torch.distributed.device_mesh.DeviceMesh``, or an
+abstract ``{axis: size}`` mapping (the counterpart of JAX's
+``AbstractMesh``) for plans and tests at 256 or 512 ranks in one
+process.  :func:`resolve_spec` returns what the reference's
+``PartitionSpec`` holds, as a tuple: per dimension ``None``, one axis
+name, or a tuple of names.  :func:`placements` turns it into one
+``Shard(d)`` / ``Replicate()`` per mesh dimension, the form a ``DTensor``
+takes (the reference's ``named_sharding``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+AxisName = Union[str, Tuple[str, ...], None]
+
+#: Default logical -> physical rules of the production meshes.  "fsdp" is
+#: every data-parallel axis the mesh has (pod and data).
+DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "fsdp": ("pod", "data"),
+    "seq_tp": ("model",),  # sequence/context parallelism
+    "heads_tp": ("model",),  # tensor parallelism over heads
+    "embed_tp": ("model",),  # tensor parallelism over hidden/ffn
+    "vocab_tp": ("model",),
+    "expert_tp": ("model",),  # expert parallelism
+    "kv_seq_tp": ("model",),  # KV-cache sequence sharding
+    "layer": (),  # the reference's scan-stacked layer dim: replicated
+}
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.shape: Dict[str, int] = {}
+        self.rules: Dict[str, Tuple[str, ...]] = {}
+
+
+_CTX = _Ctx()
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a ``DeviceMesh`` or an abstract mapping, in mesh order."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+
+
+@contextlib.contextmanager
+def activate(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
+    """Make ``mesh`` (a ``DeviceMesh``, an ``{axis: size}`` mapping, or None)
+    and ``rules`` (default :data:`DEFAULT_RULES`) current for the block."""
+    prev = (_CTX.mesh, _CTX.shape, _CTX.rules)
+    _CTX.mesh = mesh
+    _CTX.shape = mesh_shape(mesh)
+    _CTX.rules = dict(DEFAULT_RULES if rules is None else rules)
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.shape, _CTX.rules = prev
+
+
+def active_mesh():
+    """The mesh of the innermost :func:`activate`, or None."""
+    return _CTX.mesh
+
+
+def axis_size(logical: str) -> int:
+    """Product of the mesh-axis sizes a logical axis maps to (1 if inactive)."""
+    shape = _CTX.shape
+    if _CTX.mesh is None:
+        return 1
+    return math.prod(shape[a] for a in _CTX.rules.get(logical, ()) if a in shape)
+
+
+def resolve_spec(shape: Sequence[int], logical_axes: Sequence[AxisName]) -> Tuple[AxisName, ...]:
+    """Map logical axes to mesh axes, dropping indivisible assignments.
+
+    One entry per dimension: ``None`` (replicated), a mesh-axis name, or
+    a tuple of names.  A mesh axis is used by one dimension at most.
+    Where the axes' product does not divide the dimension, trailing axes
+    are dropped until it does (or none is left).  Without an active mesh
+    the spec is empty, as the reference's ``P()``.
+    """
+    mshape = _CTX.shape
+    if _CTX.mesh is None:
+        return ()
+    assert len(shape) == len(logical_axes), (shape, logical_axes)
+    used: set = set()
+    out: list = []
+    for dim, name in zip(shape, logical_axes):
+        if name is None:
+            out.append(None)
+            continue
+        names = (name,) if isinstance(name, str) else tuple(name)
+        phys: list = []
+        for ln in names:
+            for ax in _CTX.rules.get(ln, ()):
+                if ax in mshape and ax not in used:
+                    phys.append(ax)
+        if not phys:
+            out.append(None)
+            continue
+        total = math.prod(mshape[a] for a in phys)
+        if dim % total != 0 or dim == 0:
+            while phys:
+                total = math.prod(mshape[a] for a in phys)
+                if dim % total == 0 and total > 1:
+                    break
+                phys.pop()
+            if not phys:
+                out.append(None)
+                continue
+        used.update(phys)
+        out.append(tuple(phys) if len(phys) > 1 else phys[0])
+    return tuple(out)
+
+
+def placements(shape: Sequence[int], logical_axes: Sequence[AxisName]):
+    """One ``Shard(d)`` / ``Replicate()`` per mesh dimension, or None without a mesh.
+
+    The ``DTensor`` form of :func:`resolve_spec` (the reference's
+    ``named_sharding``).  A dimension split over several mesh axes shards
+    along each of them, in order.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    if _CTX.mesh is None:
+        return None
+    spec = resolve_spec(shape, logical_axes)
+    by_axis = {}
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for ax in ((entry,) if isinstance(entry, str) else entry):
+            by_axis[ax] = Shard(d)
+    return tuple(by_axis.get(ax, Replicate()) for ax in _CTX.shape)
+
+
+def constrain(x: torch.Tensor, logical_axes: Sequence[AxisName]) -> torch.Tensor:
+    """Lay ``x`` out by logical names: the reference's ``with_sharding_constraint``.
+
+    Without a mesh, ``x`` comes back unchanged; with one, a ``DTensor``
+    is redistributed to :func:`placements` and a plain tensor is left as
+    it is (a plain tensor is one rank's whole value).
+    """
+    if _CTX.mesh is None or isinstance(_CTX.mesh, Mapping):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(_CTX.mesh, placements(x.shape, logical_axes))

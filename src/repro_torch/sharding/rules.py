@@ -2,11 +2,10 @@
 
 Follows ``repro/sharding/rules.py``.  A model module describes its
 parameters as a tree (nested dicts) of ``ParamSpec`` leaves, and
-``materialize`` makes the tensors.  The logical axes are kept for the
-multi-device slice; on one device nothing reads them, so the port has no
-``partition`` module yet and leaves out the reference's ``constrain``
-calls, which do nothing on one device (``ROADMAP.md``, "TPU mechanics not
-carried over").
+``materialize`` makes the tensors.  ``sharding/partition.py`` resolves
+the logical axes against a mesh; the model files do not call its
+``constrain`` yet, which does nothing on one device (``ROADMAP.md``, item
+6.5b).
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ to int8 with a per-leaf scale, and the quantization residual is kept as
 *error feedback*, added back on the next step (EF-SGD, Karimireddy et
 al., 2019).  ``torch.round`` rounds half to even, as ``jnp.round`` does.
 
-The reference's ``dp_allreduce_int8`` (the int8 all-reduce over a data
-axis) comes with the multi-device slice (``ROADMAP.md``, item 6.5).
+:func:`dp_allreduce_int8` is the explicit int8 all-reduce over a mesh
+axis (the reference's ``shard_map`` form): every step is exact or
+elementwise, so it matches the reference bit for bit.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def _quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,3 +61,41 @@ def make_ef_compressor(leaf_of: Optional[Dict[str, str]] = None):
         return new_g, new_e
 
     return init_fn, compress_fn
+
+
+def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    """In-place all-reduce; gloo reduces a CUDA tensor through the host."""
+    if t.is_cuda and dist.get_backend(group) != "nccl":
+        host = t.cpu()
+        dist.all_reduce(host, op=op, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def dp_allreduce_int8(grads, mesh, axis: str = "data"):
+    """The mean of each gradient leaf over a mesh axis, with an int8 payload.
+
+    ``grads`` is a tree (nested dicts) of this rank's local blocks, the
+    reference's ``P(axis)`` shards; each comes back as this rank's block
+    of the mean.  Per leaf: an all-reduce MAX of ``max |g|`` agrees on one
+    scale ``max(amax, 1e-12) / 127``; each rank quantizes to int8; the
+    payload crosses as an all-reduce SUM in int32; the sum is dequantized
+    and divided by the axis size.
+    """
+    group = mesh.get_group(axis)
+    size = torch.tensor(float(dist.get_world_size(group)), dtype=torch.float32)
+
+    def leaf(g: torch.Tensor) -> torch.Tensor:
+        amax = _all_reduce(torch.max(torch.abs(g)).reshape(1), dist.ReduceOp.MAX, group)[0]
+        scale = torch.clamp(amax, min=1e-12) / 127.0
+        summed = _all_reduce(_quantize_with(g, scale).to(torch.int32), dist.ReduceOp.SUM, group)
+        return summed.to(torch.float32) * scale / size.to(g.device)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return leaf(tree)
+
+    return walk(grads)

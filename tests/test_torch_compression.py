@@ -102,3 +102,77 @@ def test_ef_compressor_preserves_sum_over_steps():
     assert resid < 1e-3, resid  # error feedback closes the gap exactly
     rel = np.abs(total_true - total_comp).max() / np.abs(total_true).max()
     assert rel < 0.2, rel  # the compressed sum tracks the true sum
+
+
+# -- dp_allreduce_int8 on 8 gloo ranks -----------------------------------------
+
+_INT8_REFERENCE = """
+import os, sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.train.compression import dp_allreduce_int8
+
+tmp = sys.argv[1]
+arr = dict(np.load(os.path.join(tmp, "inputs.npz")))
+mesh = jax.make_mesh((8,), ("data",))
+grads = {k: jax.device_put(jnp.asarray(arr[k]), NamedSharding(mesh, P("data")))
+         for k in ("int8_g", "int8_h")}
+out = dp_allreduce_int8(grads, mesh)
+np.savez(os.path.join(tmp, "reference.npz"), **{k: np.asarray(v) for k, v in out.items()})
+"""
+
+
+@pytest.fixture(scope="module")
+def int8_runs(tmp_path_factory):
+    """Each of 8 ranks reduces its row block of two gradient leaves; the
+    reference reduces the same leaves sharded over 8 forced CPU devices."""
+    import os
+    import subprocess
+    import sys
+
+    import torch_mesh_worker as worker
+
+    tmp = tmp_path_factory.mktemp("int8")
+    g = np.random.default_rng(8).normal(size=(8, 64)).astype(np.float32)
+    h = (np.random.default_rng(9).normal(size=(8, 3, 5)) * 1e-3).astype(np.float32)
+    h[2] = 0.0  # a rank whose block is all zero
+    np.savez(tmp / "inputs.npz", int8_g=g, int8_h=h)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+           "JAX_PLATFORMS": "cpu", "PYTHONPATH": os.path.join(root, "src")}
+    ref = subprocess.Popen([sys.executable, "-c", _INT8_REFERENCE, str(tmp)], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ranks = worker.spawn("int8", 8, tmp)
+        _, err = ref.communicate(timeout=300)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+    assert ref.returncode == 0, err
+    assert not [r for r in ranks if "error" in r], [r["error"] for r in ranks if "error" in r]
+    port = {k: np.concatenate([r[k].numpy() for r in ranks]) for k in ("int8_g", "int8_h")}
+    return {"g": g, "h": h}, port, dict(np.load(tmp / "reference.npz"))
+
+
+@pytest.mark.parametrize("leaf", ["int8_g", "int8_h"])
+def test_dp_allreduce_int8_bit_equal_to_reference_on_8_ranks(int8_runs, leaf):
+    _, port, ref = int8_runs
+    assert port[leaf].dtype == ref[leaf].dtype == np.float32
+    np.testing.assert_array_equal(port[leaf].view(np.int32), ref[leaf].view(np.int32))
+
+
+@pytest.mark.parametrize("leaf", ["g", "h"])
+def test_dp_allreduce_int8_is_the_mean_of_the_int8_payloads(int8_runs, leaf):
+    """The plain computation: one scale from the global max, each block
+    quantized, the int32 sum dequantized over 8; within one quantum of
+    the float32 mean."""
+    inputs, port, _ = int8_runs
+    x = torch.as_tensor(inputs[leaf])
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32)
+    want = q.sum(dim=0, keepdim=True).to(torch.float32) * scale / torch.tensor(8.0)
+    got = port[f"int8_{leaf}"]
+    np.testing.assert_array_equal(got, np.broadcast_to(want.numpy(), got.shape))
+    assert np.abs(got - inputs[leaf].mean(axis=0, keepdims=True)).max() <= float(scale)

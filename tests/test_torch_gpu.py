@@ -1362,3 +1362,35 @@ def test_checkpoint_written_on_the_card_restores_on_the_cpu(tmp_path):
     assert torch.bfloat16 in dtypes
     for k in state.m:
         assert torch.equal(state.master[k].cpu(), host_state.master[k])
+
+
+# -- the LP system over a mesh (ranks on the card) -----------------------------
+
+
+@pytest.mark.parametrize("scenario,ranks", [("card_gloo", 2), ("card_nccl", 1)])
+def test_mesh_ranks_on_the_card_solve_their_own_rows(scenario, ranks, tmp_path):
+    """Gloo ranks sharing the card, or NCCL with one rank: every rank gets
+    the whole answer, bit-equal to one process's, from kernel launches of
+    its own, on the card.  The PDHG batch stays on the host: each rank's
+    crossover polish must still run on its card (the simplex kernel)."""
+    _need_card()
+    import torch_mesh_worker as worker
+
+    for r in worker.spawn(scenario, ranks, tmp_path):
+        assert "error" not in r, r.get("error")
+        for name, kernels in (("dense", (0,)), ("shared", (1,)), ("box", (2,)),
+                              ("pdhg_crossover", (3, 0))):
+            same, launches, device = r[name]
+            assert same, name
+            assert device.startswith("cuda"), (name, device)
+            assert all(launches[k] >= 1 for k in kernels), (name, launches)
+        assert r["int8"]
+
+
+def test_nccl_refuses_more_ranks_than_cards(monkeypatch):
+    _need_card()
+    from repro_torch.launch import mesh as mesh_lib
+
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(torch.cuda.device_count() + 1))
+    with pytest.raises(ValueError, match="NCCL takes one rank a card"):
+        mesh_lib.init_distributed("nccl", rank=0, world_size=torch.cuda.device_count() + 1)
