@@ -248,6 +248,39 @@ line is printed:
    type-1 peak must lie below the unsplit run's.  These rows are "4 ranks
    sharing one card": they say nothing about scaling.
 
+   Slice 14, the LM serve path over a device mesh, after slice 13
+   (``lm_mesh_phase``; ``lm_mesh`` and ``lm_mesh_reference`` lines).  (a)
+   NCCL with one rank on the card, a (1, 1) mesh: deepseek-v2-lite-16b
+   (27 layers, ``router="lp"``) and gemma2-2b at full width and depth in
+   bfloat16, ``Engine.generate`` of 8 x 1,024 tokens and 40 steps without
+   a mesh and then under ``partition.activate(mesh)`` (the mesh code
+   path, every group of one rank): tokens and every call's logits
+   bit-identical, prefill ms, decode ms (median, p10, p90), peak
+   memory, every router LP on the simplex kernel's cluster variant.
+   (b) LM_MESH_RANKS gloo ranks sharing the card on a (data, model) =
+   (2, 2) mesh
+   (``lm_mesh_rank_main``), deepseek cut to 3 layers (``lp``) and
+   gemma2-2b cut to 4, 4 prompts of 64 tokens (two token groups that
+   drop tokens) and 3 steps, held against this process's run under the
+   abstract mesh ``{"data": 2, "model": 2}``: greedy tokens equal, rows
+   that two ranks run the same bits, the router LPs the same bits on
+   every rank and ``router_lp_checks``-equal to the one-process LPs,
+   each rank's stored parameter and cache bytes equal to its
+   placements' and its peak below one process's; then each case in
+   bfloat16 on the float32 run's tokens, on the ranks and in one
+   process, the ranks' logits within ``LM_BF16_FACTOR`` times the
+   one-process bfloat16 run's relative L2 from the float32 run's; then
+   the float32 3-layer deepseek on the fixture
+   ``tests/data/lm_deepseek_v2_lite_mesh_reference.npz`` (the reference
+   under an Auto-typed (2, 2) mesh), on the ranks and in one process,
+   within ``lm_tolerances``' gates, its router LPs against the
+   fixture's.  These rows are "4 ranks sharing one card" too.  The
+   deepseek reference weights of slices 10, 12 and 14 are one tree (the
+   same depth and seed): a helper process started before slice 9 draws
+   it once and saves it, slice 9 waits for it before its timed rows
+   (``wait_shared_tree``), and each phase memory-maps it
+   (``start_shared_tree``, ``reference_tree``).
+
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
 revised launch the resident variant.  The ``kernels`` line counts the
@@ -257,7 +290,8 @@ of slice 7.
 Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
 entries list their variants with their case names; the simplex entry's
 ``lm_router`` holds the router's case; ``launches`` counts slice 13's
-ranks too, and ``mesh_path_launches`` gives them per rank), the ``nvidia-smi``
+and slice 14's ranks too, ``mesh_path_launches`` gives slice 13's per
+rank and the simplex entry's ``lm_mesh_router`` slice 14's), the ``nvidia-smi``
 name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  The
 script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -2577,6 +2611,7 @@ def lm_phase(rt_configs, dev, *, seed, counters) -> dict:
     load_s = time.perf_counter() - t0
     emit("lm_setup", arch=cfg.name, params=sum(p.numel() for p in model.parameters()),
          param_count=cfg.param_count(), weights_s=gen_s, load_s=load_s,
+         shared_tree_wait_s=wait_shared_tree(),
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
     ref = lm_reference_case(model, fixture)
     win = lm_window_case(model, seed=seed)
@@ -2946,15 +2981,14 @@ def lm_moe_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
     (``simplex_case``) at its prefill shape."""
     from repro_torch.core.lp import LPBatch
     from repro_torch.models import Model
-    from repro_torch.models.convert import (load_reference_params, reference_weights,
-                                            weights_digest)
+    from repro_torch.models.convert import load_reference_params, weights_digest
 
     check(LM_MOE_FIXTURE.exists(), f"the MoE fixture {LM_MOE_FIXTURE} is missing")
     fixture = dict(np.load(LM_MOE_FIXTURE))
     cfg = rt_configs.get_config(LM_MOE_ARCH)
     cut = dataclasses.replace(cfg, num_layers=int(fixture["layers"]))
     t0 = time.perf_counter()
-    tree = reference_weights(cut, int(fixture["seed"]))
+    tree = reference_tree(cut, int(fixture["seed"]))
     gen_s = time.perf_counter() - t0
     check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
           "the MoE weights drawn here differ from the fixture's")
@@ -3738,7 +3772,7 @@ def lm_eval_lp_case(rt_configs, dev, *, counters) -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import simplex_cuda
     from repro_torch.models import Model
-    from repro_torch.models.convert import load_reference_params, reference_weights, weights_digest
+    from repro_torch.models.convert import load_reference_params, weights_digest
     from repro_torch.train.train_step import make_eval_step
 
     check(LM_EVAL_FIXTURE.exists(), f"the eval fixture {LM_EVAL_FIXTURE} is missing")
@@ -3747,7 +3781,7 @@ def lm_eval_lp_case(rt_configs, dev, *, counters) -> dict:
     cut = dataclasses.replace(cfg, num_layers=int(fixture["layers"]), router=str(fixture["router"]),
                               dtype="float32")
     t0 = time.perf_counter()
-    tree = reference_weights(cut, int(fixture["seed"]))
+    tree = reference_tree(cut, int(fixture["seed"]))
     gen_s = time.perf_counter() - t0
     check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
           "lm_eval_lp: the weights drawn here differ from the fixture's")
@@ -4134,6 +4168,664 @@ def mesh_phase(rt, dev, *, seed, counters, reset, type1_row) -> dict:
     return dict(nccl=nccl, per_rank=per_rank)
 
 
+# ---------------------------------------------------------------------------
+# Slice 14: the LM serve path over a device mesh
+# ---------------------------------------------------------------------------
+
+#: (a) NCCL with one rank on a (1, 1) mesh: (arch, router) at full width and
+#: depth in bfloat16, and ``Engine.generate``'s batch; 40 steps, so that the
+#: median of 39 host-bound decode steps (spread ±25%) resolves a 10% change.
+LM_MESH_NCCL_CASES = (("deepseek-v2-lite-16b", "lp"), ("gemma2-2b", None))
+LM_MESH_NCCL_BATCH, LM_MESH_NCCL_PROMPT, LM_MESH_NCCL_STEPS = 8, 1024, 40
+#: (b) gloo ranks sharing the card on a (data, model) = (2, 2) mesh: (arch,
+#: router, layers) at full width cut in depth, in float32 (in bfloat16 the
+#: split's row-parallel sums round otherwise than one product, and
+#: gemma2's 256,000-way argmax has near ties that this flips).  4 prompts
+#: of 64 tokens: 2 token groups of 128, whose capacity of 16 an expert
+#: (against a mean load of 12) drops tokens.  The same cases then run in
+#: bfloat16 on the float32 run's tokens (``lm_mesh_forced``), held to the
+#: one process's float32 logits within ``LM_BF16_FACTOR`` times the
+#: one-process bfloat16 run's own gap.
+LM_MESH_RANKS, LM_MESH_SHAPE = 4, (2, 2)
+LM_MESH_GLOO_CASES = (("gemma2-2b", None, 4), ("deepseek-v2-lite-16b", "lp", 3))
+LM_MESH_GLOO_DTYPE = "float32"
+LM_MESH_GLOO_BATCH, LM_MESH_GLOO_PROMPT, LM_MESH_GLOO_STEPS = 4, 64, 3
+#: The reference's float32 run under an Auto-typed (2, 2) mesh of 4 host
+#: devices (``tools/lm_reference_fixture.py --mesh 2,2``).
+LM_MESH_FIXTURE = ROOT / "tests" / "data" / "lm_deepseek_v2_lite_mesh_reference.npz"
+#: The fixture's calls the gloo ranks run (the prefill and the first decode
+#: steps; one process runs them all): each call gathers the float32
+#: experts over the data axis through the host.
+LM_MESH_FIXTURE_CALLS = 2
+LM_MESH_TIMEOUT_S = 600
+
+
+def lm_fixture_head(view, calls: int) -> dict:
+    """A fixture view cut to its first ``calls`` calls (the prefill and
+    ``calls - 1`` decode steps): every row array, and the router LPs of
+    those calls."""
+    steps = int(view["steps"])
+    n_lp = int(np.sum(np.asarray(view["router_call"]) < calls))
+    out = {}
+    for k, v in view.items():
+        v = np.asarray(v)
+        if k.startswith("router_"):
+            out[k] = v[:n_lp]
+        elif v.ndim >= 2 and v.shape[1] == steps + 1 and k != "tokens":
+            out[k] = v[:, :calls]
+        else:
+            out[k] = v
+    out["steps"] = np.int64(calls - 1)
+    return out
+
+
+def lm_mesh_config(rt_configs, arch, router=None, layers=0, dtype=None):
+    cfg = rt_configs.get_config(arch)
+    cut = {}
+    if router:
+        cut["router"] = router
+    if layers:
+        cut["num_layers"] = layers
+    if dtype:
+        cut["dtype"] = dtype
+    return dataclasses.replace(cfg, **cut)
+
+
+def lm_mesh_tokens(cfg, batch, prompt, seed, dev):
+    from repro_torch.configs import Shape, make_inputs
+
+    return make_inputs(cfg, Shape("lm_mesh", prompt, batch, "prefill"), seed + 11,
+                       device=dev)["tokens"]
+
+
+def lm_mesh_run(model, tokens, steps, *, counters, group_tokens) -> dict:
+    """``Engine.generate`` greedy (``timed_generate``) under whatever mesh is
+    active: tokens, each call's logits, times, peak memory, launches, the
+    router LPs (``SimplexSpy`` records, all of them) and the prefill's
+    dropped share (its dispatch calls take ``group_tokens`` tokens)."""
+    from repro_torch.kernels import simplex_cuda
+    from repro_torch.serve.engine import Engine
+
+    engine = Engine(model, max_len=tokens.shape[1] + steps)
+    before = launch_counts(counters)
+    with SimplexSpy(simplex_cuda) as spy, RoutingStats() as routing:
+        out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, {"tokens": tokens},
+                                                              steps)
+    launched = count_delta(counters, before)
+    peak = int(torch.cuda.max_memory_allocated())
+    cache_bytes = sum(t.numel() * t.element_size() for layer in engine.cache
+                      for t in layer.values())
+    routing = routing.summary(group_tokens)
+    return dict(tokens=out, rows=rows, wall_s=wall, prefill_ms=prefill_ms,
+                decode_ms_median=float(np.median(step_ms)),
+                decode_ms_p10=float(np.percentile(step_ms, 10)),
+                decode_ms_p90=float(np.percentile(step_ms, 90)), peak=peak, launches=launched,
+                lps=spy.calls, records=spy.records, routing=routing, cache_bytes=cache_bytes,
+                param_bytes=lm_param_bytes(model))
+
+
+def lm_mesh_forced(prompts, generated, steps) -> dict:
+    """A fixture view that feeds a run's own tokens back (``lm_fixture_logits``):
+    the prompts, then the first ``steps - 1`` generated tokens, so that its
+    calls are ``Engine.generate``'s on any model."""
+    tokens = torch.cat([prompts.cpu(), generated[:, :steps - 1].cpu().to(prompts.dtype)], 1)
+    return dict(tokens=tokens.numpy(), prompt_len=prompts.shape[1], steps=steps - 1)
+
+
+def lm_mesh_join(blocks):
+    """``(whole, agree)``: the batch put together from ``(row range, rows)``
+    blocks in row order (a block from the first rank that holds it), and
+    whether ranks holding one block hold the same bits."""
+    parts, agree = {}, True
+    for rows, t in blocks:
+        rows = tuple(rows)
+        if rows in parts:
+            agree &= torch.equal(bits(parts[rows]), bits(t))
+        parts.setdefault(rows, t)
+    return torch.cat([parts[k] for k in sorted(parts)]), agree
+
+
+def lm_mesh_spec_bytes(model, batch, max_len) -> int:
+    """The bytes of this rank's slices of every parameter and cache leaf, from
+    their specs (``partition.local_shape``)."""
+    from repro_torch.sharding import partition
+
+    specs = list(model.abstract_params().values())
+    specs += [s for layer in model.cache_specs(batch, max_len) for s in layer.values()]
+    return sum(math.prod(partition.local_shape(s.shape, s.axes))
+               * torch.empty((), dtype=getattr(torch, s.dtype)).element_size() for s in specs)
+
+
+def lm_mesh_lp_digests(records) -> list:
+    """A SHA-256 of each captured router LP's inputs and outputs."""
+    import hashlib
+
+    out = []
+    for rec in records:
+        h = hashlib.sha256()
+        for t in list(rec["inputs"]) + list(rec["out"]) + [rec["basis"]]:
+            h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def lm_mesh_lp_view(records, dev, batch, prompt, n_moe) -> dict:
+    """A fixture view (``router_lp_checks``' form) of one run's router LPs:
+    each captured LP re-solved on the kernel."""
+    from repro_torch.kernels import ops
+
+    spec = records[0]["kw"]["spec"]
+    m, n = spec.m, spec.n
+    a = torch.cat([r["inputs"][0][:, :m, 1:1 + n] for r in records]).to(dev)
+    b = torch.cat([r["inputs"][0][:, :m, 0] for r in records]).to(dev)
+    c = torch.cat([r["inputs"][3][:, 1:1 + n] for r in records]).to(dev)
+    sol = ops.simplex_solve(a, b, c, max_iters=8 * (m + n))
+    return dict(router_a=a.cpu().numpy(), router_b=b.cpu().numpy(), router_c=c.cpu().numpy(),
+                router_status=sol.status.cpu().numpy(),
+                router_iterations=sol.iterations.cpu().numpy(),
+                router_basis=sol.basis.cpu().numpy(), router_x=sol.x.cpu().numpy(),
+                router_call=np.arange(len(records)) // n_moe,
+                router_layer=np.arange(len(records)) % n_moe,
+                tokens=np.zeros((batch, prompt), np.int32), prompt_len=prompt)
+
+
+def lm_mesh_records_to(records, dev) -> list:
+    return [dict(rec, inputs=[t.to(dev) for t in rec["inputs"]], basis=rec["basis"].to(dev),
+                 out=[t.to(dev) for t in rec["out"]]) for rec in records]
+
+
+def lm_mesh_fixture_check(logits, view) -> dict:
+    """Logits (B, steps + 1, V) against the mesh fixture: ``lm_tolerances``'
+    gates (``compare_to_summary`` and the float64 rows)."""
+    from repro_torch.models.convert import compare_to_summary
+
+    tol = lm_tolerances(view)
+    res = compare_to_summary(logits, view, abs_tol=tol["abs"], rel_tol=tol["rel"],
+                             margin=LM_MARGIN)
+    res.update(lm_f64_error(logits, view, tol))
+    res["ok"] = bool(res["ok"] and res["f64_worst_ratio"] <= 1.0)
+    return res
+
+
+def lm_mesh_nccl_case(rt_configs, dev, *, seed, counters) -> dict:
+    """Part (a): NCCL with one rank on the card, a (1, 1) mesh.  Each config
+    at full width and depth in bfloat16: ``Engine.generate`` without a mesh,
+    then under ``partition.activate(mesh)`` (the mesh code path, every group
+    of one rank), tokens and every call's logits bit-identical.  Returns
+    the mesh runs' launches."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.sharding import partition
+
+    launches: dict = {}
+    b, p, steps = LM_MESH_NCCL_BATCH, LM_MESH_NCCL_PROMPT, LM_MESH_NCCL_STEPS
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
+        mesh_lib.init_distributed("nccl", timeout_s=300.0, rank=0, world_size=1,
+                                  store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            mesh = mesh_lib.make_local_mesh()
+            for arch, router in LM_MESH_NCCL_CASES:
+                cfg = lm_mesh_config(rt_configs, arch, router)
+                t0 = time.perf_counter()
+                model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+                torch.cuda.synchronize()
+                init_s = time.perf_counter() - t0
+                tokens = lm_mesh_tokens(cfg, b, p, seed, dev)
+                n_moe = moe_layer_count(model)
+                # warm-up, without and with the mesh: handles, the allocator,
+                # and the mesh path's first imports
+                Engine(model, max_len=p + steps).generate({"tokens": tokens[:, :128]}, steps=2)
+                with partition.activate(mesh):
+                    Engine(model, max_len=p + steps).generate({"tokens": tokens[:, :128]},
+                                                              steps=2)
+                plain = lm_mesh_run(model, tokens, steps, counters=counters, group_tokens=b * p)
+                with partition.activate(mesh):
+                    meshed = lm_mesh_run(model, tokens, steps, counters=counters,
+                                         group_tokens=b * p)
+                same_tokens = torch.equal(plain["tokens"], meshed["tokens"])
+                same_logits = all(torch.equal(bits(x), bits(y))
+                                  for x, y in zip(plain["rows"], meshed["rows"]))
+                expect = steps * n_moe
+                row = dict(part="nccl_1rank", mesh=[1, 1], backend="nccl", arch=arch,
+                           router=cfg.router if n_moe else None, layers=cfg.num_layers,
+                           dtype=cfg.dtype, batch=b, prompt=p, steps=steps, init_s=init_s,
+                           prefill_ms=meshed["prefill_ms"],
+                           decode_ms_median=meshed["decode_ms_median"],
+                           decode_ms_p10_p90=[meshed["decode_ms_p10"], meshed["decode_ms_p90"]],
+                           max_memory_allocated=meshed["peak"],
+                           unsplit_prefill_ms=plain["prefill_ms"],
+                           unsplit_decode_ms_median=plain["decode_ms_median"],
+                           unsplit_decode_ms_p10_p90=[plain["decode_ms_p10"],
+                                                      plain["decode_ms_p90"]],
+                           unsplit_max_memory_allocated=plain["peak"],
+                           weight_bytes=meshed["param_bytes"],
+                           decode_bound_ms=(meshed["param_bytes"] + meshed["cache_bytes"])
+                           / HBM_BYTES_PER_S * 1e3,
+                           tokens_bit_identical=same_tokens, logits_bit_identical=same_logits,
+                           router_lps=meshed["lps"], launches=meshed["launches"],
+                           routing=meshed["routing"], nvidia_smi=smi_line())
+                emit("lm_mesh", **row)
+                check(same_tokens and same_logits,
+                      f"lm_mesh {arch}: the NCCL (1, 1) mesh run differs from the meshless run")
+                for run in (plain, meshed):
+                    got = run["launches"]
+                    check(run["lps"] == expect and got["simplex"] == expect
+                          and got["simplex.cluster"] == expect,
+                          f"lm_mesh {arch}: {run['lps']} router LPs, launches {got}, "
+                          f"not {expect} of the cluster variant")
+                launches = sum_counts([launches, meshed["launches"]])
+                del model, plain, meshed
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+def lm_mesh_save_tree(tree, path) -> None:
+    """A reference-layout weight tree as one ``.npy`` a leaf under ``path``."""
+    from repro_torch.sharding import leaves
+
+    os.makedirs(path, exist_ok=True)
+    for keys, arr in leaves(tree):
+        np.save(os.path.join(path, ".".join(keys) + ".npy"), arr)
+
+
+def lm_mesh_load_tree(path) -> dict:
+    """:func:`lm_mesh_save_tree`'s tree again, each leaf memory-mapped."""
+    tree: dict = {}
+    for name in sorted(os.listdir(path)):
+        *keys, last = name[:-len(".npy")].split(".")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = np.load(os.path.join(path, name), mmap_mode="c")
+    return tree
+
+
+#: The deepseek-v2-lite-16b reference weights of the slice-10, slice-12
+#: and slice-14 fixtures (the same arch, depth and seed: one tree), drawn
+#: once by a helper process that ``start_shared_tree`` starts before
+#: slice 9, saved one ``.npy`` a leaf, and memory-mapped by each phase.
+SHARED_TREE: dict = {}
+
+
+def lm_tree_writer(arch: str, layers: int, seed: int, out_dir: str) -> None:
+    """The helper process: draw ``reference_weights`` and save the tree."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs as rt_configs
+    from repro_torch.models.convert import reference_weights
+
+    cut = dataclasses.replace(rt_configs.get_config(arch), num_layers=layers)
+    lm_mesh_save_tree(reference_weights(cut, seed), os.path.join(out_dir, "tree"))
+    open(os.path.join(out_dir, "done"), "w").close()
+
+
+def start_shared_tree(root: str) -> None:
+    """Start drawing the fixtures' deepseek tree in a helper process, into
+    a directory under ``root``."""
+    fixture = np.load(LM_MOE_FIXTURE)
+    key = (LM_MOE_ARCH, int(fixture["layers"]), int(fixture["seed"]))
+    out_dir = os.path.join(root, "shared_tree")
+    os.makedirs(out_dir)
+    proc = multiprocessing.get_context("spawn").Process(target=lm_tree_writer,
+                                                        args=(*key, out_dir))
+    proc.start()
+    SHARED_TREE.update(key=key, dir=out_dir, proc=proc)
+
+
+def wait_shared_tree() -> float:
+    """Wait for the helper process (the timed rows after share the host
+    with no draw); returns the seconds waited."""
+    t0 = time.perf_counter()
+    proc = SHARED_TREE.get("proc")
+    if proc is not None:
+        proc.join()
+    return time.perf_counter() - t0
+
+
+def shared_tree_dir(cfg, seed: int):
+    """The saved tree of ``reference_weights(cfg, seed)`` if the helper
+    process draws that one (waiting for it), else None."""
+    key = (cfg.name, cfg.num_layers, seed)
+    if SHARED_TREE.get("key") != key:
+        return None
+    proc = SHARED_TREE["proc"]
+    proc.join()
+    check(os.path.exists(os.path.join(SHARED_TREE["dir"], "done")),
+          f"the shared weight tree's process failed (exit code {proc.exitcode})")
+    return os.path.join(SHARED_TREE["dir"], "tree")
+
+
+def reference_tree(cfg, seed: int):
+    """``reference_weights(cfg, seed)``, memory-mapped from the shared tree
+    when the helper process draws it, else drawn here."""
+    from repro_torch.models.convert import reference_weights
+
+    path = shared_tree_dir(cfg, seed)
+    return reference_weights(cfg, seed) if path is None else lm_mesh_load_tree(path)
+
+
+def lm_mesh_rank_main(rank: int, world: int, store: str, out_dir: str, seed: int,
+                      tree_dir: str) -> None:
+    """One of the gloo ranks that share the card, on the (2, 2) mesh: each
+    case through ``Engine.generate``, then in bfloat16 on the fed tokens,
+    then the float32 fixture."""
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)
+    out = dict(rank=rank)
+    try:
+        from torch.distributed.device_mesh import DeviceMesh
+        from repro_torch import configs as rt_configs
+        from repro_torch.kernels import hyperbox_cuda, pdhg_cuda, revised_cuda, simplex_cuda
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.models import Model
+        from repro_torch.models.convert import fixture_view, load_reference_params
+        from repro_torch.serve.engine import Engine
+        from repro_torch.sharding import partition
+
+        counters = {"simplex": simplex_cuda, "hyperbox": hyperbox_cuda, "revised": revised_cuda,
+                    "pdhg": pdhg_cuda}
+        mesh_lib.init_distributed("gloo", timeout_s=LM_MESH_TIMEOUT_S / 2, rank=rank,
+                                  world_size=world, store=dist.FileStore(store, world))
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(LM_MESH_SHAPE),
+                          mesh_dim_names=("data", "model"))
+        out["coordinate"] = list(mesh.get_coordinate())
+        b, p, steps = LM_MESH_GLOO_BATCH, LM_MESH_GLOO_PROMPT, LM_MESH_GLOO_STEPS
+        with partition.activate(mesh):
+            for arch, router, layers in LM_MESH_GLOO_CASES:
+                cfg = lm_mesh_config(rt_configs, arch, router, layers, LM_MESH_GLOO_DTYPE)
+                model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+                tokens = lm_mesh_tokens(cfg, b, p, seed, dev)
+                groups = partition.axis_size("batch")
+                if arch == LM_MESH_GLOO_CASES[0][0]:
+                    # warm-up: the process's first call pays for its handles,
+                    # the allocator and the gloo connections
+                    Engine(model, max_len=8 + 1).generate({"tokens": tokens[:, :8]}, steps=1)
+                run = lm_mesh_run(model, tokens, steps, counters=counters,
+                                  group_tokens=b * p // groups)
+                out[arch] = dict(
+                    tokens=run["tokens"].cpu(), rows=[r.cpu() for r in run["rows"]],
+                    batch_rows=[partition.batch_rows(b).start, partition.batch_rows(b).stop],
+                    prefill_ms=run["prefill_ms"], decode_ms_median=run["decode_ms_median"],
+                    wall_s=run["wall_s"], peak=run["peak"], launches=run["launches"],
+                    lps=run["lps"], lp_digests=lm_mesh_lp_digests(run["records"]),
+                    records=lm_mesh_records_to(run["records"], "cpu"), routing=run["routing"],
+                    stored_bytes=run["param_bytes"] + run["cache_bytes"],
+                    spec_bytes=lm_mesh_spec_bytes(model, b, p + steps))
+                del model, run
+                torch.cuda.empty_cache()
+            forced = torch.load(os.path.join(out_dir, "forced.pt"), weights_only=False)
+            for arch, router, layers in LM_MESH_GLOO_CASES:
+                cfg = lm_mesh_config(rt_configs, arch, router, layers, "bfloat16")
+                model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+                rows = partition.batch_rows(b)
+                logits = lm_fixture_logits(model, forced[arch]).float().cpu()
+                out[arch]["bf16"] = dict(logits=logits, batch_rows=[rows.start, rows.stop])
+                del model
+                torch.cuda.empty_cache()
+            fixture = lm_fixture_head(fixture_view(dict(np.load(LM_MESH_FIXTURE)), "lp"),
+                                      LM_MESH_FIXTURE_CALLS)
+            cut = lm_mesh_config(rt_configs, LM_MOE_ARCH, "lp", int(fixture["layers"]),
+                                 "float32")
+            model = load_reference_params(Model(cut, device=dev), lm_mesh_load_tree(tree_dir))
+            with SimplexSpy(simplex_cuda) as spy:
+                logits = lm_fixture_logits(model, fixture)
+            rows = partition.batch_rows(np.asarray(fixture["tokens"]).shape[0])
+            out["fixture"] = dict(logits=logits.cpu(), batch_rows=[rows.start, rows.stop],
+                                  lp_digests=lm_mesh_lp_digests(spy.records),
+                                  records=lm_mesh_records_to(spy.records, "cpu"))
+            del model
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent reads it and fails the run
+        out["error"] = traceback.format_exc()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    if "error" in out:
+        os._exit(1)
+
+
+def lm_mesh_whole(ranks, key):
+    """Per call, the batch's rows put together from the ranks' blocks
+    (``lm_mesh_join``); ``None`` where two ranks holding one block
+    disagree in a bit."""
+    calls = []
+    for i in range(len(ranks[0][key]["rows"])):
+        whole, agree = lm_mesh_join((r[key]["batch_rows"], r[key]["rows"][i]) for r in ranks)
+        calls.append(whole if agree else None)
+    return calls
+
+
+def lm_mesh_gloo_case(rt_configs, dev, *, seed) -> list:
+    """Part (b): LM_MESH_RANKS gloo ranks sharing the card, spawned from
+    here, on a (2, 2) mesh, held against this process's run of the same
+    cases under the abstract mesh ``{"data": 2, "model": 2}`` (the same
+    two token groups) and against the mesh fixture.  Returns each rank's
+    launches."""
+    import tempfile
+
+    from repro_torch.kernels import simplex_cuda
+    from repro_torch.models import Model
+    from repro_torch.models.convert import (fixture_view, load_reference_params,
+                                            reference_weights, weights_digest)
+    from repro_torch.sharding import partition
+
+    check(LM_MESH_FIXTURE.exists(), f"the mesh fixture {LM_MESH_FIXTURE} is missing")
+    abstract = dict(zip(("data", "model"), LM_MESH_SHAPE))
+    b, p, steps = LM_MESH_GLOO_BATCH, LM_MESH_GLOO_PROMPT, LM_MESH_GLOO_STEPS
+    one = {}
+    counters = {"simplex": simplex_cuda}
+    with partition.activate(abstract):
+        for arch, router, layers in LM_MESH_GLOO_CASES:
+            cfg = lm_mesh_config(rt_configs, arch, router, layers, LM_MESH_GLOO_DTYPE)
+            model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+            tokens = lm_mesh_tokens(cfg, b, p, seed, dev)
+            run = lm_mesh_run(model, tokens, steps, counters=counters,
+                              group_tokens=b * p // partition.axis_size("batch"))
+            run["n_moe"] = moe_layer_count(model)
+            run["forced"] = lm_mesh_forced(tokens, run["tokens"], steps)
+            run["f32_forced"] = lm_fixture_logits(model, run["forced"]).double().cpu()
+            del model
+            cfg16 = lm_mesh_config(rt_configs, arch, router, layers, "bfloat16")
+            model = Model(cfg16, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+            run["bf16_forced"] = lm_fixture_logits(model, run["forced"]).double().cpu()
+            one[arch] = run
+            del model
+            torch.cuda.empty_cache()
+    fixture = fixture_view(dict(np.load(LM_MESH_FIXTURE)), "lp")
+    cut = lm_mesh_config(rt_configs, LM_MOE_ARCH, "lp", int(fixture["layers"]), "float32")
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
+        t0 = time.perf_counter()
+        tree_dir = shared_tree_dir(cut, int(fixture["seed"]))
+        if tree_dir is None:  # the phase alone: draw the tree for the ranks here
+            tree_dir = os.path.join(tmp, "tree")
+            lm_mesh_save_tree(reference_weights(cut, int(fixture["seed"])), tree_dir)
+        tree = lm_mesh_load_tree(tree_dir)
+        weights_s = time.perf_counter() - t0
+        check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
+              "the mesh fixture's weights drawn here differ from the fixture's")
+        with partition.activate(abstract):
+            model = load_reference_params(Model(cut, device=dev), tree)
+            del tree
+            fx_tokens = np.asarray(fixture["tokens"]).shape[0] * int(fixture["prompt_len"])
+            with SimplexSpy(simplex_cuda) as spy, RoutingStats() as routing:
+                one_fx = lm_fixture_logits(model, fixture)
+            one_fx_records = spy.records
+            fx_routing = routing.summary(fx_tokens // partition.axis_size("batch"))
+            del routing
+            del model
+        torch.cuda.empty_cache()
+        torch.save({arch: one[arch]["forced"] for arch in one}, os.path.join(tmp, "forced.pt"))
+        procs = [ctx.Process(target=lm_mesh_rank_main,
+                             args=(r, LM_MESH_RANKS, os.path.join(tmp, "store"), tmp, seed,
+                                   tree_dir))
+                 for r in range(LM_MESH_RANKS)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + LM_MESH_TIMEOUT_S
+        for proc in procs:
+            proc.join(timeout=max(1.0, deadline - time.monotonic()))
+        alive = [proc for proc in procs if proc.is_alive()]
+        for proc in alive:
+            proc.kill()
+            proc.join()
+        check(not alive, f"lm_mesh: {len(alive)} ranks passed {LM_MESH_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(LM_MESH_RANKS):
+            path = os.path.join(tmp, f"rank{r}.pt")
+            check(os.path.exists(path), f"lm_mesh: rank {r} wrote no result "
+                  f"(exit code {procs[r].exitcode})")
+            ranks.append(torch.load(path, weights_only=False))
+    errors = [f"rank {r['rank']}:\n{r['error']}" for r in ranks if "error" in r]
+    check(not errors, "lm_mesh: " + "\n".join(errors))
+
+    for arch, router, layers in LM_MESH_GLOO_CASES:
+        ref = one[arch]
+        whole = lm_mesh_whole(ranks, arch)
+        agree = all(w is not None for w in whole)
+        diff = max(float((w.float() - o.float().cpu()).abs().max()) for w, o in
+                   zip(whole, ref["rows"])) if agree else None
+        same_tokens = [torch.equal(r[arch]["tokens"], ref["tokens"].cpu()) for r in ranks]
+        same_lps = all(r[arch]["lp_digests"] == ranks[0][arch]["lp_digests"] for r in ranks)
+        lp_check = None
+        if ref["n_moe"]:
+            view = lm_mesh_lp_view(ref["records"], dev, b, p, ref["n_moe"])
+            lp_check = router_lp_checks(view, lm_mesh_records_to(ranks[0][arch]["records"], dev),
+                                        dev, rt_configs.get_config(arch).router_groups)
+        expect = steps * ref["n_moe"]
+        split16, agree16 = lm_mesh_join((r[arch]["bf16"]["batch_rows"],
+                                         r[arch]["bf16"]["logits"]) for r in ranks)
+        f32, one16, split16 = ref["f32_forced"], ref["bf16_forced"], split16.double()
+
+        def rel(x, y):
+            return float((x - y).norm() / y.norm())
+
+        bf16 = dict(rel_l2_to_float32=rel(split16, f32),
+                    one_process_rel_l2_to_float32=rel(one16, f32),
+                    limit=LM_BF16_FACTOR * rel(one16, f32),
+                    rel_l2_to_one_process=rel(split16, one16),
+                    max_abs_to_one_process=float((split16 - one16).abs().max()),
+                    rows_agree_across_model_ranks=agree16)
+        row = dict(part="gloo_4ranks_sharing_one_card", mesh=list(LM_MESH_SHAPE), arch=arch,
+                   router=router, layers=layers, dtype=LM_MESH_GLOO_DTYPE,
+                   batch=b, prompt=p, steps=steps,
+                   label="4 ranks sharing one card: says nothing about scaling",
+                   tokens_equal_to_one_process=same_tokens, rows_agree_across_model_ranks=agree,
+                   logits_max_abs_diff_to_one_process=diff, lps_bit_identical_across_ranks=same_lps,
+                   router_lp_checks=lp_check, bf16_fed_tokens=bf16,
+                   one_process=dict(prefill_ms=ref["prefill_ms"],
+                                    decode_ms_median=ref["decode_ms_median"],
+                                    max_memory_allocated=ref["peak"],
+                                    stored_bytes=ref["param_bytes"] + ref["cache_bytes"],
+                                    routing=ref["routing"]),
+                   ranks=[dict(coordinate=r["coordinate"],
+                               **{k: r[arch][k] for k in ("prefill_ms", "decode_ms_median",
+                                                          "wall_s", "peak", "stored_bytes",
+                                                          "spec_bytes", "lps", "routing")},
+                               launches={k: v for k, v in r[arch]["launches"].items() if v})
+                          for r in ranks],
+                   nvidia_smi=smi_line())
+        emit("lm_mesh", **row)
+        check(all(same_tokens) and agree,
+              f"lm_mesh {arch}: the ranks' tokens or rows differ from the one-process run's")
+        check(same_lps, f"lm_mesh {arch}: the ranks' router LPs are not the same bits")
+        check(agree16 and bf16["rel_l2_to_float32"] <= bf16["limit"],
+              f"lm_mesh {arch}: the ranks' bfloat16 logits miss the bfloat16 gate: {bf16}")
+        check(lp_check is None or lp_check["ok"],
+              f"lm_mesh {arch}: a rank's router LPs against the one-process LPs: {lp_check}")
+        for r in ranks:
+            got = r[arch]
+            check(got["stored_bytes"] == got["spec_bytes"],
+                  f"lm_mesh {arch}: rank {r['rank']} stores {got['stored_bytes']} bytes, its "
+                  f"placements {got['spec_bytes']}")
+            check(got["peak"] < ref["peak"],
+                  f"lm_mesh {arch}: rank {r['rank']}'s peak {got['peak']} is not below the "
+                  f"one-process run's {ref['peak']}")
+            check(got["lps"] == expect and got["launches"]["simplex"] == expect
+                  and got["launches"]["simplex.cluster"] == expect,
+                  f"lm_mesh {arch}: rank {r['rank']} solved {got['lps']} router LPs, launches "
+                  f"{got['launches']}, not {expect} of the cluster variant")
+        if ref["n_moe"]:
+            check(ref["routing"]["prefill"]["dropped"] > 0,
+                  f"lm_mesh {arch}: no token group dropped a token: {ref['routing']}")
+
+    # The float32 fixture: the ranks' logits and the one-process run's
+    # against the reference under the same mesh, and their router LPs.
+    mesh_fx, fx_agree = lm_mesh_join((r["fixture"]["batch_rows"], r["fixture"]["logits"])
+                                     for r in ranks)
+    head = lm_fixture_head(fixture, LM_MESH_FIXTURE_CALLS)
+    res_mesh = lm_mesh_fixture_check(mesh_fx, head)
+    res_one = lm_mesh_fixture_check(one_fx, fixture)
+    groups = rt_configs.get_config(LM_MOE_ARCH).router_groups
+    n_moe = len(set(np.asarray(fixture["router_layer"]).tolist()))
+    rank_records = lm_mesh_records_to(ranks[0]["fixture"]["records"], dev)
+    lp_mesh = router_lp_checks(head, rank_records, dev, groups)
+    lp_one = router_lp_checks(fixture, one_fx_records, dev, groups)
+    one_head = one_fx_records[:LM_MESH_FIXTURE_CALLS * n_moe]
+    fx_b, fx_p = np.asarray(fixture["tokens"]).shape[0], int(fixture["prompt_len"])
+    lp_mesh_one = router_lp_checks(lm_mesh_lp_view(one_head, dev, fx_b, fx_p, n_moe),
+                                   rank_records, dev, groups)
+    same_fx_lps = all(r["fixture"]["lp_digests"] == ranks[0]["fixture"]["lp_digests"]
+                      for r in ranks)
+    one_cut = one_fx[:, :LM_MESH_FIXTURE_CALLS].double().cpu()
+    rel_to_one = float((mesh_fx.double() - one_cut).norm() / one_cut.norm())
+    emit("lm_mesh_reference", arch=LM_MOE_ARCH, layers=cut.num_layers, dtype="float32",
+         fixture=str(LM_MESH_FIXTURE.relative_to(ROOT)), mesh=list(LM_MESH_SHAPE),
+         tokens=list(np.asarray(fixture["tokens"]).shape), weights_s=weights_s,
+         ranks=dict(worst_ratio=res_mesh["worst_ratio"], f64_worst_ratio=res_mesh["f64_worst_ratio"],
+                    ok=res_mesh["ok"], router_lps_ok=lp_mesh["ok"],
+                    router_lps_basis_equal=lp_mesh["port_basis_equal"],
+                    router_lps_ok_against_one_process=lp_mesh_one["ok"],
+                    router_lps_basis_equal_to_one_process=lp_mesh_one["port_basis_equal"],
+                    calls=LM_MESH_FIXTURE_CALLS,
+                    lps_bit_identical_across_ranks=same_fx_lps,
+                    rows_agree_across_model_ranks=fx_agree),
+         one_process=dict(worst_ratio=res_one["worst_ratio"],
+                          f64_worst_ratio=res_one["f64_worst_ratio"], ok=res_one["ok"],
+                          router_lps_ok=lp_one["ok"],
+                          router_lps_basis_equal=lp_one["port_basis_equal"]),
+         ranks_rel_l2_to_one_process=rel_to_one, group_wall_s=wall, routing=fx_routing)
+    check(fx_routing["prefill"]["dropped"] > 0,
+          f"lm_mesh_reference: no token group of the fixture's prefill dropped a token: "
+          f"{fx_routing}")
+    check(res_mesh["ok"] and res_one["ok"],
+          f"lm_mesh_reference: the logits miss the mesh fixture: ranks {res_mesh}, "
+          f"one process {res_one}")
+    check(fx_agree, "lm_mesh_reference: ranks that run the same rows hold other logits")
+    check(lp_mesh["ok"] and lp_one["ok"] and lp_mesh_one["ok"] and same_fx_lps,
+          f"lm_mesh_reference: router LPs: ranks {lp_mesh}, one process {lp_one}, ranks "
+          f"against one process {lp_mesh_one}")
+    return [{arch: r[arch]["launches"] for arch, _, _ in LM_MESH_GLOO_CASES} for r in ranks]
+
+
+def lm_mesh_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
+    """Slice 14: (a) NCCL with one rank, then (b) gloo ranks sharing the card.
+
+    Returns the launches of (a) in this process and each rank's of (b)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset()
+    nccl = lm_mesh_nccl_case(rt_configs, dev, seed=seed, counters=counters)
+    per_rank = lm_mesh_gloo_case(rt_configs, dev, seed=seed)
+    emit("main_path_summary", path="slice14_lm_mesh", launches_nccl_1rank=nccl,
+         launches_per_rank=per_rank, wall_s=time.perf_counter() - t0)
+    return dict(nccl=nccl, per_rank=per_rank)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of every generated input")
@@ -4143,13 +4835,23 @@ def main(argv=None) -> int:
     # HiGHS, the slice-3 reference, runs in worker processes beside the card.
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn"))
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    shared_root = tempfile.mkdtemp(dir=str(ROOT / "build"))
     try:
-        return run(args, pool)
+        return run(args, pool, shared_root)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+        proc = SHARED_TREE.get("proc")
+        if proc is not None and proc.is_alive():
+            proc.kill()
+            proc.join()
+        shutil.rmtree(shared_root, ignore_errors=True)
 
 
-def run(args, pool) -> int:
+def run(args, pool, shared_root) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch as rt
@@ -4578,6 +5280,11 @@ def run(args, pool) -> int:
     torch.cuda.empty_cache()
     roofline_case(timer, dev)
 
+    # The deepseek reference weights of slices 10, 12 and 14, drawn in a
+    # helper process while slice 9 draws its own; slice 9 waits for it
+    # before its timed rows.
+    start_shared_tree(shared_root)
+
     # Slice 9, the LM serve path: gemma2-2b at full width (no kernel of the
     # port on it; the counts must not move).
     reset_counts()
@@ -4608,8 +5315,16 @@ def run(args, pool) -> int:
                       type1_row=rows[0])
     slice13 = sum_counts([mesh["nccl"]] + [r[m] for r in mesh["per_rank"] for m in r])
 
+    # Slice 14, the LM serve path over a device mesh: NCCL with one rank on
+    # a (1, 1) mesh, then gloo ranks sharing the card on a (2, 2) mesh; the
+    # router LPs of every MoE layer on each rank's simplex kernel.
+    lm_mesh = lm_mesh_phase(rt_configs, dev, seed=args.seed, counters=counters,
+                            reset=reset_counts)
+    slice14 = sum_counts([lm_mesh["nccl"]] + [r[a] for r in lm_mesh["per_rank"] for a in r])
+
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
-                + slice10[k] + slice12[k] + slice13.get(k, 0) for k in slice1}
+                + slice10[k] + slice12[k] + slice13.get(k, 0) + slice14.get(k, 0)
+                for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         key = f"{name}.{extra['variant']}" if "variant" in extra else name
@@ -4652,7 +5367,11 @@ def run(args, pool) -> int:
     ]
     print(json.dumps({"kernels": [
         entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_main, launches["simplex"],
-              variants=simplex_variants, lm_router=moe["router"]),
+              variants=simplex_variants, lm_router=moe["router"],
+              lm_mesh_router=dict(
+                  nccl_1rank=lm_mesh["nccl"].get("simplex", 0),
+                  gloo_ranks_sharing_one_card=[sum(r[a].get("simplex", 0) for a in r)
+                                               for r in lm_mesh["per_rank"]])),
         entry("hyperbox", "hyperbox.cu", "hyperbox_pallas.py:20", h_main, launches["hyperbox"],
               gb_per_s=h_main["gb_per_s"]),
         entry("revised", "revised.cu", "revised_pallas.py:56", r_main, launches["revised"],

@@ -21,8 +21,8 @@ corrupts the restore path, and ``latest_step`` falls back to a scan for
 the newest complete step when the pointer is missing or stale.
 ``AsyncCheckpointer`` writes on a daemon thread and keeps ``keep``
 checkpoints.  ``restore`` places the leaves on one device; the
-reference's JAX-sharding placement comes with the LM half of the
-multi-device work (``ROADMAP.md``, item 6.5b).
+reference's JAX-sharding placement comes with the second half of the
+LM's multi-device work (``ROADMAP.md``, item 6.5b-2).
 """
 
 from __future__ import annotations

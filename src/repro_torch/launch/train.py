@@ -13,8 +13,9 @@ Examples:
 
 The reference's ``tpu_env_flags`` (XLA flags for TPU pods) and its
 buffer donation have no counterpart here.  ``--model-axis`` above 1
-(tensor parallelism over a device mesh) comes with the LM half of the
-multi-device work (``ROADMAP.md``, item 6.5b).
+(the train step on a ``(data, model)`` mesh) comes with the second half
+of the LM's multi-device work (``ROADMAP.md``, item 6.5b-2); the serve
+path runs on a mesh already.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_axis != 1:
         raise NotImplementedError(
-            "--model-axis above 1 needs the LM half of the multi-device work "
-            "(ROADMAP.md, item 6.5b)")
+            "--model-axis above 1 needs the train step on a (data, model) mesh "
+            "(ROADMAP.md, item 6.5b-2)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)

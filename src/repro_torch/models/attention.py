@@ -2,12 +2,11 @@
 
 Follows ``repro/models/attention.py`` for the dense and MoE families:
 ``flash_attention`` (prefill and training), ``decode_attention`` (one
-decode step over the cache), ``gqa_specs``, ``_project_qkv`` (RoPE, or
-qwen2-vl's M-RoPE), ``gqa_attention``, the encoder-decoder's
-``cross_attention`` and ``encoder_attention``, and DeepSeek-V2's MLA
-(``mla_specs``, ``_mla_latents``, ``_mla_q``, ``mla_attention``).  The
-reference's head-TP and sequence-sharding helpers have no meaning on one
-device.
+decode step over the cache), ``gqa_specs``, ``_project_qkv`` (here
+``_proj``: RoPE, or qwen2-vl's M-RoPE), ``gqa_attention``, the
+encoder-decoder's ``cross_attention`` and ``encoder_attention``, and
+DeepSeek-V2's MLA (``mla_specs``, ``_mla_latents``, ``_mla_q``,
+``mla_attention``).
 
 * Scores are float32 whatever the activation dtype, as the reference's
   ``preferred_element_type=float32`` makes them: q and k are upcast
@@ -21,6 +20,30 @@ device.
   the two agree.
 * Not ``F.scaled_dot_product_attention``: it has no softcap and does not
   follow the float32 score path.
+
+Each function is written for a ``DeviceMesh`` (the reference's
+``_head_tp`` / ``_shard_heads_or_seq``, ``attention.py:145-170``).
+Without one, or where an axis holds one rank, every range below is
+whole and every collective returns its input, so the same body runs the
+meshless function:
+
+* **Heads split over the model axis** where the heads count divides
+  (the weights ``wq``/``wo`` are then stored split by heads): each rank
+  projects and attends its heads, over the KV heads they read (its own
+  KV heads when ``wk`` is split too, else those of its q heads, as the
+  reference's ``_expand_kv``), and the output projections' partial
+  products are summed over the model axis.
+* **Otherwise the sequence** (the reference's ``seq_tp``): each model
+  rank attends its block of query positions (causal offset ``q_offset``)
+  against the whole K and V, and the blocks are gathered.
+* **Caches** are split over positions (``kv_seq_tp``) and batch rows.  A
+  prefill writes each rank's block of positions; a decode step writes the
+  new token on the rank that owns its slot.  Decode attends the whole
+  heads on each rank's block of positions, and the softmax is combined
+  across the model axis exactly as the reference's one softmax: the
+  maximum over all positions, the sum of the exponentials, then the
+  probabilities (cast to the cache's dtype) times each block's values,
+  summed.  With the positions whole, the rank attends its heads alone.
 """
 
 from __future__ import annotations
@@ -30,7 +53,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..sharding import ParamSpec
+from ..sharding import ParamSpec, partition
+from ..sharding import collectives as coll
 from .config import ModelConfig
 from .layers import _NEG, apply_mrope, apply_rope, rmsnorm, rmsnorm_spec, softcap
 
@@ -49,10 +73,12 @@ def flash_attention(
     window: Optional[int] = None,  # None = full; int = sliding window
     chunk: int = 512,
     attn_softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Attention over KV chunks of ``chunk`` keys with an online softmax in
     float32 (causal unless ``causal=False``, as the encoder and the cross
-    attention run it); nothing of shape (Sq, Skv) is materialized."""
+    attention run it); nothing of shape (Sq, Skv) is materialized.  Query
+    i sits at position ``q_offset + i`` (a block of a split sequence)."""
     b, hq, sq, dk = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -62,7 +88,7 @@ def flash_attention(
     dev = q.device
 
     qg = q.float().reshape(b, hkv, g * sq, dk)
-    q_pos = torch.arange(sq, device=dev)
+    q_pos = q_offset + torch.arange(sq, device=dev)
     o = torch.zeros((b, hkv, g * sq, dv), dtype=torch.float32, device=dev)
     m = torch.full((b, hkv, g * sq), _NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g * sq), dtype=torch.float32, device=dev)
@@ -148,23 +174,20 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * hd)).view(b, s, h, hd).transpose(1, 2)
 
 
-def _project_qkv(x, p, cfg: ModelConfig, positions):
-    """q, k, v (B, H, S, hd) with biases if any; M-RoPE on q and k when the
-    config has sections (positions (B, S, 3)), else RoPE on the first
-    coordinate of 3-D positions, or on 2-D positions as they are."""
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"][None, :, None, :]
-        k = k + p["bk"][None, :, None, :]
-        v = v + p["bv"][None, :, None, :]
+def _proj(x, w, bias, cfg: ModelConfig, positions, rope: bool) -> torch.Tensor:
+    """One of q, k, v (B, H, S, hd): the product, the bias if any, and with
+    ``rope`` M-RoPE when the config has sections (positions (B, S, 3)),
+    else RoPE on the first coordinate of 3-D positions, or on 2-D
+    positions as they are."""
+    t = _heads(x, w)
+    if bias is not None:
+        t = t + bias[None, :, None, :]
+    if not rope:
+        return t
     if cfg.mrope_sections:
-        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
-        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
-    else:
-        pos2d = positions if positions.ndim == 2 else positions[..., 0]
-        q = apply_rope(q, pos2d, cfg.rope_theta)
-        k = apply_rope(k, pos2d, cfg.rope_theta)
-    return q, k, v
+        return apply_mrope(t, positions, cfg.mrope_sections, cfg.rope_theta)
+    pos2d = positions if positions.ndim == 2 else positions[..., 0]
+    return apply_rope(t, pos2d, cfg.rope_theta)
 
 
 def gqa_attention(
@@ -176,10 +199,12 @@ def gqa_attention(
     window: Optional[int] = None,
     cache: Optional[dict] = None,
     cache_index: Optional[int] = None,  # tokens already in the cache
+    causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention.
+    """Self-attention on this rank's slices (the module's docstring).
 
-    * no cache: full causal flash (forward).
+    * no cache: full flash (forward), causal unless ``causal=False`` (the
+      encoder's).
     * cache and S > 1: prefill: attend over the fresh k/v only, then write
       them into the cache at ``cache_index``.
     * cache and S == 1: decode: write k/v at ``cache_index`` in place and
@@ -189,21 +214,47 @@ def gqa_attention(
     donates them) and returned.
     """
     s = x.shape[1]
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    w = _gathered(p)
+    lo, hi, hax = coll.model_range(p["wq"], 1)
+    klo, khi, kax = coll.model_range(p["wk"], 1)
+    groups = cfg.num_heads // max(cfg.num_kv_heads, 1)
+    bias = {n: w[n] if n in w else None for n in ("bq", "bk", "bv")}
+    bq = None if bias["bq"] is None else bias["bq"][lo:hi]
+    bk = None if bias["bk"] is None else bias["bk"][klo:khi]
+    bv = None if bias["bv"] is None else bias["bv"][klo:khi]
+    decode = cache is not None and s == 1
+    s0, s1, sax = (0, s, ()) if hax or decode else coll.dim_range(s, "seq_tp")
+    q = _proj(x[:, s0:s1], w["wq"], bq, cfg, positions[:, s0:s1], True)
+    q = partition.constrain(q, ("batch", "heads_tp", None, None) if _head_tp(cfg.num_heads)
+                            else ("batch", None, "seq_tp", None))
+    k = _proj(x, w["wk"], bk, cfg, positions, True)
+    v = _proj(x, w["wv"], bv, cfg, positions, False)
     if cache is not None:
-        cache["k"][:, :, cache_index:cache_index + s] = k
-        cache["v"][:, :, cache_index:cache_index + s] = v
-    if cache is not None and s == 1:
-        out = decode_attention(
-            q, cache["k"], cache["v"], cache_index,
-            window=window, attn_softcap=cfg.attn_softcap,
-        )
+        kf = coll.all_gather(k, kax, 1) if kax else k
+        vf = coll.all_gather(v, kax, 1) if kax else v
+        _write(cache["k"], kf, cache_index, 2)
+        _write(cache["v"], vf, cache_index, 2)
+    if decode:
+        t0, _, tax = coll.model_range(cache["k"], 2)
+        if tax:
+            qf = coll.all_gather(q, hax, 1) if hax else q
+            out = _split_decode(qf, cache["k"], cache["v"], tax, t0=t0, upto=cache_index,
+                                window=window, attn_softcap=cfg.attn_softcap)[:, lo:hi]
+        else:
+            out = decode_attention(q, _kv_for_heads(cache["k"], lo, hi, groups),
+                                   _kv_for_heads(cache["v"], lo, hi, groups), cache_index,
+                                   window=window, attn_softcap=cfg.attn_softcap)
     else:
-        out = flash_attention(
-            q, k, v, window=window,
-            chunk=cfg.attn_chunk, attn_softcap=cfg.attn_softcap,
-        )
-    return _out_proj(out, p["wo"]), cache
+        out = flash_attention(q, _kv_for_heads(k, lo, hi, groups, klo),
+                              _kv_for_heads(v, lo, hi, groups, klo), causal=causal,
+                              window=window, chunk=cfg.attn_chunk,
+                              attn_softcap=cfg.attn_softcap, q_offset=s0)
+    y = _out_proj(out, w["wo"])
+    if hax:
+        y = coll.all_reduce(y, hax)
+    elif sax:
+        y = coll.all_gather(y, sax, 1)
+    return y, cache
 
 
 def cross_attention(
@@ -215,20 +266,49 @@ def cross_attention(
     enc_out: Optional[torch.Tensor] = None,  # (B, Senc, D), to project
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Encoder-decoder cross attention: no rope, not causal, no biases.
-    Returns the output and the encoder's (k, v), each (B, H, Senc, hd)."""
-    q = _heads(x, p["wq"])
-    if kv is None:
-        kv = (_heads(enc_out, p["wk"]), _heads(enc_out, p["wv"]))
-    k, v = kv
-    out = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    return _out_proj(out, p["wo"]), kv
+
+    Projecting (``enc_out`` given), it returns the output and the
+    encoder's (k, v), each (B, H, Senc, hd) with every head and position
+    of this rank's rows; given the cached ``kv``, those are this rank's
+    block of positions of the cache."""
+    s = x.shape[1]
+    w = _gathered(p)
+    lo, hi, hax = coll.model_range(p["wq"], 1)
+    if kv is not None:
+        ck, cv = kv
+        groups = cfg.num_heads // ck.shape[1]
+        t0, _, tax = coll.model_range(ck, 2)
+        q = _heads(x, w["wq"])
+        if tax:
+            qf = coll.all_gather(q, hax, 1) if hax else q
+            out = _split_decode(qf, ck, cv, tax, t0=t0, upto=None)[:, lo:hi]
+        else:
+            out = flash_attention(q, _kv_for_heads(ck, lo, hi, groups),
+                                  _kv_for_heads(cv, lo, hi, groups), causal=False,
+                                  chunk=cfg.attn_chunk)
+        y = _out_proj(out, w["wo"])
+        return (coll.all_reduce(y, hax) if hax else y), kv
+    klo, khi, kax = coll.model_range(p["wk"], 1)
+    groups = cfg.num_heads // max(cfg.num_kv_heads, 1)
+    s0, s1, sax = (0, s, ()) if hax else coll.dim_range(s, "seq_tp")
+    q = _heads(x[:, s0:s1], w["wq"])
+    k, v = _heads(enc_out, w["wk"]), _heads(enc_out, w["wv"])
+    out = flash_attention(q, _kv_for_heads(k, lo, hi, groups, klo),
+                          _kv_for_heads(v, lo, hi, groups, klo), causal=False,
+                          chunk=cfg.attn_chunk)
+    y = _out_proj(out, w["wo"])
+    if hax:
+        y = coll.all_reduce(y, hax)
+    elif sax:
+        y = coll.all_gather(y, sax, 1)
+    if kax:
+        k, v = coll.all_gather(k, kax, 1), coll.all_gather(v, kax, 1)
+    return y, (k, v)
 
 
 def encoder_attention(x, p, cfg: ModelConfig, positions):
     """Bidirectional self-attention of the encoder (rope on q and k)."""
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    out = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    return _out_proj(out, p["wo"])
+    return gqa_attention(x, p, cfg, positions=positions, causal=False)[0]
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -295,30 +375,128 @@ def mla_attention(
       cache, the latents are also written at ``cache_index``.
     """
     b, s, _ = x.shape
-    q_nope, q_pe = _mla_q(x, p, cfg, positions)
-    c_kv, k_pe = _mla_latents(x, p, cfg, positions)
+    w = _gathered(p)
+    lo, hi, hax = coll.model_range(p["wq"], 1)
+    decode = cache is not None and s == 1
+    s0, s1, sax = (0, s, ()) if hax or decode else coll.dim_range(s, "seq_tp")
+    q_nope, q_pe = _mla_q(x[:, s0:s1], w, cfg, positions[:, s0:s1])
+    c_kv, k_pe = _mla_latents(x, w, cfg, positions)
     if cache is not None:
-        cache["ckv"][:, cache_index:cache_index + s] = c_kv
-        cache["kpe"][:, cache_index:cache_index + s] = k_pe
-
-    if cache is not None and s == 1:
-        # The heads ride in the rows of each product (q is (B, H, .) with one
-        # position), so no product broadcasts the cache over the heads.
-        h = cfg.num_heads
-        ckv = cache["ckv"][:, :cache_index + 1]  # (B, T, R)
-        kpe = cache["kpe"][:, :cache_index + 1]  # (B, T, rope)
-        q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, :, 0], p["w_uk"])  # (B, H, R)
-        s_lat = torch.bmm(q_lat.float(), ckv.float().transpose(1, 2))  # (B, H, T)
-        s_pe = torch.bmm(q_pe[:, :, 0].float(), kpe.float().transpose(1, 2))
-        scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-        attn = torch.softmax((s_lat + s_pe) * scale, dim=-1)
-        ctx_lat = torch.bmm(attn.to(ckv.dtype), ckv)  # (B, H, R)
-        out = torch.einsum("bhr,rhv->bhv", ctx_lat, p["w_uv"])  # (B, H, v)
-        return _out_proj(out.view(b, h, 1, -1), p["wo"]), cache
-
-    k_nope = _heads(c_kv, p["w_uk"])  # (B, H, S, nope)
-    v = _heads(c_kv, p["w_uv"])  # (B, H, S, v)
-    k = torch.cat([k_nope, k_pe[:, None].expand(b, cfg.num_heads, s, cfg.qk_rope_dim)], dim=-1)
+        _write(cache["ckv"], c_kv, cache_index, 1)
+        _write(cache["kpe"], k_pe, cache_index, 1)
+    if decode:
+        t0, _, tax = coll.model_range(cache["ckv"], 1)
+        if not tax:
+            y = _mla_decode(q_nope, q_pe, cache["ckv"][:, :cache_index + 1],
+                            cache["kpe"][:, :cache_index + 1], w, cfg)
+            return (coll.all_reduce(y, hax) if hax else y), cache
+        q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, :, 0], w["w_uk"])  # (B, h, R)
+        q_rot = q_pe[:, :, 0]
+        if hax:
+            q_lat, q_rot = coll.all_gather(q_lat, hax, 1), coll.all_gather(q_rot, hax, 1)
+        n = min(max(cache_index + 1 - t0, 0), cache["ckv"].shape[1])
+        ckv, kpe = cache["ckv"][:, :n], cache["kpe"][:, :n]
+        scores = (torch.bmm(q_lat.float(), ckv.float().transpose(1, 2))
+                  + torch.bmm(q_rot.float(), kpe.float().transpose(1, 2)))
+        attn = _split_softmax(scores * (1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)), tax)
+        ctx = coll.all_reduce(torch.bmm(attn.to(ckv.dtype).float(), ckv.float()), tax)
+        out = torch.einsum("bhr,rhv->bhv", ctx[:, lo:hi].to(ckv.dtype), w["w_uv"])
+        y = _out_proj(out.view(b, hi - lo, 1, -1), w["wo"])
+        return (coll.all_reduce(y, hax) if hax else y), cache
+    k_nope = _heads(c_kv, w["w_uk"])  # (B, h, S, nope)
+    v = _heads(c_kv, w["w_uv"])
+    k = torch.cat([k_nope, k_pe[:, None].expand(b, k_nope.shape[1], s, cfg.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
-    out = flash_attention(q, k, v, chunk=cfg.attn_chunk)
-    return _out_proj(out, p["wo"]), cache
+    out = flash_attention(q, k, v, chunk=cfg.attn_chunk, q_offset=s0)
+    y = _out_proj(out, w["wo"])
+    if hax:
+        y = coll.all_reduce(y, hax)
+    elif sax:
+        y = coll.all_gather(y, sax, 1)
+    return y, cache
+
+
+def _mla_decode(q_nope, q_pe, ckv, kpe, p, cfg: ModelConfig) -> torch.Tensor:
+    """The absorbed decode of one position over the latents ``ckv`` (B, T, R)
+    and rotary keys ``kpe`` (B, T, rope) it may read, for the heads of
+    ``q_nope``/``q_pe`` (B, h, 1, .) and the weights of those heads.
+
+    The heads ride in the rows of each product (q is (B, h, .) with one
+    position), so no product broadcasts the cache over the heads."""
+    b, h = q_nope.shape[0], q_nope.shape[1]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, :, 0], p["w_uk"])  # (B, h, R)
+    s_lat = torch.bmm(q_lat.float(), ckv.float().transpose(1, 2))  # (B, h, T)
+    s_pe = torch.bmm(q_pe[:, :, 0].float(), kpe.float().transpose(1, 2))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    attn = torch.softmax((s_lat + s_pe) * scale, dim=-1)
+    ctx_lat = torch.bmm(attn.to(ckv.dtype), ckv)  # (B, h, R)
+    out = torch.einsum("bhr,rhv->bhv", ctx_lat, p["w_uv"])  # (B, h, v)
+    return _out_proj(out.view(b, h, 1, -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# The split's helpers
+# ---------------------------------------------------------------------------
+
+
+def _head_tp(n_heads: int) -> bool:
+    """The reference's test: heads split over the model axis when it divides them."""
+    tp = partition.axis_size("heads_tp")
+    return tp > 1 and n_heads % tp == 0
+
+
+def _gathered(p) -> dict:
+    """The block's parameters with their data-axis splits gathered (``coll.weight``)."""
+    return {k: coll.weight(v) for k, v in p.items()}
+
+
+def _kv_for_heads(k: torch.Tensor, lo: int, hi: int, groups: int, kv_lo: int = 0) -> torch.Tensor:
+    """The K (or V) that q heads ``[lo, hi)`` read, from ``k`` (B, n, S, d)
+    holding KV heads ``[kv_lo, kv_lo + n)``: their own KV heads when the
+    block holds whole groups (the grouped layout), else one KV head per q
+    head (the reference's ``_expand_kv``)."""
+    if lo % groups == 0 and hi % groups == 0:
+        return k[:, lo // groups - kv_lo:hi // groups - kv_lo]
+    return k[:, torch.arange(lo, hi, device=k.device) // groups - kv_lo]
+
+
+def _write(cache_t: torch.Tensor, new: torch.Tensor, start: int, dim: int) -> None:
+    """Write ``new``, positions ``[start, start + n)`` along ``dim``, into the
+    rank's block of the cache's positions (nothing if it holds none)."""
+    t0, t1, _ = coll.model_range(cache_t, dim)
+    a, e = max(start, t0), min(start + new.shape[dim], t1)
+    if a < e:
+        cache_t.narrow(dim, a - t0, e - a).copy_(new.narrow(dim, a - start, e - a))
+
+
+def _split_softmax(scores: torch.Tensor, axes) -> torch.Tensor:
+    """The float32 softmax over positions split across ``axes``: ``scores``
+    (..., n) are this rank's (n may be 0); returns this rank's probabilities."""
+    if scores.shape[-1]:
+        m = scores.amax(dim=-1)
+    else:
+        m = torch.full(scores.shape[:-1], _NEG, dtype=torch.float32, device=scores.device)
+    m = coll.all_reduce(m, axes, "max")
+    e = torch.exp(scores - m[..., None])
+    return e / coll.all_reduce(e.sum(dim=-1), axes)[..., None]
+
+
+def _split_decode(q, k, v, axes, *, t0: int, upto: Optional[int], window=None,
+                  attn_softcap: float = 0.0) -> torch.Tensor:
+    """Attention of q (B, H, Sq, dk), every head, over the positions
+    ``[t0, t0 + T_local)`` of k/v (B, Hkv, T_local, d) this rank holds,
+    combined across ``axes``: positions up to ``upto`` (inclusive; None for
+    all) and within ``window`` of it count.  Returns (B, H, Sq, dv)."""
+    b, hq, sq, dk = q.shape
+    hkv, tl = k.shape[1], k.shape[2]
+    g = hq // hkv
+    lo = 0 if window is None else max(0, upto - window + 1)
+    hi = t0 + tl if upto is None else upto + 1
+    a, e = min(max(lo - t0, 0), tl), min(max(hi - t0, 0), tl)
+    a = min(a, e)
+    kk, vv = k[:, :, a:e], v[:, :, a:e]
+    qg = q.float().reshape(b, hkv, g * sq, dk)
+    s = softcap((qg @ kk.float().transpose(-1, -2)) * (1.0 / math.sqrt(dk)), attn_softcap)
+    p = _split_softmax(s, axes)
+    o = coll.all_reduce(p.to(vv.dtype).float() @ vv.float(), axes)
+    return o.reshape(b, hq, sq, -1).to(q.dtype)

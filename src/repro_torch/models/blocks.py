@@ -16,6 +16,11 @@ The zamba2 hybrid also owns ONE shared attention block (attention + MLP,
 ``shared_attn_specs``) applied before every ``shared_attn_every``-th
 mamba layer; its parameters are shared across the sites, and each site
 has its own KV cache (``models/model.py``).
+
+Under a mesh the residual stream stays whole on every model rank (this
+rank's batch rows): ``_res`` is the reference's call site of
+``partition.constrain`` to its sequence-parallel layout, which changes
+no value and is an open item (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from ..sharding import ParamSpec
+from ..sharding import ParamSpec, partition
+from ..sharding import collectives as coll
 from . import attention as attn
 from . import mamba2 as mb
 from . import moe as moe_mod
@@ -116,8 +122,14 @@ def shared_attn_specs(cfg: ModelConfig):
 
 
 def empty_param(spec: ParamSpec, device) -> nn.Parameter:
-    """An uninitialised parameter of the spec's shape and dtype on ``device``."""
-    return nn.Parameter(torch.empty(spec.shape, dtype=getattr(torch, spec.dtype), device=device))
+    """An uninitialised parameter of the spec's dtype on ``device``: the
+    spec's shape, or under a ``DeviceMesh`` this rank's slice of it
+    (``partition.local_shape``).  It keeps its spec as ``.spec``, which
+    ``sharding/collectives.py`` reads to gather it at use."""
+    shape = partition.local_shape(spec.shape, spec.axes)
+    p = nn.Parameter(torch.empty(shape, dtype=getattr(torch, spec.dtype), device=device))
+    p.spec = spec
+    return p
 
 
 def empty_params(specs, device) -> nn.Module:
@@ -159,6 +171,10 @@ def _register(module: nn.Module, specs, device) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _res(x: torch.Tensor) -> torch.Tensor:
+    return partition.constrain(x, ("batch", "seq_tp", None))
+
+
 class GQABlock(nn.Module):
     """Pre-norm attention + gated MLP (``gqa_dense``) or MoE FFN
     (``gqa_moe``), with gemma2's post-norms when ``cfg.post_norms``;
@@ -181,7 +197,7 @@ class GQABlock(nn.Module):
         )
         if cfg.post_norms:
             a = rmsnorm(a, self.ln_attn_post, cfg.norm_eps)
-        x = x + a
+        x = _res(x + _res(a))
         h = rmsnorm(x, self.ln_ffn, cfg.norm_eps)
         if self.kind == "gqa_moe":
             f = moe_mod.moe_ffn(h, self.ffn, cfg)
@@ -189,7 +205,7 @@ class GQABlock(nn.Module):
             f = mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act)
         if cfg.post_norms:
             f = rmsnorm(f, self.ln_ffn_post, cfg.norm_eps)
-        return x + f, cache
+        return _res(x + _res(f)), cache
 
 
 class MLABlock(nn.Module):
@@ -210,13 +226,13 @@ class MLABlock(nn.Module):
         a, cache = attn.mla_attention(
             h, self.attn, cfg, positions=positions, cache=cache, cache_index=cache_index,
         )
-        x = x + a
+        x = _res(x + _res(a))
         h = rmsnorm(x, self.ln_ffn, cfg.norm_eps)
         if self.kind == "mla_moe":
             f = moe_mod.moe_ffn(h, self.ffn, cfg)
         else:
             f = mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act)
-        return x + f, cache
+        return _res(x + _res(f)), cache
 
 
 class MambaBlock(nn.Module):
@@ -232,7 +248,7 @@ class MambaBlock(nn.Module):
     def forward(self, x, *, positions=None, cache=None, cache_index=None):
         h = rmsnorm(x, self.ln, self.cfg.norm_eps)
         m, cache = mb.mamba_mixer(h, self.mixer, self.cfg, cache=cache, cache_index=cache_index)
-        return x + m, cache
+        return _res(x + _res(m)), cache
 
 
 class EncBlock(nn.Module):
@@ -248,9 +264,9 @@ class EncBlock(nn.Module):
     def forward(self, x, *, positions, cache=None, cache_index=None):
         cfg = self.cfg
         h = rmsnorm(x, self.ln_attn, cfg.norm_eps)
-        x = x + attn.encoder_attention(h, self.attn, cfg, positions)
+        x = _res(x + attn.encoder_attention(h, self.attn, cfg, positions))
         h = rmsnorm(x, self.ln_ffn, cfg.norm_eps)
-        return x + mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act), None
+        return _res(x + mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act)), None
 
 
 class DecCrossBlock(nn.Module):
@@ -278,7 +294,7 @@ class DecCrossBlock(nn.Module):
         self_cache = {"k": cache["k"], "v": cache["v"]} if cache is not None else None
         a, _ = attn.gqa_attention(h, self.attn, cfg, positions=positions, cache=self_cache,
                                   cache_index=cache_index)
-        x = x + a
+        x = _res(x + a)
         h = rmsnorm(x, self.ln_cross, cfg.norm_eps)
         if cache is not None and enc_out is None:
             c, _ = attn.cross_attention(h, self.cross, cfg, kv=(cache["ck"], cache["cv"]))
@@ -286,13 +302,28 @@ class DecCrossBlock(nn.Module):
             c, kv = attn.cross_attention(h, self.cross, cfg, enc_out=enc_out)
             if cache is not None:
                 for key, t in zip(("ck", "cv"), kv):
-                    if cache[key].shape == t.shape:
-                        cache[key].copy_(t)
-                    else:
-                        cache[key] = t.to(cache[key].dtype)
-        x = x + c
+                    _store_cross(cache, key, t)
+        x = _res(x + c)
         h = rmsnorm(x, self.ln_ffn, cfg.norm_eps)
-        return x + mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act), cache
+        return _res(x + mlp(h, self.ffn["wi"], self.ffn["wo"], cfg.act)), cache
+
+
+def _store_cross(cache, key: str, t: torch.Tensor) -> None:
+    """Write the encoder's k or v ``t`` (every head and position of this
+    rank's rows) into ``cache[key]``: this rank's block of positions
+    (all of them without a mesh), in place when the cache was sized for
+    this encoder length, else by replacing the entry."""
+    old = cache[key]
+    lo, hi, _ = coll.dim_range(t.shape[2], "kv_seq_tp")
+    part = t[:, :, lo:hi]
+    if old.shape == part.shape:
+        old.copy_(part)
+        return
+    new = part.to(old.dtype)
+    spec = getattr(old, "spec", None)
+    if spec is not None:
+        new.spec = ParamSpec((spec.shape[0], *t.shape[1:]), spec.axes, spec.dtype, "zeros")
+    cache[key] = new
 
 
 def make_block(kind: str, cfg: ModelConfig, *, window: Optional[int], device) -> nn.Module:

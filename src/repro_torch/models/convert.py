@@ -15,7 +15,8 @@ take their weights from NumPy:
 * ``load_reference_params(model, tree)`` copies such a tree into a
   ``Model`` (layer ``i`` of group ``gj`` into ``layers.(o + i)``, where
   ``o`` counts the layers of the groups before it; an unstacked leaf
-  under its own path), casting to each parameter's dtype;
+  under its own path), casting to each parameter's dtype; a model built
+  under a ``DeviceMesh`` takes each rank's slice;
   ``reference_params(model)`` is the way back (``exact=True`` keeps
   each parameter's dtype, bfloat16 included, as CPU tensors);
 * ``reference_leaf_of(model)`` names each parameter's reference leaf
@@ -42,7 +43,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..sharding import ParamSpec, leaves
+from ..sharding import ParamSpec, leaves, partition
 from .blocks import block_specs, plan, shared_attn_specs
 from .config import ModelConfig
 from .layers import embed_specs, rmsnorm_spec
@@ -144,6 +145,9 @@ def _copy_from_reference(model: Model, tree, targets: Dict[str, torch.Tensor]) -
                 if name not in targets:
                     raise KeyError(f"{'/'.join(path)}: the model has no parameter {name}")
                 t = targets[name]
+                spec = getattr(t, "spec", None)
+                if spec is not None and tuple(part.shape) == tuple(spec.shape):
+                    part = part[partition.local_slices(spec.shape, spec.axes)]
                 if tuple(t.shape) != tuple(part.shape):
                     raise ValueError(f"{name}: shape {tuple(part.shape)} != {tuple(t.shape)}")
                 t.copy_(part)
@@ -156,7 +160,9 @@ def _copy_from_reference(model: Model, tree, targets: Dict[str, torch.Tensor]) -
 def load_reference_params(model: Model, tree) -> Model:
     """Copy a reference-layout tree (NumPy arrays or tensors) into
     ``model`` (cast to each parameter's dtype, moved to its device).  A
-    missing, extra or misshapen leaf raises."""
+    missing, extra or misshapen leaf raises.  Under a ``DeviceMesh`` each
+    parameter takes this rank's slice of its leaf
+    (``partition.local_slices``)."""
     _copy_from_reference(model, tree, dict(model.named_parameters()))
     return model
 

@@ -1,9 +1,32 @@
 """Shared layers: norms, rotary embeddings, gated MLPs, embedding.
 
 Follows ``repro/models/layers.py``.  Plain functions on tensors, and the
-specs that describe their parameters.  The reference's
-``partition.constrain`` calls do nothing on one device and are left out.
-``layernorm`` is ported although the reference calls it nowhere.
+specs that describe their parameters.  ``layernorm`` is ported although
+the reference calls it nowhere.
+
+Under a ``DeviceMesh`` (``sharding/partition.py``) the parameters are
+this rank's slices; each function gathers what is split over the data
+axes (``collectives.weight``) and splits its compute over the model axis
+where the weights are split there, as the reference's SPMD does:
+
+* ``embed``: each model rank looks up the tokens of its vocabulary rows
+  (zeros for the others), and a sum over the model axis completes the
+  rows (a sum of one value and zeros, so exact); the table's width,
+  split over the data axes, is not gathered: the looked-up rows are
+  (the same values, fewer bytes);
+* ``unembed``: each model rank's logits of its vocabulary rows, softcap
+  and pad mask applied, gathered over the model axis; where the data
+  axes split the table's width, each data rank multiplies every data
+  rank's rows by its columns, an all-to-all hands each rank the partial
+  products of its rows, and they are summed in float32 in rank order
+  (the reference's SPMD sums a contraction split this way);
+* ``mlp``: ``wi``'s columns split, so each rank's product columns are
+  gathered into the whole ``[gate | up]`` pair, the gate applied, and
+  each rank multiplies its block of ``wo``'s rows; the partial products
+  are summed over the model axis.
+
+``partition.constrain`` is called where the reference calls it (a plain
+tensor is one rank's value and comes back unchanged).
 """
 
 from __future__ import annotations
@@ -15,7 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ParamSpec
+from ..sharding import ParamSpec, partition
+from ..sharding import collectives as coll
 from .config import ModelConfig
 
 _NEG = -1e30
@@ -121,11 +145,19 @@ def mlp_specs(d: int, f: int, dtype: str):
 
 
 def mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Gated MLP: SwiGLU, or GeGLU with the tanh GELU."""
-    h = x @ wi
+    """Gated MLP: SwiGLU, or GeGLU with the tanh GELU (tensor-parallel
+    under a mesh: the module's docstring)."""
+    h = x @ coll.weight(wi)
+    _, _, cols = coll.model_range(wi, 1)
+    if cols:
+        h = coll.all_gather(h, cols, -1)
     g, u = h.chunk(2, dim=-1)
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (g * u) @ wo
+    h = partition.constrain(g * u, ("batch", None, "embed_tp"))
+    lo, hi, rows = coll.model_range(wo, 0)
+    if not rows:
+        return h @ coll.weight(wo)
+    return coll.all_reduce(h[..., lo:hi] @ coll.weight(wo), rows)
 
 
 # ---------------------------------------------------------------------------
@@ -143,17 +175,43 @@ def embed_specs(cfg: ModelConfig):
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Rows of ``table``; gemma2's ``sqrt(d)`` scale is applied in the table's dtype."""
-    x = table[tokens.long()]
+    dax = coll.data_axes(table, 1)
+    ids = tokens.long()
+    if dax:  # every data rank's tokens, in its columns of the table
+        ids = coll.all_gather(ids.reshape(1, *ids.shape), dax, 0)
+    lo, hi, axes = coll.model_range(table, 0)
+    if axes:
+        ids = ids - lo
+        inside = (ids >= 0) & (ids < hi - lo)
+        x = table[ids.clamp(0, hi - lo - 1)]
+        x = coll.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)), axes)
+    else:
+        x = table[ids]
+    if dax:  # each rank its own rows, every rank's columns
+        x = coll.all_to_all(x, dax, 0, x.dim() - 1)[0]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    return x
+    return partition.constrain(x, ("batch", None, None))
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits: the product in the parameter dtype, then float32, the final
     softcap, and the padded rows masked to -1e30 after it."""
-    logits = softcap((x @ table.t()).float(), cfg.final_softcap)
+    lo, hi, axes = coll.model_range(table, 0)
+    dax = coll.data_axes(table, 1)
+    if dax:
+        d0, d1 = coll.local_range(table, 1)
+        rows = coll.all_gather(x.reshape(1, *x.shape), dax, 0)[..., d0:d1]
+        parts = coll.all_to_all((rows @ table.t()).float(), dax, 0, 0)
+        logits = parts[0]
+        for part in parts[1:]:
+            logits = logits + part
+    else:
+        logits = (x @ table.t()).float()
+    logits = softcap(logits, cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
-        vid = torch.arange(logits.shape[-1], device=logits.device)
+        vid = torch.arange(lo, hi, device=logits.device)
         logits = torch.where(vid < cfg.vocab_size, logits, _NEG)
-    return logits
+    if axes:
+        logits = coll.all_gather(logits, axes, -1)
+    return partition.constrain(logits, ("batch", None, "vocab_tp"))

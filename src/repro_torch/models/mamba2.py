@@ -19,8 +19,13 @@ computes all of it outside Pallas, so it stays plain PyTorch here.
   (B, ssm_conv - 1, conv channels) in the model's dtype, the
   *pre-convolution* inputs of the last ssm_conv - 1 tokens; ``state``
   (B, H, P, N), always float32.
-* The reference's ``partition.constrain`` does nothing on one device and
-  is left out.
+* Under a ``DeviceMesh`` the weights are stored by their placements:
+  ``in_proj``'s ``embed_tp`` split cuts the packed ``[z, xBC, dt]``
+  dimension, not the heads, so the mixer gathers its weights whole at
+  use and runs every head on each model rank (a head-aligned split is
+  queued in ``ROADMAP.md``).  The caches keep their placements (``conv``
+  split over channels, ``state`` over heads): a step gathers them over
+  the model axis and writes back the rank's slices.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ParamSpec
+from ..sharding import ParamSpec, partition
+from ..sharding import collectives as coll
 from .config import ModelConfig
 from .layers import rmsnorm, rmsnorm_spec
 
@@ -182,6 +188,12 @@ def mamba_mixer(
       pre-convolution inputs (left-padded with zeros when the prompt is
       shorter) and the final state.
     """
+    if partition.distributed():
+        return _mixer_mesh(x, params, cfg, cache=cache, cache_index=cache_index)
+    return _mixer(x, params, cfg, cache=cache, cache_index=cache_index)
+
+
+def _mixer(x, params, cfg: ModelConfig, *, cache=None, cache_index=None):
     bsz, s, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
     p_ = cfg.ssm_headdim
@@ -201,7 +213,7 @@ def mamba_mixer(
         xbc_c = _causal_conv(xbc, params["conv_w"], params["conv_b"])
 
     xs, b_, c_ = xbc_c.split([di, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, s, h, p_)
+    xs = partition.constrain(xs.reshape(bsz, s, h, p_), ("batch", None, "heads_tp", None))
     b_ = b_.reshape(bsz, s, g, n)
     c_ = c_.reshape(bsz, s, g, n)
     a = -torch.exp(params["a_log"])  # (H,)
@@ -243,3 +255,20 @@ def mamba_cache_specs(cfg: ModelConfig, batch: int, dtype: str):
         "conv": ((batch, cfg.ssm_conv - 1, conv_ch), dtype),
         "state": ((batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), "float32"),
     }
+
+
+#: The cache's logical axes (the reference's ``model.py:cache_specs``).
+CACHE_AXES = {"conv": ("batch", None, "embed_tp"), "state": ("batch", "heads_tp", None, None)}
+
+
+def _mixer_mesh(x, params, cfg: ModelConfig, *, cache=None, cache_index=None):
+    """``mamba_mixer`` on this rank's slices: the weights gathered whole, the
+    cache gathered over the model axis, the rank's slices written back."""
+    whole = {k: coll.whole(v) for k, v in params.items()}
+    if cache is None:
+        return _mixer(x, whole, cfg)
+    full = {k: coll.model_whole(v) for k, v in cache.items()}
+    y, full = _mixer(x, whole, cfg, cache=full, cache_index=cache_index)
+    for k, v in cache.items():
+        v.copy_(coll.model_part(full[k], v))
+    return y, cache

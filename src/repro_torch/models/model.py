@@ -25,6 +25,21 @@ layers and sites hold k/v (B, Hkv, T, hd); MLA layers the latents
 ``conv`` (B, ssm_conv - 1, conv channels) and ``state`` (B, H, P, N),
 float32; decoder layers k/v and the cross attention's ``ck``/``cv``
 (B, H, enc_len, hd); encoder layers an empty dict.
+
+**Under a mesh** (``with partition.activate(mesh)``, a ``DeviceMesh``):
+a ``Model`` built there stores only this rank's slice of every
+parameter (``partition.local_slices`` of its spec's axes; the whole
+model never exists on one rank), and ``init_cache`` only its slice of
+every cache leaf (``cache_specs``' axes: KV and MLA caches split over
+positions by the model axis and over rows by the batch axes, the mamba
+``conv`` leaf over channels, its ``state`` over heads).  ``forward``,
+``prefill`` and ``decode_step`` take the whole batch's inputs on every
+rank, run this rank's rows (``partition.batch_rows``; every row where
+the batch axes do not divide the batch) and return those rows: logits
+with the whole vocabulary.  Parameters and cache leaves keep their
+``ParamSpec`` as ``.spec``.  Under an abstract mesh (``{axis: size}``)
+one process holds and runs everything, and computes the function of the
+split run (the MoE token groups follow the mesh's batch axes).
 """
 
 from __future__ import annotations
@@ -37,11 +52,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.lp import resolve_device
-from ..sharding import ParamSpec, leaves, materialize
+from ..sharding import ParamSpec, leaves, materialize, partition
+from ..sharding.rules import shardings
 from . import blocks as blk
 from .config import ModelConfig
 from .layers import embed, embed_specs, rmsnorm, rmsnorm_spec, sinusoidal_positions, unembed
+from .mamba2 import CACHE_AXES as MAMBA_CACHE_AXES
 from .mamba2 import mamba_cache_specs
+
+#: Logical axes of the KV and cross caches (B, H, T, hd) and the MLA
+#: latents (B, T, .), as the reference's ``cache_specs`` names them.
+KV_AXES = ("batch", None, "kv_seq_tp", None)
+MLA_AXES = ("batch", "kv_seq_tp", None)
 
 _GLOBAL_WINDOW = 1 << 30  # the reference's "no window" value of a global layer
 
@@ -117,6 +139,11 @@ class Model(nn.Module):
             tree["enc_norm"] = rmsnorm_spec(cfg.d_model, cfg.dtype)
         return {".".join(path): spec for path, spec in leaves(tree)}
 
+    def param_shardings(self) -> Dict[str, object]:
+        """Each parameter's placements on the active mesh, by name (the
+        reference's ``param_shardings``; None entries without a mesh)."""
+        return shardings(self.abstract_params())
+
     def set_param(self, name: str, value: torch.Tensor) -> None:
         """Replace the parameter ``name`` by ``value`` (shape checked)."""
         owner, _, leaf = name.rpartition(".")
@@ -124,7 +151,10 @@ class Model(nn.Module):
         old = getattr(mod, leaf)
         if tuple(old.shape) != tuple(value.shape):
             raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(old.shape)}")
-        setattr(mod, leaf, nn.Parameter(value, requires_grad=old.requires_grad))
+        new = nn.Parameter(value, requires_grad=old.requires_grad)
+        if hasattr(old, "spec"):
+            new.spec = old.spec
+        setattr(mod, leaf, new)
 
     def init(self, generator: torch.Generator, dtype_override: Optional[str] = None) -> "Model":
         """Fill every parameter from ``generator`` (on the model's device) by
@@ -139,37 +169,51 @@ class Model(nn.Module):
     # Caches
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int, enc_len: int = 0) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed caches (see the module's docstring), in ``cfg.dtype`` but
-        the SSM states (float32): one dict a layer, then one a shared
-        site.  ``enc_len`` sizes the decoder's cross-attention caches."""
+    def cache_specs(self, batch: int, max_len: int, enc_len: int = 0) -> List[Dict[str, ParamSpec]]:
+        """A ``ParamSpec`` (zeros) for every cache leaf: one dict a layer, then
+        one a shared site (the module's docstring), with the reference's
+        axes."""
         cfg = self.cfg
-        dt = getattr(torch, cfg.dtype)
-
-        def zeros(*shape, dtype=dt):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+        dt = cfg.dtype
 
         def kv():
             shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-            return {"k": zeros(*shape), "v": zeros(*shape)}
+            return {"k": ParamSpec(shape, KV_AXES, dt, "zeros"),
+                    "v": ParamSpec(shape, KV_AXES, dt, "zeros")}
 
-        caches = []
+        out = []
         for kind in self.kinds():
             if kind in ("mla_dense", "mla_moe"):
-                caches.append({"ckv": zeros(batch, max_len, cfg.kv_lora_rank),
-                               "kpe": zeros(batch, max_len, cfg.qk_rope_dim)})
+                out.append({"ckv": ParamSpec((batch, max_len, cfg.kv_lora_rank), MLA_AXES, dt, "zeros"),
+                            "kpe": ParamSpec((batch, max_len, cfg.qk_rope_dim), MLA_AXES, dt, "zeros")})
             elif kind == "mamba":
-                caches.append({k: zeros(*shape, dtype=getattr(torch, d)) for k, (shape, d)
-                               in mamba_cache_specs(cfg, batch, cfg.dtype).items()})
+                out.append({k: ParamSpec(shape, MAMBA_CACHE_AXES[k], d, "zeros") for k, (shape, d)
+                            in mamba_cache_specs(cfg, batch, cfg.dtype).items()})
             elif kind == "enc":
-                caches.append({})  # the encoder keeps no decode state
+                out.append({})  # the encoder keeps no decode state
             elif kind == "dec_cross":
                 cross = (batch, cfg.num_heads, enc_len, cfg.head_dim)
-                caches.append({**kv(), "ck": zeros(*cross), "cv": zeros(*cross)})
+                out.append({**kv(), "ck": ParamSpec(cross, KV_AXES, dt, "zeros"),
+                            "cv": ParamSpec(cross, KV_AXES, dt, "zeros")})
             else:
-                caches.append(kv())
-        caches += [kv() for _ in range(self.shared_sites())]
-        return caches
+                out.append(kv())
+        out += [kv() for _ in range(self.shared_sites())]
+        return out
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0) -> List[Dict[str, torch.Tensor]]:
+        """Zeroed caches (see the module's docstring), in ``cfg.dtype`` but
+        the SSM states (float32): one dict a layer, then one a shared
+        site.  ``enc_len`` sizes the decoder's cross-attention caches.
+        Under a ``DeviceMesh``, this rank's slice of each leaf."""
+
+        def zeros(spec: ParamSpec) -> torch.Tensor:
+            t = torch.zeros(partition.local_shape(spec.shape, spec.axes),
+                            dtype=getattr(torch, spec.dtype), device=self.device)
+            t.spec = spec
+            return t
+
+        return [{k: zeros(spec) for k, spec in layer.items()}
+                for layer in self.cache_specs(batch, max_len, enc_len)]
 
     # ------------------------------------------------------------------
     # Forward, prefill, decode
@@ -241,7 +285,7 @@ class Model(nn.Module):
         frames = frames.to(getattr(torch, cfg.dtype))
         b, senc, _ = frames.shape
         pos_table = sinusoidal_positions(senc, cfg.d_model, frames.device).to(frames.dtype)
-        x = frames + pos_table[None]
+        x = partition.constrain(frames + pos_table[None], ("batch", None, None))
         positions = self._positions({}, b, senc)
         for layer in self.layers[:cfg.enc_layers]:
             x = self._block_out(layer, x, remat, positions=positions)
@@ -264,12 +308,22 @@ class Model(nn.Module):
         return self._decode_stack(inputs["tokens"], enc_out=enc_out, cache=cache,
                                   cache_index=cache_index, offset=cache_index or 0, remat=remat)
 
+    @staticmethod
+    def _local(inputs) -> Dict[str, torch.Tensor]:
+        """This rank's rows of every input (all of them without a
+        ``DeviceMesh``, or where the batch axes do not divide the batch)."""
+        rows = partition.batch_rows(inputs["tokens"].shape[0])
+        return {k: v[rows] for k, v in inputs.items()}
+
     def forward(self, inputs: Dict[str, torch.Tensor], remat: bool = False) -> torch.Tensor:
         """Final hidden states (B, S, D) of the full forward; ``remat``
-        recomputes each layer in the backward pass (the module's docstring)."""
-        if self.cfg.family == "encdec":
-            return self._forward_encdec(inputs, remat=remat)
-        return self._run(inputs, remat=remat)
+        recomputes each layer in the backward pass (the module's docstring).
+        Under a mesh, this rank's rows (the module's docstring)."""
+        with partition.global_batch(inputs["tokens"].shape[0]):
+            inputs = self._local(inputs)
+            if self.cfg.family == "encdec":
+                return self._forward_encdec(inputs, remat=remat)
+            return self._run(inputs, remat=remat)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return unembed(hidden, self.embed.get("unembed", self.embed["embedding"]), self.cfg)
@@ -280,23 +334,28 @@ class Model(nn.Module):
 
         ``inputs``: ``tokens``, and as the config needs them ``frames``
         (encoder-decoder), ``patch_embeds`` and ``positions`` (B, S, 3)
-        (vision, M-RoPE)."""
-        if self.cfg.family == "encdec":
-            hidden = self._forward_encdec(inputs, cache=cache, cache_index=0)
-        else:
-            hidden = self._run(inputs, cache=cache, cache_index=0)
-        return self.logits(hidden[:, -1:]), cache
+        (vision, M-RoPE).  Under a mesh, the whole batch's inputs, and this
+        rank's rows of the logits."""
+        with partition.global_batch(inputs["tokens"].shape[0]):
+            inputs = self._local(inputs)
+            if self.cfg.family == "encdec":
+                hidden = self._forward_encdec(inputs, cache=cache, cache_index=0)
+            else:
+                hidden = self._run(inputs, cache=cache, cache_index=0)
+            return self.logits(hidden[:, -1:]), cache
 
     @torch.inference_mode()
     def decode_step(self, inputs, cache, cache_index: int):
         """One decode step: ``inputs["tokens"]`` (B, 1), and ``positions``
         if given (else ``cache_index``) -> (logits (B, 1, V), cache).  The
         encoder-decoder runs its decoder only, against the cached cross
-        k/v."""
-        if self.cfg.family == "encdec":
-            hidden = self._decode_stack(inputs["tokens"], cache=cache, cache_index=cache_index,
-                                        offset=cache_index)
-        else:
-            step = {k: inputs[k] for k in ("tokens", "positions") if k in inputs}
-            hidden = self._run(step, cache=cache, cache_index=cache_index, offset=cache_index)
-        return self.logits(hidden), cache
+        k/v.  Under a mesh, the whole batch's tokens, and this rank's rows of
+        the logits."""
+        step = self._local({k: inputs[k] for k in ("tokens", "positions") if k in inputs})
+        with partition.global_batch(inputs["tokens"].shape[0]):
+            if self.cfg.family == "encdec":
+                hidden = self._decode_stack(step["tokens"], cache=cache,
+                                            cache_index=cache_index, offset=cache_index)
+            else:
+                hidden = self._run(step, cache=cache, cache_index=cache_index, offset=cache_index)
+            return self.logits(hidden), cache

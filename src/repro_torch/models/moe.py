@@ -13,13 +13,29 @@ The LP goes to ``kernels/ops.py:simplex_solve``: on the card the
 hand-written simplex kernel, on CPU tensors its plain version (the
 reference calls the kernel's XLA twin, ``core/simplex.py:solve_batched``).
 
+Token groups (the reference's ``moe.py:113-116``): the T tokens are cut
+into g = ``partition.axis_size("batch")`` contiguous groups (1 where g
+does not divide T), and each group sorts and drops by its own capacity,
+so the mesh's batch axes change the function.  Under a ``DeviceMesh``:
+
+* where the batch axes split the batch and a rank's rows are whole
+  groups (always, when they divide B), the rank dispatches its own
+  groups; otherwise it gathers the batch's rows, runs every group and
+  keeps its own rows;
+* experts split over the model axis: each model rank runs its experts
+  on its groups' capacity buffers, and the combined outputs are summed
+  over the model axis;
+* under ``router="lp"`` the layer still solves one LP over all T tokens
+  (``_lp_balance_bias`` groups them by ``router_groups``): every rank
+  gathers the float32 router logits of every batch rank, bit for bit, in
+  token order, builds the same LP and solves it on its own simplex
+  kernel, so every rank gets the same bias bits and keeps its tokens'
+  rows.
+
+Under an abstract mesh one process runs every group of the split run.
+
 Differences from the reference, none of which changes a result:
 
-* The dispatch keeps the reference's group axis with g = 1: without a
-  mesh, ``partition.axis_size("batch")`` is 1 (expert parallelism, g > 1,
-  comes with ``ROADMAP.md`` item 6.5b).  The reference's
-  ``partition.constrain`` calls do nothing on one device and are left out
-  until then.
 * ``jax.lax.top_k`` breaks ties toward the lower index; ``torch.topk``
   does not promise that order, so the top k come from a stable
   descending sort.
@@ -38,7 +54,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ParamSpec
+from ..sharding import ParamSpec, partition
+from ..sharding import collectives as coll
 from .config import ModelConfig
 from .layers import mlp, mlp_specs
 
@@ -148,11 +165,21 @@ def _lp_bias(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return bias[groups].to(logits.dtype)
 
 
-def route(xf: torch.Tensor, p, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Router: (T, D) -> (weights (T, k) in ``xf``'s dtype, experts (T, k))."""
-    logits = xf.float() @ p["router"]
+def route(xf: torch.Tensor, p, cfg: ModelConfig, split=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Router: (T, D) -> (weights (T, k) in ``xf``'s dtype, experts (T, k)).
+
+    ``split = (batch, start)`` under a mesh whose batch axes split the
+    ``batch`` rows: ``xf`` holds this rank's tokens, from token ``start``
+    of the whole batch on; the LP bias is built from every rank's logits
+    and this rank keeps its tokens' rows of it."""
+    logits = xf.float() @ coll.weight(p["router"])
     if cfg.router == "lp":
-        logits = logits + _lp_balance_bias(logits, cfg)
+        if split is None:
+            logits = logits + _lp_balance_bias(logits, cfg)
+        else:
+            batch, start = split
+            bias = _lp_balance_bias(coll.gather_rows(logits, batch), cfg)
+            logits = logits + bias[start:start + logits.shape[0]]
     top = torch.sort(logits, dim=-1, descending=True, stable=True)
     weights, experts = top.values[:, :cfg.top_k], top.indices[:, :cfg.top_k]
     weights = torch.softmax(weights, dim=-1)
@@ -183,31 +210,50 @@ def dispatch(experts: torch.Tensor, cap: int, num_experts: int):
 def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).
 
-    Group-local dispatch with one group (g = 1) on one device: route, sort
-    the assignments by expert, gather each expert's rows into (E, C, D)
-    buffers, run the experts as batched products, and combine each
-    token's kept outputs weighted by its router weights.
+    Group-local dispatch over g token groups (the module's docstring): route,
+    sort each group's assignments by expert, gather each expert's rows
+    into (E, C, D) buffers, run the experts as batched products, and
+    combine each token's kept outputs weighted by its router weights.
+    Under a mesh ``x`` is this rank's rows of the batch named by
+    ``partition.current_batch``.
     """
     b, s, d = x.shape
-    t = b * s
-    g = 1  # the reference's partition.axis_size("batch") without a mesh (item 6.5b)
+    batch = partition.current_batch() or b
+    t = batch * s
+    g = partition.axis_size("batch")
+    if g <= 1 or t % g != 0:
+        g = 1
     tl = t // g
     cap = _capacity(tl, cfg)
 
-    xg = x.reshape(g, tl, d)
-    weights, experts = route(xg.reshape(t, d), p, cfg)  # (T, k), (T, k)
+    rows = partition.batch_rows(batch)
+    t0, t1 = rows.start * s, rows.stop * s
+    own_groups = rows.stop - rows.start < batch and t0 % tl == 0 and t1 % tl == 0
+    xt = x.reshape(b * s, d)
+    if rows.stop - rows.start < batch and not own_groups:
+        xt = coll.gather_rows(xt, batch)  # every group, then this rank's rows
+    xg = partition.constrain(xt.reshape(-1, tl, d), ("batch", None, None))
+    weights, experts = route(xt, p, cfg, (batch, t0) if own_groups else None)  # (T, k), (T, k)
     ys = []
-    for gi in range(g):
+    for gi in range(xg.shape[0]):
         ys.append(_group_ffn(xg[gi], weights[gi * tl:(gi + 1) * tl],
                              experts[gi * tl:(gi + 1) * tl], p, cfg, cap))
-    y = torch.stack(ys)
+    y = partition.constrain(torch.stack(ys), ("batch", None, None)).reshape(-1, d)
+    _, _, eax = coll.model_range(p["wi"], 0)
+    if eax:
+        y = coll.all_reduce(y, eax)
+    if y.shape[0] != b * s:
+        y = y[t0:t1]
+    y = y.reshape(b, s, d)
     if cfg.num_shared_experts:
-        y = y + mlp(x, p["shared"]["wi"], p["shared"]["wo"], cfg.act).reshape(g, tl, d)
-    return y.reshape(b, s, d)
+        y = y + mlp(x, p["shared"]["wi"], p["shared"]["wo"], cfg.act)
+    return y
 
 
 def _group_ffn(xt, weights, experts, p, cfg: ModelConfig, cap: int) -> torch.Tensor:
-    """One group's routed experts: (T, D) tokens -> (T, D)."""
+    """One group's routed experts: (T, D) tokens -> (T, D).  Under a mesh
+    that splits the experts, this rank's experts only (the others' rows
+    of the output buffer stay zero): a partial sum over the model axis."""
     tl, d = xt.shape
     k, e = cfg.top_k, cfg.num_experts
     order, slot, keep = dispatch(experts, cap, e)
@@ -222,11 +268,15 @@ def _group_ffn(xt, weights, experts, p, cfg: ModelConfig, cap: int) -> torch.Ten
     buf[slot] = xt[st]
     buf = buf[:-1].view(e, cap, d)
 
-    h = torch.bmm(buf, p["wi"])
+    lo, hi, _ = coll.model_range(p["wi"], 0)
+    buf = partition.constrain(buf, ("expert_tp", "batch", None))
+    h = torch.bmm(buf[lo:hi], coll.weight(p["wi"]))
     gg, u = h.chunk(2, dim=-1)
     gg = F.silu(gg) if cfg.act == "silu" else F.gelu(gg, approximate="tanh")
-    out = torch.bmm(gg * u, p["wo"]).reshape(e * cap, d)
-    out = torch.cat([out, torch.zeros((1, d), dtype=out.dtype, device=out.device)])
+    h = partition.constrain(gg * u, ("expert_tp", "batch", None))
+    out = torch.bmm(h, coll.weight(p["wo"])).reshape((hi - lo) * cap, d)
+    out = torch.cat([torch.zeros((lo * cap, d), dtype=out.dtype, device=out.device), out,
+                     torch.zeros(((e - hi) * cap + 1, d), dtype=out.dtype, device=out.device)])
 
     expert_out = out[slot] * (sw * keep).to(xt.dtype)[:, None]
     # Each token's k outputs in sorted position order, which is ascending

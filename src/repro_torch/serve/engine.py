@@ -73,6 +73,8 @@ from ..core.problem import (
 )
 from ..core.session import SolveSession, _on
 from ..core.spmd import ShardedState
+from ..sharding import collectives as coll
+from ..sharding import partition
 from ..runtime import chaos as _chaos
 
 
@@ -111,23 +113,33 @@ class Engine:
         ``jnp.argmax``); ``temperature > 0`` samples from
         ``softmax(logits / temperature)`` with a ``torch.Generator`` seeded
         by ``seed`` (its bits differ from ``jax.random.categorical``).
+
+        Under a mesh (``with partition.activate(mesh)``, the model built
+        under it), every rank is given the whole batch, runs its rows
+        (``models/model.py``) and samples them, and the sampled tokens are
+        gathered over the batch axes: every rank returns the whole
+        (B, steps).  Greedy tokens do not depend on the split; sampling
+        seeds each block of rows with ``seed`` plus its first row's index,
+        so its tokens differ from one process's (and from the
+        reference's).
         """
         tokens = _tensor(inputs["tokens"], torch.int32, self.device)
         b, prompt_len = tokens.shape
         if prompt_len + steps - 1 > self.max_len:
             raise ValueError(f"{prompt_len} prompt + {steps} steps exceed max_len {self.max_len}")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        rows = partition.batch_rows(b)
+        gen = torch.Generator(device=self.device).manual_seed(seed + rows.start)
         prompt = {"tokens": tokens}
         for k, dt in (("frames", None), ("patch_embeds", None), ("positions", torch.int32)):
             if k in inputs:
                 prompt[k] = _tensor(inputs[k], dt, self.device)
         self.cache = self.model.init_cache(b, self.max_len, enc_len=self.enc_len)
         logits, _ = self.model.prefill(prompt, self.cache)
-        cur = self._sample(logits[:, -1], temperature, gen)
+        cur = coll.gather_rows(self._sample(logits[:, -1], temperature, gen), b)
         out = [cur]
         for i in range(steps - 1):
             logits, _ = self.model.decode_step({"tokens": cur[:, None]}, self.cache, prompt_len + i)
-            cur = self._sample(logits[:, -1], temperature, gen)
+            cur = coll.gather_rows(self._sample(logits[:, -1], temperature, gen), b)
             out.append(cur)
         return torch.stack(out, dim=1)
 

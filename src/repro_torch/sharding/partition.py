@@ -18,6 +18,15 @@ process.  :func:`resolve_spec` returns what the reference's
 name, or a tuple of names.  :func:`placements` turns it into one
 ``Shard(d)`` / ``Replicate()`` per mesh dimension, the form a ``DTensor``
 takes (the reference's ``named_sharding``).
+
+Under a ``DeviceMesh`` each rank stores and computes its own slice:
+:func:`local_slices` / :func:`local_shape` give a rank's index range in
+every dimension of a resolved spec (a dimension split over several mesh
+axes is cut row-major over them, in the order the spec names them), and
+:func:`batch_rows` the rows of a batch a rank runs.  Under an abstract
+mesh one process holds every slice: the local shape is the whole shape,
+while :func:`axis_size` still reports the mesh (the MoE group count reads
+it), so one process computes the function of the split run.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ class _Ctx(threading.local):
         self.mesh = None
         self.shape: Dict[str, int] = {}
         self.rules: Dict[str, Tuple[str, ...]] = {}
+        self.batch: Optional[int] = None
+        self.memo: dict = {}
 
 
 _CTX = _Ctx()
@@ -69,19 +80,127 @@ def mesh_shape(mesh) -> Dict[str, int]:
 def activate(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
     """Make ``mesh`` (a ``DeviceMesh``, an ``{axis: size}`` mapping, or None)
     and ``rules`` (default :data:`DEFAULT_RULES`) current for the block."""
-    prev = (_CTX.mesh, _CTX.shape, _CTX.rules)
+    prev = (_CTX.mesh, _CTX.shape, _CTX.rules, _CTX.memo)
     _CTX.mesh = mesh
     _CTX.shape = mesh_shape(mesh)
     _CTX.rules = dict(DEFAULT_RULES if rules is None else rules)
+    _CTX.memo = {}
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.shape, _CTX.rules = prev
+        _CTX.mesh, _CTX.shape, _CTX.rules, _CTX.memo = prev
 
 
 def active_mesh():
     """The mesh of the innermost :func:`activate`, or None."""
     return _CTX.mesh
+
+
+def memo() -> dict:
+    """A cache that lives as long as the innermost :func:`activate` (what a
+    spec resolves to on this mesh and rank does not change within it)."""
+    return _CTX.memo
+
+
+def axes_size(axes: Sequence[str]) -> int:
+    """The product of the active mesh's sizes of ``axes`` (those it has)."""
+    return math.prod(_CTX.shape[a] for a in axes if a in _CTX.shape)
+
+
+def distributed() -> bool:
+    """Whether the active mesh is a ``DeviceMesh``: each rank then holds
+    its own slices (under an abstract mesh one process holds them all)."""
+    return _CTX.mesh is not None and not isinstance(_CTX.mesh, Mapping)
+
+
+def coordinates() -> Dict[str, int]:
+    """This rank's index along each axis of the active ``DeviceMesh``
+    (every index 0 under an abstract mesh or none)."""
+    if not distributed():
+        return {ax: 0 for ax in _CTX.shape}
+    return dict(zip(_CTX.shape, _CTX.mesh.get_coordinate()))
+
+
+def rule_axes(logical: str) -> Tuple[str, ...]:
+    """The active mesh's axes that the rules map ``logical`` to, in rule order."""
+    return tuple(a for a in _CTX.rules.get(logical, ()) if a in _CTX.shape)
+
+
+def entry_axes(entry: AxisName) -> Tuple[str, ...]:
+    """One entry of :func:`resolve_spec` as a tuple of mesh axes."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_slices(shape: Sequence[int], logical_axes: Sequence[AxisName],
+                 coords: Optional[Mapping[str, int]] = None) -> Tuple[slice, ...]:
+    """The index range, per dimension, of the slice the rank at ``coords``
+    holds of a ``shape`` tensor laid out by ``logical_axes``.
+
+    A dimension :func:`resolve_spec` maps to mesh axes ``(a1, a2, ...)``
+    is cut into ``prod(sizes)`` equal blocks, and the rank takes the
+    block of its row-major index over those axes.  ``coords`` defaults to
+    this rank's (:func:`coordinates`); without a ``DeviceMesh`` and
+    without ``coords`` every range is whole.
+    """
+    if coords is None:
+        if not distributed():
+            return tuple(slice(0, d) for d in shape)
+        coords = coordinates()
+    spec = resolve_spec(shape, logical_axes) or (None,) * len(shape)
+    out = []
+    for dim, entry in zip(shape, spec):
+        axes = entry_axes(entry)
+        n, idx = 1, 0
+        for ax in axes:
+            n *= _CTX.shape[ax]
+            idx = idx * _CTX.shape[ax] + int(coords[ax])
+        per = dim // n
+        out.append(slice(idx * per, (idx + 1) * per))
+    return tuple(out)
+
+
+def local_shape(shape: Sequence[int], logical_axes: Sequence[AxisName]) -> Tuple[int, ...]:
+    """The shape of this rank's slice (:func:`local_slices`)."""
+    return tuple(s.stop - s.start for s in local_slices(shape, logical_axes))
+
+
+def split_axes(size: int, logical: AxisName) -> Tuple[str, ...]:
+    """The mesh axes a dimension of ``size`` named ``logical`` is split over
+    on this rank's mesh (empty where it is whole: no ``DeviceMesh``, the
+    divisibility fallback replicated it, or its axes hold one rank)."""
+    if not distributed():
+        return ()
+    axes = entry_axes(resolve_spec((size,), (logical,))[0])
+    return axes if math.prod(_CTX.shape[a] for a in axes) > 1 else ()
+
+
+def batch_rows(batch: int) -> slice:
+    """The rows of a ``batch``-row input this rank runs: its block over the
+    batch axes, or every row where they do not divide ``batch``."""
+    key = ("rows", batch)
+    if key not in _CTX.memo:
+        _CTX.memo[key] = local_slices((batch,), ("batch",))[0]
+    return _CTX.memo[key]
+
+
+@contextlib.contextmanager
+def global_batch(batch: int):
+    """Name ``batch`` as the whole batch of the block's computation; a
+    layer that works across rows (the MoE token groups) reads it with
+    :func:`current_batch`."""
+    prev = _CTX.batch
+    _CTX.batch = batch
+    try:
+        yield
+    finally:
+        _CTX.batch = prev
+
+
+def current_batch() -> Optional[int]:
+    """The whole batch named by the innermost :func:`global_batch`, or None."""
+    return _CTX.batch
 
 
 def axis_size(logical: str) -> int:
@@ -163,7 +282,8 @@ def constrain(x: torch.Tensor, logical_axes: Sequence[AxisName]) -> torch.Tensor
     is redistributed to :func:`placements` and a plain tensor is left as
     it is (a plain tensor is one rank's whole value).
     """
-    if _CTX.mesh is None or isinstance(_CTX.mesh, Mapping):
+    if _CTX.mesh is None or isinstance(_CTX.mesh, Mapping) or type(x) in (torch.Tensor,
+                                                                          torch.nn.Parameter):
         return x
     from torch.distributed.tensor import DTensor
 

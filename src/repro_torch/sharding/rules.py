@@ -3,9 +3,12 @@
 Follows ``repro/sharding/rules.py``.  A model module describes its
 parameters as a tree (nested dicts) of ``ParamSpec`` leaves, and
 ``materialize`` makes the tensors.  ``sharding/partition.py`` resolves
-the logical axes against a mesh; the model files do not call its
-``constrain`` yet, which does nothing on one device (``ROADMAP.md``, item
-6.5b).
+the logical axes against the active mesh: under a ``DeviceMesh`` each
+rank stores only its slice of every leaf (``partition.local_slices``),
+``materialize`` keeps only that slice, and :func:`shardings` gives each
+leaf's placements (the reference's ``NamedSharding`` tree).  The model
+files call ``partition.constrain`` where the reference does, and reach
+other ranks through ``sharding/collectives.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import partition
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
@@ -54,16 +58,24 @@ def materialize(specs, generator: torch.Generator, device, dtype_override: Optio
     the tree's sorted key order.  The bits differ from the reference's
     ``jax.random`` draws (``ROADMAP.md``, "Kept divergences"): weights
     that must agree with it come from ``models/convert.py``.
+
+    Under a ``DeviceMesh`` each leaf is drawn whole (every rank draws the
+    same stream), the rank's slice (``partition.local_slices``) is kept
+    and the rest is freed before the next leaf: no rank holds more than
+    one whole leaf at a time.
     """
     device = torch.device(device)
 
     def make(spec: ParamSpec) -> torch.Tensor:
         dt = getattr(torch, dtype_override or spec.dtype)
+        local = partition.local_shape(spec.shape, spec.axes)
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dt, device=device)
+            return torch.zeros(local, dtype=dt, device=device)
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dt, device=device)
+            return torch.ones(local, dtype=dt, device=device)
         x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+        if local != tuple(spec.shape):
+            x = x[partition.local_slices(spec.shape, spec.axes)].clone()
         return (x * spec.std()).to(dt)
 
     def walk(tree):
@@ -72,3 +84,11 @@ def materialize(specs, generator: torch.Generator, device, dtype_override: Optio
         return {k: walk(tree[k]) for k in sorted(tree)}
 
     return walk(specs)
+
+
+def shardings(specs):
+    """The placements of every leaf of a spec tree on the active mesh
+    (``partition.placements``; None leaves without a mesh)."""
+    if isinstance(specs, ParamSpec):
+        return partition.placements(specs.shape, specs.axes)
+    return {k: shardings(specs[k]) for k in sorted(specs)}

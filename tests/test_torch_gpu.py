@@ -1387,6 +1387,53 @@ def test_mesh_ranks_on_the_card_solve_their_own_rows(scenario, ranks, tmp_path):
         assert r["int8"]
 
 
+def test_lm_mesh_nccl_one_rank_is_bit_equal_to_no_mesh(tmp_path):
+    """NCCL with one rank on the card: reduced deepseek under ``router="lp"``
+    on a (1, 1) mesh (the mesh code path, every group of one rank) gives
+    the meshless run's logits and tokens bit for bit, its router LPs on
+    the simplex kernel's cluster variant (one a MoE layer a call)."""
+    _need_card()
+    import torch_lm_mesh_worker as lw
+    import torch_mesh_worker as worker
+
+    (r,) = worker.spawn("torch_lm_mesh_worker:card_nccl", 1, tmp_path)
+    assert "error" not in r, r.get("error")
+    plain, mesh = r["plain"], r["mesh"]
+    assert mesh["device"].startswith("cuda")
+    assert torch.equal(plain["logits"].view(torch.int32), mesh["logits"].view(torch.int32))
+    assert torch.equal(plain["tokens"], mesh["tokens"])
+    n_moe = lw.config("deepseek-v2-lite-16b", "lp").num_layers - 1
+    calls = 1 + lw.FED_STEPS + lw.GEN_STEPS  # the fed run, then generate's
+    launches, variants = mesh["launches"]
+    assert launches == calls * n_moe == variants["cluster"], mesh["launches"]
+    assert plain["lps"] == mesh["lps"]
+
+
+def test_lm_mesh_gloo_ranks_on_the_card_match_one_process(tmp_path):
+    """Two gloo ranks sharing the card, reduced gemma2 on the (1, 2) and (2, 1)
+    meshes: every rank's greedy tokens equal the one-process run's under
+    the abstract mesh of the same shape, and its logits lie within the LM
+    CPU gates of them."""
+    _need_card()
+    import torch_lm_mesh_worker as lw
+    import torch_mesh_worker as worker
+
+    ranks = worker.spawn("torch_lm_mesh_worker:card_gloo", 2, tmp_path)
+    for r in ranks:
+        assert "error" not in r, r.get("error")
+    for shape in ((1, 2), (2, 1)):
+        one = ranks[0][("one",) + shape]
+        blocks = {}
+        for r in ranks:
+            got = r[shape]
+            assert got["device"].startswith("cuda")
+            assert torch.equal(got["tokens"], one["tokens"]), shape
+            blocks[got["rows"]] = got["logits"].numpy()
+        whole = np.concatenate([blocks[k] for k in sorted(blocks)])
+        ok, err, bound, rel = lw.gate(whole, one["logits"].numpy())
+        assert ok, (shape, err, bound, rel)
+
+
 def test_nccl_refuses_more_ranks_than_cards(monkeypatch):
     _need_card()
     from repro_torch.launch import mesh as mesh_lib

@@ -1,0 +1,85 @@
+"""The port's LM serve path over a device mesh: the SSM, hybrid,
+encoder-decoder and M-RoPE families (reduced mamba2-130m, zamba2-7b,
+seamless-m4t-large-v2 and qwen2-vl-72b).
+
+One gloo group of 8 ranks on the CPU runs each family under the meshes
+``(data, model)`` (4, 2), (2, 4), (8, 1) and (1, 8), as
+``tests/test_torch_lm_mesh.py`` runs the dense and MoE families (the
+same worker, inputs and gates): 8 prompts of 32 tokens with the
+encoder's 16 frames, the vision prefix's patch embeddings and M-RoPE
+positions whose coordinates differ; the prefill and two fed decode
+steps against the reference under the same mesh and the one-process
+port under the abstract mesh (for reduced zamba2 and seamless within
+the noise rule of ``tests/test_torch_models.py:_gate``: 4 times the
+meshless reference's own one-ulp noise on the case, where that is the
+larger); ``Engine.generate``'s greedy tokens equal
+on every rank; every parameter and cache leaf (the mamba ``conv`` leaf
+split over channels, its ``state`` over heads, the decoder's cross
+caches over encoder positions) of its placements' shape.
+"""
+
+import os
+
+import pytest
+import torch
+
+import torch_lm_mesh_worker as lw
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WHICH = "families"
+MESHES = ["4x2", "2x4", "8x1", "1x8"]
+CASES = [(m, a, r, lw.BATCH) for m in MESHES for a, r in lw.ARCHS[WHICH]]
+NOISE_KEYS = [f"noise|{a}|{r}|{lw.BATCH}" for a, r in lw.ARCHS[WHICH] if a in lw.NOISY]
+
+
+def _key(case):
+    return lw.case_key(*case)
+
+
+def _ids(cases):
+    return [_key(c).replace("|", "-") for c in cases]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("lm_mesh_families")
+    return lw.run_all(tmp, WHICH, (8,), NOISE_KEYS + [_key(c) for c in CASES], ROOT)
+
+
+def _noise(runs, case):
+    """The case's gate noise: the reference's own, for the ill-conditioned
+    reduced zamba2 and seamless (``lw.NOISY``)."""
+    key = f"noise|{case[1]}|{case[2]}|{case[3]}"
+    return tuple(runs[2][key]) if key in runs[2] else (0.0, 0.0)
+
+
+@pytest.fixture(scope="module")
+def single(runs):
+    return {_key(c): lw.one_process(runs[0], _key(c)) for c in CASES}
+
+
+def test_every_rank_finished(runs):
+    errors = [r["error"] for r in runs[1][8] if "error" in r]
+    assert not errors, errors[0]
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_logits_match_the_reference_under_the_same_mesh(runs, case):
+    ok, err, bound, rel = lw.gate(lw.whole_logits(runs[1][8], case), runs[2][_key(case)],
+                                  _noise(runs, case))
+    assert ok, (err, bound, rel)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_logits_and_tokens_match_the_one_process_port(runs, single, case):
+    one = single[_key(case)]
+    ok, err, bound, rel = lw.gate(lw.whole_logits(runs[1][8], case), one["logits"].numpy(),
+                                  _noise(runs, case))
+    assert ok, (err, bound, rel)
+    for r, rank in enumerate(runs[1][8]):
+        assert torch.equal(rank[_key(case)]["tokens"], one["tokens"]), r
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_each_rank_stores_its_placements_slice(runs, case):
+    lw.check_local_shapes(runs[1][8], case, enc_len=16)

@@ -793,7 +793,7 @@ def test_cross_attention_matches_reference(senc):
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-72b"])
 def test_encoder_attention_matches_reference(arch):
     """Bidirectional, rope on q and k; under qwen2-vl's config the M-RoPE
-    branch of ``_project_qkv`` on 3-D positions, with its biases."""
+    branch of ``_proj`` on 3-D positions, with its biases."""
     cfg = configs.get_config(arch, reduced=True)
     rcfg = rconfigs.get_config(arch, reduced=True)
     rng = np.random.default_rng(7)
@@ -812,13 +812,19 @@ def test_encoder_attention_matches_reference(arch):
 
 def test_rope_takes_the_first_coordinate_of_3d_positions_without_mrope():
     """The reference's ``_project_qkv`` rotates by ``positions[..., 0]``
-    when positions are 3-D and the config has no M-RoPE sections."""
+    when positions are 3-D and the config has no M-RoPE sections (the
+    port's ``_proj``, for q and k with their biases)."""
     cfg = configs.get_config("qwen1.5-4b", reduced=True)
     rng = np.random.default_rng(8)
     p = {k: torch.as_tensor(_rand(rng, *spec.shape, scale=0.2))
          for k, spec in attention.gqa_specs(cfg).items()}
     x = torch.as_tensor(_rand(rng, 2, 6, cfg.d_model))
     pos3 = torch.as_tensor(configs.mrope_positions(2, 6, 4, seed=1))
-    q3, k3, _ = attention._project_qkv(x, p, cfg, pos3)
-    q2, k2, _ = attention._project_qkv(x, p, cfg, pos3[..., 0])
+
+    def qk(positions):
+        return [attention._proj(x, p[w], p.get(b), cfg, positions, True)
+                for w, b in (("wq", "bq"), ("wk", "bk"))]
+
+    q3, k3 = qk(pos3)
+    q2, k2 = qk(pos3[..., 0])
     assert torch.equal(q3, q2) and torch.equal(k3, k2)

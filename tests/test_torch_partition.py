@@ -109,3 +109,40 @@ def test_production_mesh_needs_its_ranks():
         mesh_lib.make_production_mesh()
     with pytest.raises(ValueError, match="needs 512 ranks"):
         mesh_lib.make_production_mesh(multi_pod=True)
+
+
+@pytest.mark.parametrize("mesh_name", ["8", "2x4", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_local_shape_is_the_reference_shard_shape(arch, mesh_name):
+    """Every parameter's slice on a rank (``local_slices`` at any
+    coordinates) has the shape of the reference's ``NamedSharding`` shard
+    of the same spec."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    sizes, names = MESHES[mesh_name]
+    ref_mesh = AbstractMesh(sizes, names)
+    last = {ax: n - 1 for ax, n in zip(names, sizes)}
+    specs = Model(tget_config(arch), device="meta").abstract_params().values()
+    with tpart.activate(dict(zip(names, sizes))):
+        for spec in specs:
+            want = NamedSharding(ref_mesh, PartitionSpec(*_ref_spec(ref_mesh, spec.shape,
+                                                                    spec.axes)))
+            want = tuple(want.shard_shape(spec.shape))
+            for coords in ({ax: 0 for ax in names}, last):
+                got = tuple(sl.stop - sl.start for sl in
+                            tpart.local_slices(spec.shape, spec.axes, coords))
+                assert got == want, (arch, spec)
+
+
+def test_local_slices_cut_row_major_over_the_axes():
+    """A dimension split over (pod, data) is cut into pod x data blocks, the
+    rank taking block ``pod_index * data + data_index``; without a
+    ``DeviceMesh`` and without coordinates every range is whole."""
+    with tpart.activate({"pod": 2, "data": 4, "model": 2}):
+        sl = tpart.local_slices((16, 6), ("batch", "embed_tp"), {"pod": 1, "data": 2, "model": 1})
+        assert sl == (slice(12, 14), slice(3, 6))
+        assert tpart.local_slices((16, 6), ("batch", "embed_tp")) == (slice(0, 16), slice(0, 6))
+        assert tpart.local_shape((16, 6), ("batch", "embed_tp")) == (16, 6)
+        assert tpart.batch_rows(16) == slice(0, 16)
+        assert tpart.split_axes(16, "batch") == ()  # an abstract mesh holds everything
+    assert tpart.coordinates() == {}

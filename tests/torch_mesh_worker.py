@@ -50,7 +50,13 @@ def _rank_main(rank: int, world: int, store: str, tmp: str, scenario: str) -> No
     mesh_lib.init_distributed(backend, device=device, timeout_s=120.0, rank=rank,
                               world_size=world, store=dist.FileStore(store, world))
     try:
-        out = SCENARIOS[scenario](rank, world, tmp)
+        if ":" in scenario:  # "module:function" of another worker file
+            import importlib
+
+            mod, _, fn = scenario.partition(":")
+            out = getattr(importlib.import_module(mod), fn)(rank, world, tmp)
+        else:
+            out = SCENARIOS[scenario](rank, world, tmp)
     except Exception:  # the test reads the traceback
         out = {"error": traceback.format_exc()}
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
@@ -317,6 +323,8 @@ def _card(rank, world, tmp):
 
 
 #: Scenarios on the card: the backend and device of their process group.
-CARD_BACKENDS = {"card_gloo": ("gloo", None), "card_nccl": ("nccl", None)}
+CARD_BACKENDS = {"card_gloo": ("gloo", None), "card_nccl": ("nccl", None),
+                 "torch_lm_mesh_worker:card_gloo": ("gloo", None),
+                 "torch_lm_mesh_worker:card_nccl": ("nccl", None)}
 
 SCENARIOS = {"solve": _solve_all, "int8": _int8, "card_gloo": _card, "card_nccl": _card}

@@ -16,6 +16,9 @@
         --out tests/data/lm_train_gemma2_2b_reference.npz
     PYTHONPATH=src python3 tools/lm_reference_fixture.py --eval --arch deepseek-v2-lite-16b \
         --layers 3 --router lp --out tests/data/lm_eval_deepseek_v2_lite_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch deepseek-v2-lite-16b \
+        --layers 3 --router lp --mesh 2,2 --prompts 4 \
+        --out tests/data/lm_deepseek_v2_lite_mesh_reference.npz
 
 Runs ``repro.models.Model`` (JAX on the CPU: ``JAX_PLATFORMS`` defaults
 to ``cpu`` here, so that no float32 product is rounded to TF32) on
@@ -69,6 +72,18 @@ jitted run by :func:`capture_router_lps`.
 ``chip_smoke.py``'s ``lm_reference`` and ``lm_serve`` phases hold the
 port against it on the card; ``tests/test_torch_lm_serve.py`` builds the
 same fixture for the reduced config in memory.
+
+``--mesh DATA,MODEL`` runs every reference run of the fixture under
+``partition.activate`` of a ``("data", "model")`` mesh of that shape over
+forced host devices (``XLA_FLAGS``' device count is set before JAX
+loads), its axes ``Auto`` (the reference's sharded code needs them): its
+MoE layers then cut the batch into ``data`` token groups, a different
+function from one group.  ``--prompts`` sets the batch (the groups must
+drop tokens for the fixture to tell the two apart).  The router LPs are
+captured by unordered callbacks there (JAX refuses ordered effects on
+more than one device); each jitted call is waited for before the next,
+and within a call each MoE layer's LP depends on the layer before it,
+so they arrive in call and layer order.
 
 ``--train`` writes the training fixture instead
 (:func:`build_train_fixture`): gemma2-2b at full width cut to 2 layers
@@ -214,12 +229,13 @@ class RouterLPs:
 
 
 @contextlib.contextmanager
-def capture_router_lps():
+def capture_router_lps(ordered: bool = True):
     """Record every LP the reference's MoE router solves: the reference's
     ``core.simplex.solve_batched``, as ``models/moe.py`` reaches it, is
     wrapped (in this tool's view only) so that each solve hands its
-    inputs and solution to the host through an ordered
-    ``jax.debug.callback``, inside jit and scan too."""
+    inputs and solution to the host through a ``jax.debug.callback``,
+    inside jit and scan too (``ordered=False`` under a mesh: see the
+    module's docstring)."""
     import jax
 
     from repro.core import simplex
@@ -230,7 +246,7 @@ def capture_router_lps():
     def spy(a, b, c, *args, **kw):
         sol = orig(a, b, c, *args, **kw)
         jax.debug.callback(rec.record, a, b, c, sol.status, sol.iterations, sol.basis, sol.x,
-                           ordered=True)
+                           ordered=ordered)
         return sol
 
     simplex.solve_batched = spy
@@ -262,10 +278,11 @@ def prompt_inputs(cfg, prompts: int, prompt_len: int, seed: int, positions=None)
 def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int = SEED,
                   prompts: int = PROMPTS, prompt_len: int = PROMPT_LEN, steps: int = STEPS,
                   subset: int = SUBSET, layers: int = 0, router: str = "",
-                  positions=None) -> dict:
+                  positions=None, mesh=None) -> dict:
     """The fixture's arrays for ``arch`` (reduced or full width), cut to
     ``layers`` layers if given (the encoder too), with the MoE ``router``
-    if given, and M-RoPE ``positions`` (B, prompt_len, 3) if given."""
+    if given, and M-RoPE ``positions`` (B, prompt_len, 3) if given; every
+    run under ``partition.activate(mesh)`` if a JAX ``mesh`` is given."""
     import jax
     import jax.numpy as jnp
 
@@ -292,7 +309,9 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
     params = {}
     for key in list(tree):  # one leaf at a time: the NumPy copy goes as the JAX one comes
         params[key] = jax.tree_util.tree_map(jnp.asarray, tree.pop(key))
-    with capture_router_lps() as lps:
+    from repro.sharding import partition
+
+    with capture_router_lps(ordered=mesh is None) as lps, partition.activate(mesh):
         t0 = time.perf_counter()
         model32 = Model(dataclasses.replace(cfg, dtype="float32"))
         lps.active = True
@@ -334,6 +353,7 @@ def build_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int =
         layers=np.int64(cfg.num_layers), router=np.array(cfg.router),
         input_dtype=np.array(cfg.dtype), extras_keys=np.array(sorted(floats), dtype=str),
         extras_digest=weights_digest(floats) if floats else np.zeros(0),
+        mesh=np.asarray([] if mesh is None else list(mesh.shape.values()), np.int64),
     )
     if "positions" in extras:
         out["positions"] = extras["positions"]
@@ -531,7 +551,7 @@ def build_eval_fixture(arch: str = "deepseek-v2-lite-16b", *, reduced: bool = Fa
 
 
 #: Arrays every router's run shares in a fixture of several routers.
-SHARED = ("arch", "seed", "prompt_len", "steps", "vocab_ids", "weights_digest", "layers",
+SHARED = ("arch", "seed", "prompt_len", "steps", "vocab_ids", "weights_digest", "layers", "mesh",
           "input_dtype", "extras_keys", "extras_digest")
 
 
@@ -563,6 +583,9 @@ def main(argv=None) -> int:
                     help="write the training fixture (build_train_fixture) instead")
     ap.add_argument("--eval", action="store_true",
                     help="write the eval-step fixture (build_eval_fixture) instead")
+    ap.add_argument("--prompts", type=int, default=PROMPTS, help="prompts of the batch")
+    ap.add_argument("--mesh", default="",
+                    help="DATA,MODEL: run the reference under a mesh of that shape")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.out is None:
@@ -572,9 +595,18 @@ def main(argv=None) -> int:
         args.out = str(ROOT / "tests" / "data" / name)
     sys.path.insert(0, str(ROOT / "src"))
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    shape = tuple(int(v) for v in args.mesh.split(",")) if args.mesh else ()
+    if shape:
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                   f" --xla_force_host_platform_device_count={shape[0] * shape[1]}")
     import jax
 
     jax.config.update("jax_enable_x64", True)  # as the tests run the reference
+    mesh = None
+    if shape:
+        from jax.sharding import AxisType
+
+        mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
     t0 = time.perf_counter()
     if args.train or args.eval:
         if args.train:
@@ -590,9 +622,10 @@ def main(argv=None) -> int:
     routers = [r for r in args.router.split(",") if r]
     if routers:
         fx = build_router_fixtures(args.arch, routers, layers=args.layers,
-                                   prompt_len=args.prompt_len)
+                                   prompt_len=args.prompt_len, prompts=args.prompts, mesh=mesh)
     else:
-        fx = build_fixture(args.arch, layers=args.layers, prompt_len=args.prompt_len)
+        fx = build_fixture(args.arch, layers=args.layers, prompt_len=args.prompt_len,
+                           prompts=args.prompts, mesh=mesh)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(args.out, **fx)
     print(f"wrote {args.out} in {time.perf_counter() - t0:.1f} s")
