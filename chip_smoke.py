@@ -275,11 +275,35 @@ line is printed:
    under an Auto-typed (2, 2) mesh), on the ranks and in one process,
    within ``lm_tolerances``' gates, its router LPs against the
    fixture's.  These rows are "4 ranks sharing one card" too.  The
-   deepseek reference weights of slices 10, 12 and 14 are one tree (the
-   same depth and seed): a helper process started before slice 9 draws
-   it once and saves it, slice 9 waits for it before its timed rows
-   (``wait_shared_tree``), and each phase memory-maps it
-   (``start_shared_tree``, ``reference_tree``).
+   deepseek reference weights of slices 10, 12, 14 and 15 are one tree
+   (the same depth and seed): a helper process started before slice 9
+   draws it once, then slice 15's gemma2-2b tree, and saves them, slice
+   9 waits for it before its timed rows (``wait_shared_tree``), and each
+   phase memory-maps them (``start_shared_tree``, ``reference_tree``).
+
+   Slice 15, training over a device mesh, after slice 14
+   (``lm_train_mesh_phase``; ``lm_train_mesh``,
+   ``lm_train_mesh_checkpoint``, ``lm_train_mesh_eval_lp`` lines).  (a)
+   NCCL with one rank, a (1, 1) mesh: gemma2-2b at full width and depth
+   in bfloat16 with float32 master weights, 2 steps of 4 x 4,096 tokens
+   (``accum=2``) without a mesh and then on the mesh, one model on the
+   card at a time, deterministic algorithms on: the parameters and the
+   optimizer state the same bits after each step (device digests); step
+   ms and peak.  (b) 4 gloo ranks sharing the card on (2, 2), float32
+   (``lm_train_mesh_rank_main``): gemma2-2b cut to 4 layers on the mesh
+   training fixture ``tests/data/lm_train_gemma2_2b_mesh_reference.npz``
+   (the reference's sharded step, 3 steps of 4 x 128, ``accum=2``), held
+   to the fixture's gates and to this process's run under the abstract
+   mesh; mamba2-130m cut to 1 layer, preempted at step 3 and resumed
+   bit-equal, its step-2 checkpoint restored bit-equal onto (4, 1) and
+   onto one process;
+   deepseek's eval step under ``lp`` (3 layers): every rank's router LPs
+   on its simplex kernel, the same bits on all ranks, each replayed
+   bit-identical on ``simplex_plain``.  Each rank's step ms, peak and
+   stored bytes beside the placements' share.  deepseek's training on the
+   ranks (3 layers, ``topk``, the fixture's steps, held step by step to a
+   float64 witness, ``lm_train_mesh_moe_case``) is the ``gpu`` test
+   tier's: at ≈ 40 s a step it does not fit the script's time.
 
 The launch counts of each path are also read per variant: every simplex
 and PDHG launch of the main paths must take the cluster variant, every
@@ -290,8 +314,9 @@ of slice 7.
 Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
 entries list their variants with their case names; the simplex entry's
 ``lm_router`` holds the router's case; ``launches`` counts slice 13's
-and slice 14's ranks too, ``mesh_path_launches`` gives slice 13's per
-rank and the simplex entry's ``lm_mesh_router`` slice 14's), the ``nvidia-smi``
+and slices 14 and 15's ranks too, ``mesh_path_launches`` gives slice 13's per
+rank and the simplex entry's ``lm_mesh_router`` and ``lm_train_mesh_router``
+slices 14 and 15's), the ``nvidia-smi``
 name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  The
 script imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -4446,35 +4471,41 @@ def lm_mesh_load_tree(path) -> dict:
     return tree
 
 
-#: The deepseek-v2-lite-16b reference weights of the slice-10, slice-12
-#: and slice-14 fixtures (the same arch, depth and seed: one tree), drawn
-#: once by a helper process that ``start_shared_tree`` starts before
-#: slice 9, saved one ``.npy`` a leaf, and memory-mapped by each phase.
+#: The reference weights that several phases share, drawn once by a helper
+#: process that ``start_shared_tree`` starts before slice 9, saved one
+#: ``.npy`` a leaf, and memory-mapped by each phase: the deepseek-v2-lite-16b
+#: tree of the slice-10, slice-12, slice-14 and slice-15 fixtures (the same
+#: arch, depth and seed), then the gemma2-2b tree of slice 15's mesh
+#: training fixture (drawn while slice 9 draws its own gemma2 tree).
 SHARED_TREE: dict = {}
 
 
-def lm_tree_writer(arch: str, layers: int, seed: int, out_dir: str) -> None:
-    """The helper process: draw ``reference_weights`` and save the tree."""
+def lm_tree_writer(keys, out_dir: str) -> None:
+    """The helper process: draw ``reference_weights`` of each ``(arch,
+    layers, seed)`` in turn and save its tree, then mark it done."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs as rt_configs
     from repro_torch.models.convert import reference_weights
 
-    cut = dataclasses.replace(rt_configs.get_config(arch), num_layers=layers)
-    lm_mesh_save_tree(reference_weights(cut, seed), os.path.join(out_dir, "tree"))
-    open(os.path.join(out_dir, "done"), "w").close()
+    for arch, layers, seed in keys:
+        cut = dataclasses.replace(rt_configs.get_config(arch), num_layers=layers)
+        sub = os.path.join(out_dir, f"{arch}-{layers}-{seed}")
+        lm_mesh_save_tree(reference_weights(cut, seed), os.path.join(sub, "tree"))
+        open(os.path.join(sub, "done"), "w").close()
 
 
 def start_shared_tree(root: str) -> None:
-    """Start drawing the fixtures' deepseek tree in a helper process, into
-    a directory under ``root``."""
-    fixture = np.load(LM_MOE_FIXTURE)
-    key = (LM_MOE_ARCH, int(fixture["layers"]), int(fixture["seed"]))
+    """Start drawing the shared trees in a helper process, into a directory
+    under ``root``."""
+    moe, train = np.load(LM_MOE_FIXTURE), np.load(LM_TRAIN_MESH_FIXTURE)
+    keys = [(LM_MOE_ARCH, int(moe["layers"]), int(moe["seed"])),
+            (str(train["arch"]), int(train["layers"]), int(train["seed"]))]
     out_dir = os.path.join(root, "shared_tree")
     os.makedirs(out_dir)
     proc = multiprocessing.get_context("spawn").Process(target=lm_tree_writer,
-                                                        args=(*key, out_dir))
+                                                        args=(keys, out_dir))
     proc.start()
-    SHARED_TREE.update(key=key, dir=out_dir, proc=proc)
+    SHARED_TREE.update(keys=keys, dir=out_dir, proc=proc)
 
 
 def wait_shared_tree() -> float:
@@ -4491,13 +4522,14 @@ def shared_tree_dir(cfg, seed: int):
     """The saved tree of ``reference_weights(cfg, seed)`` if the helper
     process draws that one (waiting for it), else None."""
     key = (cfg.name, cfg.num_layers, seed)
-    if SHARED_TREE.get("key") != key:
+    if key not in SHARED_TREE.get("keys", ()):
         return None
     proc = SHARED_TREE["proc"]
     proc.join()
-    check(os.path.exists(os.path.join(SHARED_TREE["dir"], "done")),
+    sub = os.path.join(SHARED_TREE["dir"], "-".join(str(k) for k in key))
+    check(os.path.exists(os.path.join(sub, "done")),
           f"the shared weight tree's process failed (exit code {proc.exitcode})")
-    return os.path.join(SHARED_TREE["dir"], "tree")
+    return os.path.join(sub, "tree")
 
 
 def reference_tree(cfg, seed: int):
@@ -4823,6 +4855,1006 @@ def lm_mesh_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
     per_rank = lm_mesh_gloo_case(rt_configs, dev, seed=seed)
     emit("main_path_summary", path="slice14_lm_mesh", launches_nccl_1rank=nccl,
          launches_per_rank=per_rank, wall_s=time.perf_counter() - t0)
+    return dict(nccl=nccl, per_rank=per_rank)
+
+
+# ---------------------------------------------------------------------------
+# Slice 15: training on a device mesh
+# ---------------------------------------------------------------------------
+
+#: (a) NCCL with one rank on the card, a (1, 1) mesh: gemma2-2b at full
+#: width and depth in bfloat16 with float32 master weights, remat,
+#: ``LM_TRAIN_MICRO`` rows of ``LM_TRAIN_SEQ`` tokens a microbatch and
+#: ``LM_TRAIN_ACCUM`` microbatches, ``LM_TRAIN_MESH_NCCL_STEPS`` steps,
+#: first without a mesh, then on the mesh (one model on the card at a
+#: time); after each step the parameters and the optimizer state must be
+#: the same bits (held by digest).  Deterministic algorithms on.
+LM_TRAIN_MESH_NCCL_BACKEND = "nccl"
+LM_TRAIN_MESH_NCCL_STEPS = 2
+#: (b) gloo ranks sharing the card on a (data, model) = (2, 2) mesh, in
+#: float32: gemma2-2b at the mesh fixture's depth, width, batch and steps
+#: (``tools/lm_reference_fixture.py --train --layers 4 --mesh 2,2``: the
+#: reference's sharded train step, 3 steps of 4 x 128 tokens, accum 2),
+#: held against the fixture and against this process's run under the
+#: abstract (2, 2) mesh; mamba2-130m cut to 1 layer (its checkpoint is
+#: mostly the embedding), checkpointed every 2 steps, preempted at step 3
+#: and resumed, its step-2 checkpoint restored onto (4, 1) and onto one
+#: process; and deepseek's eval step under ``lp`` on the eval fixture's
+#: 3 layers and batch.
+LM_TRAIN_MESH_RANKS, LM_TRAIN_MESH_SHAPE = 4, (2, 2)
+LM_TRAIN_MESH_FIXTURE = ROOT / "tests" / "data" / "lm_train_gemma2_2b_mesh_reference.npz"
+LM_TRAIN_MESH_SSM, LM_TRAIN_MESH_SSM_LAYERS = "mamba2-130m", 1
+LM_TRAIN_MESH_SSM_STEPS, LM_TRAIN_MESH_CKPT_EVERY, LM_TRAIN_MESH_PREEMPT_AT = 4, 2, 3
+LM_TRAIN_MESH_SSM_BATCH, LM_TRAIN_MESH_SSM_SEQ = 4, 128
+#: The MoE training case (``lm_train_mesh_moe_case``), which the ``gpu``
+#: test tier runs and the script does not (each MoE layer's float32
+#: experts cross the host through gloo at every pass: ≈ 40 s a step on the
+#: ranks on an H100 80GB HBM3): deepseek-v2-lite-16b (``topk``) at the eval
+#: fixture's 3 layers on the mesh fixture's steps, held step by step
+#: against a float64 witness, the one-process run under the same abstract
+#: mesh in float64 (its optimizer in float32, as every run's): the ranks'
+#: distance to it within ``LM_F64_FACTOR`` times the largest of the
+#: float32 one-process runs' (plain and one-ulp nudged by each seed of
+#: ``LM_TRAIN_MESH_NUDGES``), or the floor.  A sign of Adam's first steps
+#: (``lr * sign(g)``) flips where a routing choice flips, so the
+#: one-process gate of ``lm_train_mesh_gates`` (the ranks within
+#: ``LM_NOISE_FACTOR`` times the nudges' largest change) is reported, with
+#: the routing flips of each run against the one-process run.  Elements
+#: sampled from each leaf of its change (the fixture samples gemma2's).
+LM_TRAIN_MESH_SAMPLE = 4096
+LM_TRAIN_MESH_NUDGES = (1, 2, 3, 4)
+LM_TRAIN_MESH_FLIP_SHARE = 1e-3
+LM_TRAIN_MESH_TIMEOUT_S = 600
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def device_digest(tensors) -> str:
+    """A digest of the bits of ``tensors`` (in order), computed on their
+    device: each chunk of 2^24 elements viewed as integers, weighted by a
+    position hash and summed in int64 (wrapping), and the sums hashed."""
+    import hashlib
+
+    h = hashlib.sha256()
+    chunk = 1 << 24
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for t in tensors:
+        flat = t.detach().reshape(-1).view(ints[t.element_size()])
+        weights = None
+        for lo in range(0, flat.numel(), chunk):
+            part = flat[lo:lo + chunk].to(torch.int64)
+            if weights is None or weights.numel() != part.numel():
+                weights = torch.arange(part.numel(), device=part.device, dtype=torch.int64)
+                weights = weights * 2654435761 + 97
+            h.update(int((part * weights).sum()).to_bytes(8, "little", signed=True))
+        h.update(str(tuple(t.shape)).encode())
+    return h.hexdigest()
+
+
+def state_digest(model, state) -> str:
+    """:func:`device_digest` of the model's parameters and the optimizer's
+    ``m``, ``v`` and master (this rank's slices)."""
+    tensors = [p for p in model.parameters()]
+    for field in (state.m, state.v, state.master):
+        tensors += list(field.values()) if field is not None else []
+    return device_digest(tensors)
+
+
+def lm_train_mesh_nccl_case(rt_configs, dev, *, seed, train_row, tmp_root) -> dict:
+    """Part (a): gemma2-2b's steps without a mesh and on a one-rank NCCL
+    (1, 1) mesh, bit-identical after every step; each run's step ms and
+    peak beside slice 12's ``lm_train`` row."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = rt_configs.get_config("gemma2-2b")
+    batch = LM_TRAIN_MICRO * LM_TRAIN_ACCUM
+    data = SyntheticLM(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ, batch, seed=seed))
+
+    def run():
+        model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+        ocfg = opt.OptConfig()
+        state = opt.init(dict(model.named_parameters()), ocfg)
+        step = make_train_step(model, ocfg, accum=LM_TRAIN_ACCUM, remat=True)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out = dict(digests=[], loss=[], grad_norm=[], step_ms=[])
+        for s in range(LM_TRAIN_MESH_NCCL_STEPS):
+            b = to_device(data.batch(s), dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            sync(dev)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["digests"].append(state_digest(model, state))
+        out["peak"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        del model, state, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = run()
+        with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+            mesh_lib.init_distributed(LM_TRAIN_MESH_NCCL_BACKEND, device=dev, timeout_s=300.0,
+                                      rank=0, world_size=1,
+                                      store=dist.FileStore(os.path.join(tmp, "store"), 1))
+            try:
+                with partition.activate(mesh_lib.make_local_mesh(device=dev)):
+                    meshed = run()
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = [a == b for a, b in zip(plain["digests"], meshed["digests"])]
+    row = dict(part="nccl_1rank", mesh=[1, 1], backend=LM_TRAIN_MESH_NCCL_BACKEND,
+               arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, master_weights=True,
+               micro_batch=LM_TRAIN_MICRO, accum=LM_TRAIN_ACCUM, seq=LM_TRAIN_SEQ,
+               steps=LM_TRAIN_MESH_NCCL_STEPS, deterministic_algorithms=True,
+               step_ms=meshed["step_ms"], peak_memory_bytes=meshed["peak"],
+               unsplit_step_ms=plain["step_ms"], unsplit_peak_memory_bytes=plain["peak"],
+               loss=meshed["loss"], grad_norm=meshed["grad_norm"],
+               state_bit_identical_after_each_step=same,
+               slice12_lm_train=None if train_row is None else dict(
+                   step_ms_median=train_row["step_ms_median"],
+                   peak_memory_bytes=train_row["peak_memory_bytes"],
+                   note=f"{LM_TRAIN_TIMED} timed steps after a warm-up, no mesh, "
+                        "deterministic algorithms off"),
+               nvidia_smi=smi_line())
+    emit("lm_train_mesh", **row)
+    check(all(same) and len(same) == LM_TRAIN_MESH_NCCL_STEPS,
+          f"lm_train_mesh: the NCCL (1, 1) steps differ from the meshless steps: {same}")
+    check(all(np.isfinite(meshed["loss"])), f"lm_train_mesh: non-finite loss {meshed['loss']}")
+    return row
+
+
+def lm_nudge(model, seed: int) -> None:
+    """Every parameter one ulp up or down (a seeded coin an element)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            up = torch.rand(p.shape, generator=gen, device=p.device) < 0.5
+            inf = torch.tensor(float("inf"), dtype=p.dtype, device=p.device)
+            p.copy_(torch.nextafter(p, torch.where(up, inf, -inf)))
+
+
+def lm_leaf_samples(tree, seed: int, size: int) -> dict:
+    """Sampled flat indices of every leaf of a reference-layout tree, in the
+    training fixtures' layout (``leaf_paths``, ``sample_sizes``,
+    ``sample_idx``; all of a leaf of at most ``size`` elements)."""
+    from repro_torch.sharding import leaves
+
+    rng = np.random.default_rng(seed)
+    paths, sizes, idx = [], [], []
+    for path, arr in leaves(tree):
+        n = int(np.prod(arr.shape))
+        pick = np.arange(n) if n <= size else np.sort(rng.choice(n, size, replace=False))
+        paths.append("/".join(path))
+        sizes.append(pick.size)
+        idx.append(pick.astype(np.int64))
+    return dict(leaf_paths=np.asarray(paths), sample_sizes=np.asarray(sizes),
+                sample_idx=np.concatenate(idx))
+
+
+def lm_samples_of(model, samples) -> np.ndarray:
+    """The model's parameters at ``samples`` (a training fixture's layout).
+    Under a ``DeviceMesh`` each rank reads the samples its slices hold
+    (-inf elsewhere), and an all-reduce max over the mesh puts them
+    together on every rank (ranks that hold one slice hold its same
+    bits): a vector of samples crosses the mesh, not the model."""
+    from repro_torch.models.convert import reference_leaf_of
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding import partition
+
+    if not partition.distributed():
+        return lm_model_samples(model, samples)
+    names = {}
+    for name, leaf in reference_leaf_of(model).items():
+        names.setdefault(leaf, []).append(name)
+    params = dict(model.named_parameters())
+    out = []
+    for path, idx in lm_sample_slices(samples):
+        members = names[path]
+        spec = params[members[0]].spec
+        layer, rest = np.divmod(idx, math.prod(spec.shape))
+        multi = np.unravel_index(rest, spec.shape)
+        ranges = partition.local_slices(spec.shape, spec.axes)
+        inside = np.logical_and.reduce([(m >= r.start) & (m < r.stop)
+                                        for m, r in zip(multi, ranges)])
+        vals = torch.full((idx.size,), -math.inf, dtype=torch.float64, device=model.device)
+        for i, name in enumerate(members):
+            sel = np.flatnonzero(inside & (layer == i))
+            if sel.size:
+                local = tuple(torch.as_tensor(m[sel] - r.start, device=model.device)
+                              for m, r in zip(multi, ranges))
+                vals[torch.as_tensor(sel, device=model.device)] = (
+                    params[name].detach()[local].double())
+        out.append(vals)
+    axes = tuple(partition.mesh_shape(partition.active_mesh()))
+    return coll.all_reduce(torch.cat(out), axes, "max").cpu().numpy()
+
+
+class RouteSpy:
+    """Records each ``moe.route`` call's expert choices, its router logits
+    (float32; host arrays) and the first token of the rows it routed (0
+    where it routed the whole batch): forward and remat's recompute alike,
+    in call order.  With ``forced`` (one (T, k) array of experts a call,
+    for every token of the batch) each call takes those experts instead of
+    its own top k, weighted by the softmax of its own logits at them:
+    another run's routing replayed (``router="topk"``, whose logits are
+    ``route``'s first line)."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        from repro_torch.sharding import collectives as coll
+
+        self.moe, self.real, self.calls = moe, moe.route, []
+
+        def spy(xf, p, cfg, split=None):
+            start = 0 if split is None else split[1]
+            if self.forced is None:
+                weights, experts = self.real(xf, p, cfg, split)
+                with torch.no_grad():
+                    logits = xf.float() @ coll.weight(p["router"])
+            else:
+                check(cfg.router == "topk", "RouteSpy replays top-k routing only")
+                logits = xf.float() @ coll.weight(p["router"])
+                chosen = self.forced[len(self.calls)][start:start + xf.shape[0]]
+                experts = torch.as_tensor(chosen, device=xf.device)
+                weights = torch.softmax(torch.gather(logits, 1, experts), dim=-1).to(xf.dtype)
+            self.calls.append((experts.detach().cpu().numpy(), start,
+                               logits.detach().cpu().numpy()))
+            return weights, experts
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def lm_train_mesh_run(case, dev, *, nudge=None, forced=None) -> dict:
+    """The case's train steps on ``dev`` under the active mesh (a
+    ``DeviceMesh``: this rank's slices; an abstract one: every slice):
+    each step's loss, ``grad_norm``, ``lr`` and ms, the parameters at the
+    case's samples after each step (``afters``; gathered), the peak, the
+    bytes stored (parameters and optimizer state) and the placements'
+    share of them; with ``case["routes"]`` each step's ``moe.route`` calls
+    (``RouteSpy``; ``forced``: a step's routing to replay, by step)."""
+    import contextlib
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = case["cfg"]
+    model = load_reference_params(Model(cfg, device=dev), lm_mesh_load_tree(case["tree"]))
+    out = {}
+    if nudge is not None:
+        lm_nudge(model, nudge)
+        out["start"] = lm_samples_of(model, case["samples"])
+    ocfg = opt.OptConfig(lr=case["lr"], warmup_steps=case["warmup"])
+    state = opt.init(dict(model.named_parameters()), ocfg)
+    step = make_train_step(model, ocfg, accum=case["accum"], remat=True)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, case["seq"], case["batch"], seed=case["seed"]))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out.update(loss=[], grad_norm=[], lr=[], step_ms=[], afters=[], routes=[])
+    for s in range(case["steps"]):
+        b = to_device(data.batch(s), dev)
+        spy = RouteSpy(forced[s] if forced else None) if case.get("routes") else None
+        with spy or contextlib.nullcontext():
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            sync(dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("loss", "grad_norm", "lr"):
+            out[k].append(float(m[k]))
+        out["routes"].append(spy.calls if spy is not None else None)
+        out["afters"].append(lm_samples_of(model, case["samples"]))
+    out["after"] = out["afters"][-1]
+    out["peak"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    stored = sum(t.numel() * t.element_size() for t in model.parameters())
+    stored += sum(t.numel() * t.element_size() for f in (state.m, state.v, state.master)
+                  for t in f.values())
+    share = 0
+    for spec in model.abstract_params().values():
+        n = math.prod(partition.local_shape(spec.shape, spec.axes))
+        share += n * (torch.empty((), dtype=getattr(torch, spec.dtype)).element_size() + 12)
+    out.update(stored_bytes=stored, spec_bytes=share)
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_mesh_ssm(cfg, dev, *, seed, ckpt_root, mesh41) -> dict:
+    """mamba2 on this rank's mesh through ``TrainDriver``: uninterrupted,
+    then checkpointed every ``LM_TRAIN_MESH_CKPT_EVERY`` steps, preempted
+    at ``LM_TRAIN_MESH_PREEMPT_AT`` and resumed by a new model and driver
+    (the digest of this rank's slices after each run); then the step-2
+    checkpoint restored onto ``mesh41`` (the digest of the gathered
+    restored state against the checkpoint's arrays')."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import Model
+    from repro_torch.runtime.fault import DriverConfig, Preemption, TrainDriver
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    data = SyntheticLM(DataConfig(cfg.vocab_size, LM_TRAIN_MESH_SSM_SEQ, LM_TRAIN_MESH_SSM_BATCH,
+                                  seed=seed))
+
+    def setup(ckpt_dir):
+        model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+        ocfg = opt.OptConfig(lr=1e-3, warmup_steps=2)
+        state = opt.init(dict(model.named_parameters()), ocfg)
+        driver = TrainDriver(DriverConfig(ckpt_dir, ckpt_every=LM_TRAIN_MESH_CKPT_EVERY,
+                                          log_every=1), model,
+                             make_train_step(model, ocfg, remat=True), data.batch,
+                             put_fn=lambda b: to_device(b, dev))
+        return model, state, driver
+
+    out = {}
+    model, state, driver = setup(None)
+    state, hist = driver.run(state, LM_TRAIN_MESH_SSM_STEPS)
+    out["uninterrupted"] = state_digest(model, state)  # this rank's slices
+    out["loss"] = [m["loss"] for _, m in hist]
+    ckpt_dir = os.path.join(ckpt_root, "ssm")
+    _, state, driver = setup(ckpt_dir)
+    try:
+        driver.run(state, LM_TRAIN_MESH_SSM_STEPS, preempt_at=LM_TRAIN_MESH_PREEMPT_AT)
+        out["preempted"] = False
+    except Preemption:
+        out["preempted"] = True
+    out["resumed_from"] = ckpt.latest_step(ckpt_dir)
+    model, state, driver = setup(ckpt_dir)
+    with torch.no_grad():  # the restore must overwrite these
+        for p in model.parameters():
+            p.zero_()
+    state, hist = driver.run(state, LM_TRAIN_MESH_SSM_STEPS)
+    out["resumed_steps"] = [s for s, _ in hist]
+    out["resumed"] = state_digest(model, state)
+    step2 = LM_TRAIN_MESH_CKPT_EVERY
+    out["checkpoint"] = npz_digest(os.path.join(ckpt_dir, f"step_{step2:08d}"))
+    with partition.activate(mesh41):
+        model, state, driver = setup(ckpt_dir)
+        _, state = driver.resume_or_init(state, step2)
+        out["restored_41"] = tree_digest(driver.state(state))
+    return out
+
+
+def tree_digest(tree) -> str:
+    """A digest of a checkpoint tree's leaves as ``ckpt.save`` stores them."""
+    import hashlib
+
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    h = hashlib.sha256()
+    for leaf in ckpt._flatten(tree):
+        arr, name = ckpt._to_storable(leaf)
+        h.update(name.encode() + str(arr.shape).encode() + np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def npz_digest(step_dir: str) -> str:
+    """:func:`tree_digest` of a written checkpoint's arrays."""
+    import hashlib
+
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        meta = json.load(f)["leaves"]
+    h = hashlib.sha256()
+    with np.load(os.path.join(step_dir, "arrays.npz")) as data:
+        for i, m in enumerate(meta):
+            arr = data[f"a{i}"]
+            h.update(m["dtype"].encode() + str(arr.shape).encode()
+                     + np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def lm_eval_mesh(cfg, tree_dir, batch, dev) -> dict:
+    """deepseek's eval step under ``lp`` on ``dev`` under the active mesh:
+    the loss, each router LP's digest, whether each captured launch
+    replays bit-identical on ``simplex_plain``, and the launches."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import simplex_cuda
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params
+    from repro_torch.train.train_step import make_eval_step
+
+    model = load_reference_params(Model(cfg, device=dev), lm_mesh_load_tree(tree_dir))
+    before = launch_counts({"simplex": simplex_cuda})
+    with SimplexSpy(simplex_cuda) as spy:
+        loss = float(make_eval_step(model)(to_device(batch, dev)))
+    launches = count_delta({"simplex": simplex_cuda}, before)
+    out = dict(loss=loss, lps=spy.calls, launches=launches,
+               lp_digests=lm_mesh_lp_digests(spy.records),
+               replayed_bit_identical=[replay_plain(rec) for rec in spy.records])
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_mesh_rank_main(rank: int, world: int, store: str, out_dir: str,
+                            device_type: str) -> None:
+    """One of the gloo ranks of part (b): the plan's train cases on the
+    (2, 2) mesh, then (where the plan has them) mamba2's checkpoints and
+    deepseek's eval step under ``lp``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)
+    out = dict(rank=rank)
+    try:
+        from torch.distributed.device_mesh import DeviceMesh
+        from repro_torch.kernels import hyperbox_cuda, pdhg_cuda, revised_cuda, simplex_cuda
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.sharding import partition
+
+        mesh_lib.init_distributed("gloo", device="cpu" if device_type == "cpu" else None,
+                                  timeout_s=LM_TRAIN_MESH_TIMEOUT_S / 2, rank=rank,
+                                  world_size=world, store=dist.FileStore(store, world))
+        dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+               else torch.device("cpu"))
+        plan = torch.load(os.path.join(out_dir, "plan.pt"), weights_only=False)
+        mesh = DeviceMesh(device_type, torch.arange(world).reshape(LM_TRAIN_MESH_SHAPE),
+                          mesh_dim_names=("data", "model"))
+        mesh41 = DeviceMesh(device_type, torch.arange(world).reshape(world, 1),
+                            mesh_dim_names=("data", "model"))
+        out["coordinate"] = list(mesh.get_coordinate())
+        times, t0 = {}, time.perf_counter()
+        with partition.activate(mesh):
+            for case in plan["train"]:
+                out[case["name"]] = lm_train_mesh_run(case, dev)
+                times[case["name"]] = time.perf_counter() - t0
+            if plan.get("ssm") is not None:
+                out["ssm"] = lm_train_mesh_ssm(plan["ssm"], dev, seed=plan["seed"],
+                                               ckpt_root=out_dir, mesh41=mesh41)
+                times["ssm"] = time.perf_counter() - t0
+            if plan.get("eval") is not None:
+                ev = plan["eval"]
+                out["eval"] = lm_eval_mesh(ev["cfg"], ev["tree"], ev["batch"], dev)
+                times["eval"] = time.perf_counter() - t0
+        out["seconds_from_start"] = times
+        out["launches"] = launch_counts({"simplex": simplex_cuda, "hyperbox": hyperbox_cuda,
+                                         "revised": revised_cuda, "pdhg": pdhg_cuda})
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent reads it and fails the run
+        out["error"] = traceback.format_exc()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    if "error" in out:
+        os._exit(1)
+
+
+def lm_leaf_slices(samples):
+    """(index, leaf path, slice of the flat samples) for each leaf of a
+    training fixture's sample layout."""
+    at = 0
+    for j, (path, n) in enumerate(zip(samples["leaf_paths"], samples["sample_sizes"])):
+        yield j, str(path), slice(at, at + int(n))
+        at += int(n)
+
+
+def lm_train_mesh_gates(got, one, noise) -> dict:
+    """A rank's run against the one-process run: each step's loss and
+    ``grad_norm`` by relative error, each leaf's change at the samples by
+    ``trimmed_rel``, each within the largest of its floor and
+    ``LM_NOISE_FACTOR`` times its one-ulp noise (``noise``: relative, by
+    step, and one value a leaf); the worst ratio and ``ok``."""
+    from repro_torch.models.convert import trimmed_rel
+
+    ratios = {}
+    for key in ("loss", "grad_norm"):
+        for i, (a, b) in enumerate(zip(got[key], one[key])):
+            tol = max(LM_TRAIN_SCALAR_FLOOR, LM_NOISE_FACTOR * float(noise[key][i]))
+            ratios[f"{key}[{i}]"] = abs(a / b - 1.0) / tol
+    for j, path, sl in lm_leaf_slices(one["samples"]):
+        d_got, d_one = got["after"][sl] - one["start"][sl], one["after"][sl] - one["start"][sl]
+        tol = max(LM_TRAIN_LEAF_FLOOR, LM_NOISE_FACTOR * float(noise["delta"][j]))
+        ratios[f"delta/{path}"] = trimmed_rel(d_got, d_one, LM_TRAIN_MESH_FLIP_SHARE) / tol
+    top = max(ratios, key=ratios.get)
+    return dict(worst_ratio=ratios[top], worst=top, ok=bool(ratios[top] <= 1.0),
+                lr_equal=got["lr"] == one["lr"])
+
+
+def lm_train_mesh_tree(cfg, seed: int, out_dir: str, name: str) -> str:
+    """The saved reference weights of ``(cfg, seed)``: the helper process's
+    (``shared_tree_dir``) when it draws them, else drawn here (the phase or
+    case alone) into ``out_dir/name``."""
+    from repro_torch.models.convert import reference_weights
+
+    tree_dir = shared_tree_dir(cfg, seed)
+    if tree_dir is None:
+        tree_dir = os.path.join(out_dir, name)
+        lm_mesh_save_tree(reference_weights(cfg, seed), tree_dir)
+    return tree_dir
+
+
+def lm_train_mesh_steps(fixture) -> dict:
+    """The mesh training fixture's steps: tokens a row, rows, steps,
+    microbatches, ``lr`` and warm-up."""
+    return dict(seq=int(fixture["seq"]), batch=int(fixture["batch"]), steps=int(fixture["steps"]),
+                accum=int(fixture["accum"]), lr=float(fixture["lr"]),
+                warmup=int(fixture["warmup_steps"]))
+
+
+def lm_train_mesh_group(plan, dev, out_dir: str):
+    """``plan`` on ``LM_TRAIN_MESH_RANKS`` gloo ranks spawned from here on
+    ``dev``'s type: each rank's result and the group's seconds.  A rank
+    that fails, writes nothing or passes ``LM_TRAIN_MESH_TIMEOUT_S`` fails
+    the run."""
+    torch.save(plan, os.path.join(out_dir, "plan.pt"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=lm_train_mesh_rank_main,
+                         args=(r, LM_TRAIN_MESH_RANKS, os.path.join(out_dir, "store"), out_dir,
+                               dev.type))
+             for r in range(LM_TRAIN_MESH_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + LM_TRAIN_MESH_TIMEOUT_S
+    for proc in procs:
+        proc.join(timeout=max(1.0, deadline - time.monotonic()))
+    alive = [proc for proc in procs if proc.is_alive()]
+    for proc in alive:
+        proc.kill()
+        proc.join()
+    check(not alive, f"lm_train_mesh: {len(alive)} ranks passed {LM_TRAIN_MESH_TIMEOUT_S} s")
+    group_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(LM_TRAIN_MESH_RANKS):
+        path = os.path.join(out_dir, f"rank{r}.pt")
+        check(os.path.exists(path), f"lm_train_mesh: rank {r} wrote no result "
+                                    f"(exit code {procs[r].exitcode})")
+        ranks.append(torch.load(path, weights_only=False))
+    errors = [f"rank {r['rank']}:\n{r['error']}" for r in ranks if "error" in r]
+    check(not errors, "lm_train_mesh: " + "\n".join(errors))
+    for r in range(LM_TRAIN_MESH_RANKS):
+        os.remove(os.path.join(out_dir, f"rank{r}.pt"))
+    return ranks, group_s
+
+
+def lm_train_mesh_rank_rows(name: str, ranks, one, dev) -> list:
+    """Each rank's step ms, peak and stored bytes beside the placements'
+    share and the one-process run's; fails unless every rank holds the same
+    losses and samples after every step, stores its placements' bytes and
+    (on the card) peaks below the one-process run."""
+    agree = all(r[name]["loss"] == ranks[0][name]["loss"]
+                and all(np.array_equal(a, b) for a, b in zip(r[name]["afters"],
+                                                             ranks[0][name]["afters"]))
+                for r in ranks)
+    check(agree, f"lm_train_mesh {name}: the ranks' losses or parameters differ")
+    rows = []
+    for r in ranks:
+        got = r[name]
+        check(got["stored_bytes"] == got["spec_bytes"],
+              f"lm_train_mesh {name}: rank {r['rank']} stores {got['stored_bytes']} bytes, "
+              f"its placements {got['spec_bytes']}")
+        check(dev.type != "cuda" or got["peak"] < one["peak"],
+              f"lm_train_mesh {name}: rank {r['rank']}'s peak {got['peak']} is not below "
+              f"the one-process run's {one['peak']}")
+        rows.append(dict(coordinate=r["coordinate"], step_ms=got["step_ms"], peak=got["peak"],
+                         stored_bytes=got["stored_bytes"], spec_bytes=got["spec_bytes"],
+                         share_of_one_process=got["stored_bytes"] / one["stored_bytes"]))
+    return rows
+
+
+def lm_train_mesh_gloo_case(rt_configs, dev, *, seed, out_dir) -> list:
+    """Part (b): gemma2's one-process run under the abstract (2, 2) mesh
+    here, then ``LM_TRAIN_MESH_RANKS`` gloo ranks spawned from here on the
+    card, held against it, the mesh fixture and the checkpoints.  Returns
+    each rank's launches."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.convert import weights_digest
+    from repro_torch.runtime.fault import DriverConfig, TrainDriver
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer as opt
+
+    check(LM_TRAIN_MESH_FIXTURE.exists(), f"the mesh train fixture {LM_TRAIN_MESH_FIXTURE} "
+                                          "is missing")
+    fixture = dict(np.load(LM_TRAIN_MESH_FIXTURE))
+    check(tuple(fixture["mesh"]) == LM_TRAIN_MESH_SHAPE,
+          f"lm_train_mesh: the fixture's mesh {fixture['mesh']} is not {LM_TRAIN_MESH_SHAPE}")
+    steps = lm_train_mesh_steps(fixture)
+    t0 = time.perf_counter()
+    gemma = dataclasses.replace(rt_configs.get_config(str(fixture["arch"])),
+                                num_layers=int(fixture["layers"]), dtype="float32")
+    gemma_dir = lm_train_mesh_tree(gemma, int(fixture["seed"]), out_dir, "gemma_tree")
+    check(np.array_equal(weights_digest(lm_mesh_load_tree(gemma_dir)), fixture["weights_digest"]),
+          "lm_train_mesh: the weights drawn here differ from the mesh fixture's")
+    evl = dict(np.load(LM_EVAL_FIXTURE))
+    ev_cfg = dataclasses.replace(rt_configs.get_config(LM_MOE_ARCH), num_layers=int(evl["layers"]),
+                                 router=str(evl["router"]), dtype="float32")
+    moe_dir = lm_train_mesh_tree(ev_cfg, int(evl["seed"]), out_dir, "moe_tree")
+    case = dict(name=gemma.name, cfg=gemma, tree=gemma_dir, seed=int(fixture["seed"]),
+                samples={k: fixture[k] for k in ("leaf_paths", "sample_sizes", "sample_idx")},
+                **steps)
+    weights_s = time.perf_counter() - t0
+    data = SyntheticLM(DataConfig(gemma.vocab_size, steps["seq"], steps["batch"],
+                                  seed=int(fixture["seed"])))
+    check(np.array_equal(np.concatenate([data.batch(s)["tokens"].ravel()[:16]
+                                         for s in range(steps["steps"])]),
+                         fixture["tokens_digest"]),
+          "lm_train_mesh: the batches made here differ from the mesh fixture's")
+    ev_batch = SyntheticLM(DataConfig(ev_cfg.vocab_size, int(evl["seq"]), int(evl["batch"]),
+                                      seed=int(evl["seed"]))).batch(0)
+    ssm_cfg = dataclasses.replace(rt_configs.get_config(LM_TRAIN_MESH_SSM), dtype="float32",
+                                  num_layers=LM_TRAIN_MESH_SSM_LAYERS)
+
+    # The one-process runs under the abstract mesh (the same token groups);
+    # gemma2's noise is the fixture's: the reference's own, under the mesh.
+    with partition.activate(dict(zip(("data", "model"), LM_TRAIN_MESH_SHAPE))):
+        one = lm_train_mesh_run(case, dev)
+        one_eval = lm_eval_mesh(ev_cfg, moe_dir, ev_batch, dev)
+    one["start"] = lm_tree_samples(lm_mesh_load_tree(gemma_dir), case["samples"])
+    one["samples"] = case["samples"]
+    noise = {k: fixture[f"noise_{k}"].tolist() for k in ("loss", "grad_norm")}
+    noise["delta"] = fixture["noise_delta"]
+    one_s = time.perf_counter() - t0 - weights_s
+
+    ranks, group_s = lm_train_mesh_group(
+        dict(train=[case], ssm=ssm_cfg, seed=seed,
+             eval=dict(cfg=ev_cfg, tree=moe_dir, batch=ev_batch)), dev, out_dir)
+
+    name = gemma.name
+    per_rank = lm_train_mesh_rank_rows(name, ranks, one, dev)
+    gates = lm_train_mesh_gates(ranks[0][name], one, noise)
+    fx = lm_train_gates(dict(ranks[0][name], delta=ranks[0][name]["after"] - one["start"]),
+                        fixture)
+    one_fx = lm_train_gates(dict(one, delta=one["after"] - one["start"]), fixture)
+    row = dict(part="gloo_4ranks_sharing_one_card", mesh=list(LM_TRAIN_MESH_SHAPE),
+               arch=name, layers=gemma.num_layers, dtype="float32", batch=case["batch"],
+               seq=case["seq"], steps=case["steps"], accum=case["accum"],
+               label="4 ranks sharing one card: says nothing about scaling",
+               loss=ranks[0][name]["loss"], one_process_loss=one["loss"],
+               grad_norm=ranks[0][name]["grad_norm"], one_process_grad_norm=one["grad_norm"],
+               ranks_agree=True, against_one_process=gates,
+               against_fixture=dict(
+                   ranks=dict(worst_ratio=fx["worst_ratio"], worst=fx["worst"], ok=fx["ok"],
+                              lr_equal=fx["lr_equal"]),
+                   one_process=dict(worst_ratio=one_fx["worst_ratio"], worst=one_fx["worst"],
+                                    ok=one_fx["ok"])),
+               one_process=dict(step_ms=one["step_ms"], peak=one["peak"],
+                                stored_bytes=one["stored_bytes"]),
+               ranks=per_rank, nvidia_smi=smi_line())
+    emit("lm_train_mesh", **row)
+    check(gates["ok"] and gates["lr_equal"],
+          f"lm_train_mesh {name}: the ranks miss the one-process run: {gates}")
+    check(fx["ok"] and one_fx["ok"],
+          f"lm_train_mesh {name}: the ranks or the one-process run miss the mesh fixture")
+
+    # mamba2: the preempted run resumed bit-equal, the step-2 checkpoint
+    # restored onto (4, 1) (in the ranks) and onto one process (here).
+    ssm = [r["ssm"] for r in ranks]
+    ckpt_dir = os.path.join(out_dir, "ssm")
+    step2 = LM_TRAIN_MESH_CKPT_EVERY
+    model = Model(ssm_cfg, device=dev)
+    ocfg = opt.OptConfig(lr=1e-3, warmup_steps=2)
+    driver = TrainDriver(DriverConfig(ckpt_dir), model, None, None)
+    like = driver.state(opt.init(dict(model.named_parameters()), ocfg))
+    restored_one = tree_digest(driver.state(driver._load(ckpt.restore(ckpt_dir, like, step2))))
+    del model, driver, like
+    s0 = ssm[0]
+    row = dict(part="gloo_4ranks_sharing_one_card", mesh=list(LM_TRAIN_MESH_SHAPE),
+               arch=ssm_cfg.name, layers=ssm_cfg.num_layers, dtype="float32",
+               steps=LM_TRAIN_MESH_SSM_STEPS, ckpt_every=LM_TRAIN_MESH_CKPT_EVERY,
+               preempted_at=LM_TRAIN_MESH_PREEMPT_AT if s0["preempted"] else None,
+               resumed_from=s0["resumed_from"], resumed_steps=s0["resumed_steps"],
+               loss=s0["loss"],
+               resumed_bit_equal=[s["resumed"] == s["uninterrupted"] for s in ssm],
+               restored_onto_4x1_bit_equal=[s["restored_41"] == s["checkpoint"] for s in ssm],
+               restored_onto_one_process_bit_equal=restored_one == s0["checkpoint"],
+               checkpoint_bytes=os.path.getsize(os.path.join(ckpt_dir, f"step_{step2:08d}",
+                                                             "arrays.npz")))
+    emit("lm_train_mesh_checkpoint", **row)
+    check(s0["preempted"] and s0["resumed_from"] == step2
+          and s0["resumed_steps"][0] == step2,
+          f"lm_train_mesh_checkpoint: preempted {s0['preempted']}, resumed from "
+          f"{s0['resumed_from']} at {s0['resumed_steps']}")
+    check(all(row["resumed_bit_equal"]),
+          f"lm_train_mesh_checkpoint: the resumed run differs: {row['resumed_bit_equal']}")
+    check(all(row["restored_onto_4x1_bit_equal"]) and row["restored_onto_one_process_bit_equal"],
+          f"lm_train_mesh_checkpoint: a restore differs from the checkpoint: {row}")
+
+    # deepseek's eval step under lp: the router LPs on each rank's kernel.
+    evs = [r["eval"] for r in ranks]
+    n_moe = sum(k.endswith("_moe") for k in Model(ev_cfg, device="meta").kinds())
+    ev_row = dict(part="gloo_4ranks_sharing_one_card", mesh=list(LM_TRAIN_MESH_SHAPE),
+                  arch=ev_cfg.name, layers=ev_cfg.num_layers, router=ev_cfg.router,
+                  batch=int(evl["batch"]), seq=int(evl["seq"]), moe_layers=n_moe,
+                  loss=[e["loss"] for e in evs], one_process_loss=one_eval["loss"],
+                  loss_rel_err=max(abs(e["loss"] / one_eval["loss"] - 1.0) for e in evs),
+                  loss_tol=max(LM_EVAL_FLOOR, LM_NOISE_FACTOR * float(evl["noise_loss"])),
+                  lps_bit_identical_across_ranks=all(e["lp_digests"] == evs[0]["lp_digests"]
+                                                     for e in evs),
+                  lps=[e["lps"] for e in evs],
+                  replayed_bit_identical_on_simplex_plain=[sum(e["replayed_bit_identical"])
+                                                           for e in evs],
+                  launches=[{k: v for k, v in e["launches"].items() if v} for e in evs])
+    emit("lm_train_mesh_eval_lp", **ev_row)
+    check(ev_row["lps_bit_identical_across_ranks"],
+          "lm_train_mesh_eval_lp: the ranks' router LPs are not the same bits")
+    check(all(e["lps"] == n_moe and all(e["replayed_bit_identical"]) for e in evs),
+          f"lm_train_mesh_eval_lp: router LPs {ev_row['lps']}, replays "
+          f"{ev_row['replayed_bit_identical_on_simplex_plain']} of {n_moe}")
+    check(ev_row["loss_rel_err"] <= ev_row["loss_tol"],
+          f"lm_train_mesh_eval_lp: the ranks' eval loss misses the one-process run's: {ev_row}")
+    if dev.type == "cuda":
+        check(all(e["launches"]["simplex"] == e["launches"]["simplex.cluster"] == n_moe
+                  for e in evs),
+              f"lm_train_mesh_eval_lp: launches {ev_row['launches']}, not {n_moe} of the "
+              "cluster variant a rank")
+    emit("lm_train_mesh_setup", weights_s=weights_s, one_process_s=one_s, group_s=group_s,
+         rank0_seconds_from_its_start=ranks[0]["seconds_from_start"])
+    return [r["launches"] for r in ranks]
+
+
+def lm_route_flips(a_calls, b_calls, cfg, tl: int) -> dict:
+    """Between two runs' ``RouteSpy`` calls of one step (call by call, every
+    token of the batch): the tokens whose top-k experts differ, the tokens
+    whose kept experts differ (each run's capacity dispatch of its groups of
+    ``tl`` tokens, ``moe.dispatch``), the largest gap between ``a``'s k-th
+    and (k+1)-th logit at a token whose experts differ, and the largest
+    difference of the two runs' logits."""
+    from repro_torch.models import moe
+
+    cap = moe._capacity(tl, cfg)
+
+    def masks(experts):
+        t, k = experts.shape
+        chosen = np.zeros((t, cfg.num_experts), bool)
+        kept = np.zeros_like(chosen)
+        rows = np.arange(t)[:, None]
+        chosen[rows, experts] = True
+        for g0 in range(0, t, tl):
+            e = torch.as_tensor(experts[g0:g0 + tl])
+            order, _, keep = moe.dispatch(e, cap, cfg.num_experts)
+            flat = np.empty(order.numel(), bool)
+            flat[order.numpy()] = keep.numpy()
+            kept[rows[g0:g0 + tl], experts[g0:g0 + tl]] = flat.reshape(-1, k)
+        return chosen, kept
+
+    chosen_flips = kept_flips = 0
+    margin = diff = 0.0
+    for (ea, _, la), (eb, _, lb) in zip(a_calls, b_calls):
+        (ca, ka), (cb, kb) = masks(ea), masks(eb)
+        flipped = (ca != cb).any(1)
+        chosen_flips += int(flipped.sum())
+        kept_flips += int((ka != kb).any(1).sum())
+        top = -np.sort(-la, axis=1)
+        gaps = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+        margin = max(margin, float(gaps[flipped].max()) if flipped.any() else 0.0)
+        diff = max(diff, float(np.abs(la.astype(np.float64) - lb).max()))
+    return dict(chosen=chosen_flips, kept=kept_flips, calls=len(a_calls),
+                flipped_margin_max=margin, logit_diff_max=diff)
+
+
+def lm_logit_dist(a_calls, b_calls) -> float:
+    """Relative L2 of one step's router logits of run ``a`` against run
+    ``b`` (every call, every token)."""
+    num = sum(float(np.sum((la.astype(np.float64) - lb) ** 2))
+              for (_, _, la), (_, _, lb) in zip(a_calls, b_calls))
+    den = sum(float(np.sum(lb.astype(np.float64) ** 2)) for _, _, lb in b_calls)
+    return math.sqrt(num / den)
+
+
+def lm_whole_calls(data_ranks, name: str, s: int) -> list:
+    """Step ``s``'s route calls of the ranks with model coordinate 0 (each
+    its own tokens, in data order) put together: one call a call, every
+    token of the batch."""
+    calls = []
+    for parts in zip(*(r[name]["routes"][s] for r in data_ranks)):
+        calls.append((np.concatenate([e for e, _, _ in parts]), 0,
+                      np.concatenate([lg for _, _, lg in parts])))
+    return calls
+
+
+def lm_train_mesh_witness(ranks_run, one, nudges, f64) -> list:
+    """Step by step, each quantity of the ranks' run (loss and
+    ``grad_norm`` by relative error, each leaf's change from the start at
+    the samples by ``trimmed_rel``) against the float64 witness ``f64``,
+    within the largest of its floor and ``LM_F64_FACTOR`` times the
+    largest distance of a float32 one-process run (``one`` and each of
+    ``nudges``) to the witness; beside it the one-process gate (the ranks
+    against ``one`` within ``LM_NOISE_FACTOR`` times the nudges' largest
+    change).  One dict a step: the worst ratio of each gate, ``ok``, and
+    the distances of the router's change."""
+    from repro_torch.models.convert import trimmed_rel
+
+    share = LM_TRAIN_MESH_FLIP_SHARE
+    out = []
+    for s in range(len(one["loss"])):
+        witness, one_gate, router = {}, {}, {}
+        for key, floor in (("loss", LM_TRAIN_SCALAR_FLOOR), ("grad_norm", LM_TRAIN_SCALAR_FLOOR)):
+            def rel(run, ref):
+                return abs(run[key][s] / ref[key][s] - 1.0)
+
+            ref = max(rel(r, f64) for r in [one, *nudges])
+            witness[f"{key}[{s}]"] = rel(ranks_run, f64) / max(floor, LM_F64_FACTOR * ref)
+            noise = max(rel(n, one) for n in nudges)
+            one_gate[f"{key}[{s}]"] = rel(ranks_run, one) / max(floor,
+                                                                LM_NOISE_FACTOR * noise)
+        for _, path, sl in lm_leaf_slices(one["samples"]):
+            def delta(run):
+                return run["afters"][s][sl] - run.get("start", one["start"])[sl]
+
+            d_ranks, d_one, d_f64 = delta(ranks_run), delta(one), delta(f64)
+            dist = {"ranks": trimmed_rel(d_ranks, d_f64, share),
+                    "one": trimmed_rel(d_one, d_f64, share),
+                    "nudges": max(trimmed_rel(delta(n), d_f64, share) for n in nudges)}
+            ref = max(dist["one"], dist["nudges"])
+            witness[f"delta/{path}"] = dist["ranks"] / max(LM_TRAIN_LEAF_FLOOR,
+                                                           LM_F64_FACTOR * ref)
+            noise = max(trimmed_rel(delta(n), d_one, share) for n in nudges)
+            vs_one = trimmed_rel(d_ranks, d_one, share)
+            one_gate[f"delta/{path}"] = vs_one / max(LM_TRAIN_LEAF_FLOOR, LM_NOISE_FACTOR * noise)
+            if path.endswith("router"):
+                router[path] = dict(dist, ranks_vs_one=vs_one, nudge_noise=noise)
+        w, o = max(witness, key=witness.get), max(one_gate, key=one_gate.get)
+        out.append(dict(step=s, witness_worst_ratio=witness[w], witness_worst=w,
+                        ok=bool(witness[w] <= 1.0), one_process_worst_ratio=one_gate[o],
+                        one_process_worst=o, router=router))
+    return out
+
+
+def lm_train_mesh_moe_case(rt_configs, dev, *, seed, out_dir) -> dict:
+    """deepseek-v2-lite-16b (``topk``) at the eval fixture's depth on the
+    mesh fixture's steps (the ``gpu`` tier's case; the constants'
+    comment).  Under the abstract (2, 2) mesh here the float32 run, its
+    one-ulp nudges and the float64 witness, each free and then replaying
+    the ranks' routing (``RouteSpy(forced=)``); between them
+    ``LM_TRAIN_MESH_RANKS`` gloo ranks on ``dev``'s type.  Each step must
+    hold the ranks within the witness gate of the replaying runs
+    (``lm_train_mesh_witness``: the routing is the same, so every other
+    difference is rounding) and their router logits within
+    ``LM_F64_FACTOR`` times the replaying float32 runs' distance to the
+    witness's (what decides the routing is rounding too).  The free runs'
+    gates and each step's routing flips against the free one-process run
+    (``lm_route_flips``) are reported.  Emits the ``lm_train_mesh_moe``
+    line and returns it."""
+    from repro_torch.sharding import partition
+
+    steps = lm_train_mesh_steps(dict(np.load(LM_TRAIN_MESH_FIXTURE)))
+    evl = dict(np.load(LM_EVAL_FIXTURE))
+    cfg = dataclasses.replace(rt_configs.get_config(LM_MOE_ARCH), num_layers=int(evl["layers"]),
+                              router="topk", dtype="float32")
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    t0 = time.perf_counter()
+    tree_dir = lm_train_mesh_tree(dataclasses.replace(cfg, router=str(evl["router"])),
+                                  int(evl["seed"]), out_dir, "moe_tree")
+    tree = lm_mesh_load_tree(tree_dir)
+    case = dict(name=cfg.name, cfg=cfg, tree=tree_dir, seed=int(evl["seed"]), routes=True,
+                samples=lm_leaf_samples(tree, seed, LM_TRAIN_MESH_SAMPLE), **steps)
+    start = lm_tree_samples(tree, case["samples"])
+    del tree
+    abstract = dict(zip(("data", "model"), LM_TRAIN_MESH_SHAPE))
+
+    def one_process(forced=None):
+        with partition.activate(abstract):
+            one = lm_train_mesh_run(case, dev, forced=forced)
+            nudges = [lm_train_mesh_run(case, dev, nudge=n, forced=forced)
+                      for n in LM_TRAIN_MESH_NUDGES]
+            f64 = lm_train_mesh_run(dict(case, cfg=cfg64), dev, forced=forced)
+        one.update(start=start, samples=case["samples"])
+        f64["start"] = start
+        return one, nudges, f64
+
+    weights_s = time.perf_counter() - t0
+    one, nudges, f64 = one_process()
+    one_s = time.perf_counter() - t0 - weights_s
+    ranks, group_s = lm_train_mesh_group(dict(train=[case], seed=seed), dev, out_dir)
+    name = cfg.name
+    per_rank = lm_train_mesh_rank_rows(name, ranks, one, dev)
+    got = dict(ranks[0][name], start=start)
+    data_ranks = sorted((r for r in ranks if r["coordinate"][1] == 0),
+                        key=lambda r: r["coordinate"][0])
+    whole = [lm_whole_calls(data_ranks, name, s) for s in range(steps["steps"])]
+    t1 = time.perf_counter()
+    one_r, nudges_r, f64_r = one_process(forced=[[e for e, _, _ in calls] for calls in whole])
+    replay_s = time.perf_counter() - t1
+
+    tl = steps["batch"] // steps["accum"] * steps["seq"] // LM_TRAIN_MESH_SHAPE[0]
+    replayed = lm_train_mesh_witness(got, one_r, nudges_r, f64_r)
+    free = lm_train_mesh_witness(got, one, nudges, f64)
+    out = []
+    for s, (rep, fr) in enumerate(zip(replayed, free)):
+        dist = dict(ranks=lm_logit_dist(whole[s], f64_r["routes"][s]),
+                    one=lm_logit_dist(one_r["routes"][s], f64_r["routes"][s]),
+                    nudges=max(lm_logit_dist(n["routes"][s], f64_r["routes"][s])
+                               for n in nudges_r))
+        logit_ratio = dist["ranks"] / (LM_F64_FACTOR * max(dist["one"], dist["nudges"]))
+        flips = dict(ranks=lm_route_flips(one["routes"][s], whole[s], cfg, tl),
+                     nudges=[lm_route_flips(one["routes"][s], n["routes"][s], cfg, tl)
+                             for n in nudges],
+                     f64=lm_route_flips(one["routes"][s], f64["routes"][s], cfg, tl),
+                     ranks_vs_f64=lm_route_flips(f64["routes"][s], whole[s], cfg, tl),
+                     tokens_routed_a_step=sum(len(e) for e, _, _ in whole[s]))
+        out.append(dict(step=s, ok=bool(rep["ok"] and logit_ratio <= 1.0),
+                        witness_worst_ratio=rep["witness_worst_ratio"],
+                        witness_worst=rep["witness_worst"],
+                        one_process_worst_ratio=rep["one_process_worst_ratio"],
+                        one_process_worst=rep["one_process_worst"], router=rep["router"],
+                        logits=dict(dist, ratio=logit_ratio),
+                        free=dict(witness_worst_ratio=fr["witness_worst_ratio"],
+                                  witness_worst=fr["witness_worst"],
+                                  one_process_worst_ratio=fr["one_process_worst_ratio"],
+                                  one_process_worst=fr["one_process_worst"],
+                                  router=fr["router"]),
+                        flips=flips,
+                        loss=dict(ranks=got["loss"][s], one=one["loss"][s], f64=f64["loss"][s],
+                                  one_replaying=one_r["loss"][s], f64_replaying=f64_r["loss"][s]),
+                        grad_norm=dict(ranks=got["grad_norm"][s], one=one["grad_norm"][s],
+                                       f64=f64["grad_norm"][s],
+                                       one_replaying=one_r["grad_norm"][s],
+                                       f64_replaying=f64_r["grad_norm"][s])))
+    row = dict(part="gloo_4ranks_sharing_one_card", mesh=list(LM_TRAIN_MESH_SHAPE),
+               arch=name, layers=cfg.num_layers, dtype="float32", router=cfg.router,
+               batch=case["batch"], seq=case["seq"], accum=case["accum"], nudges=len(nudges),
+               label="4 ranks sharing one card: says nothing about scaling",
+               lr_equal=got["lr"] == one["lr"], steps=out,
+               one_process=dict(step_ms=one["step_ms"], peak=one["peak"],
+                                stored_bytes=one["stored_bytes"], f64_step_ms=f64["step_ms"]),
+               ranks=per_rank, weights_s=weights_s, one_process_s=one_s, group_s=group_s,
+               replaying_s=replay_s, nvidia_smi=smi_line())
+    emit("lm_train_mesh_moe", **row)
+    check(row["lr_equal"], f"lm_train_mesh_moe: the ranks' lr differ: {got['lr']}, {one['lr']}")
+    check(all(r["ok"] for r in out),
+          "lm_train_mesh_moe: the ranks miss the float64 witness of their routing: "
+          + json.dumps([{k: r[k] for k in ("step", "witness_worst_ratio", "witness_worst")}
+                        | {"logit_ratio": r["logits"]["ratio"]} for r in out]))
+    return row
+
+
+def lm_train_mesh_phase(rt_configs, dev, *, seed, counters, reset, train_row=None,
+                        tmp_root=None) -> dict:
+    """Slice 15: (a) NCCL with one rank, then (b) gloo ranks sharing the
+    card, their files in a temporary directory under ``tmp_root``
+    (default ``build/``).  Returns (a)'s launches in this process and each
+    rank's of (b)."""
+    import gc
+    import tempfile
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp_root = str(tmp_root or ROOT / "build")
+    os.makedirs(tmp_root, exist_ok=True)
+    reset()
+    lm_train_mesh_nccl_case(rt_configs, dev, seed=seed, train_row=train_row, tmp_root=tmp_root)
+    nccl = launch_counts(counters)
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        per_rank = lm_train_mesh_gloo_case(rt_configs, dev, seed=seed, out_dir=tmp)
+    emit("main_path_summary", path="slice15_lm_train_mesh", launches_nccl_1rank=nccl,
+         launches_per_rank=per_rank, wall_s=time.perf_counter() - t0)
+    check(not any(nccl.values()), f"the NCCL training steps launched a kernel: {nccl}")
     return dict(nccl=nccl, per_rank=per_rank)
 
 
@@ -5305,8 +6337,9 @@ def run(args, pool, shared_root) -> int:
     # Slice 12, training: gemma2-2b and mamba2-130m train steps (no kernel of
     # the port), and the eval step under router="lp" on deepseek-v2-lite-16b
     # (one simplex launch a MoE layer).
-    slice12 = lm_train_phase(rt_configs, dev, seed=args.seed, counters=counters,
-                             reset=reset_counts)["launches"]
+    slice12_out = lm_train_phase(rt_configs, dev, seed=args.seed, counters=counters,
+                                 reset=reset_counts)
+    slice12 = slice12_out["launches"]
 
     # Slice 13, the LP system over a device mesh: NCCL with one rank on the
     # card, then gloo ranks sharing it, each solving its own rows on its own
@@ -5322,9 +6355,19 @@ def run(args, pool, shared_root) -> int:
                             reset=reset_counts)
     slice14 = sum_counts([lm_mesh["nccl"]] + [r[a] for r in lm_mesh["per_rank"] for a in r])
 
+    # Slice 15, training on a device mesh: NCCL with one rank on a (1, 1)
+    # mesh (bit-identical to no mesh), then gloo ranks sharing the card on
+    # (2, 2); the eval step's router LPs on each rank's simplex kernel.
+    train_mesh = lm_train_mesh_phase(rt_configs, dev, seed=args.seed, counters=counters,
+                                     reset=reset_counts, train_row=slice12_out["train"])
+    slice15 = sum_counts([train_mesh["nccl"]] + train_mesh["per_rank"])
+    check(slice15["simplex"] > 0 and slice15["simplex"] == slice15["simplex.cluster"],
+          f"the mesh training path's eval step did not launch the simplex kernel's cluster "
+          f"variant on every rank: {slice15}")
+
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
                 + slice10[k] + slice12[k] + slice13.get(k, 0) + slice14.get(k, 0)
-                for k in slice1}
+                + slice15.get(k, 0) for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         key = f"{name}.{extra['variant']}" if "variant" in extra else name
@@ -5371,7 +6414,11 @@ def run(args, pool, shared_root) -> int:
               lm_mesh_router=dict(
                   nccl_1rank=lm_mesh["nccl"].get("simplex", 0),
                   gloo_ranks_sharing_one_card=[sum(r[a].get("simplex", 0) for a in r)
-                                               for r in lm_mesh["per_rank"]])),
+                                               for r in lm_mesh["per_rank"]]),
+              lm_train_mesh_router=dict(
+                  nccl_1rank=train_mesh["nccl"].get("simplex", 0),
+                  gloo_ranks_sharing_one_card=[r.get("simplex", 0)
+                                               for r in train_mesh["per_rank"]])),
         entry("hyperbox", "hyperbox.cu", "hyperbox_pallas.py:20", h_main, launches["hyperbox"],
               gb_per_s=h_main["gb_per_s"]),
         entry("revised", "revised.cu", "revised_pallas.py:56", r_main, launches["revised"],

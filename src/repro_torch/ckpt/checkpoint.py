@@ -20,9 +20,20 @@ POSIX); ``LATEST`` is updated last, so a job killed mid-write never
 corrupts the restore path, and ``latest_step`` falls back to a scan for
 the newest complete step when the pointer is missing or stale.
 ``AsyncCheckpointer`` writes on a daemon thread and keeps ``keep``
-checkpoints.  ``restore`` places the leaves on one device; the
-reference's JAX-sharding placement comes with the second half of the
-LM's multi-device work (``ROADMAP.md``, item 6.5b-2).
+checkpoints.
+
+**Under a mesh** a checkpoint still holds whole leaves and nothing else,
+so either package and any mesh reads it.  ``save`` is then a collective
+of every rank: a tensor leaf carrying a ``ParamSpec`` as ``.spec`` (a
+parameter, an optimizer or error state) is gathered whole
+(``collectives.whole``), rank 0 writes the step, every rank passes a
+barrier, and rank 0 moves ``LATEST``.  ``restore(..., shardings=)`` is
+the reference's elastic re-placement: ``shardings`` is a tree matching
+``like`` of each leaf's placements on the active mesh
+(``Model.param_shardings`` for name-keyed parameters,
+``models/convert.py:reference_shardings`` for the reference's layout;
+None leaves whole), and each rank gets its slice of every leaf
+(``partition.placement_slices``), whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -36,6 +47,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..sharding import collectives as coll
+from ..sharding import partition
 
 # npz cannot store these: persist as bit-equal unsigned views.
 # dtype name -> (the view npz stores, the torch dtype of the same bits)
@@ -62,6 +77,19 @@ def _flatten(tree) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [leaf for child in tree for leaf in _flatten(child)]
     return [tree]
+
+
+def _flatten_like(tree, like) -> List[Any]:
+    """The leaves of ``tree`` at the positions of ``like``'s leaves (a
+    placements tuple, or None, is one leaf; a None of ``tree`` where
+    ``like`` has a subtree stands for each of its leaves)."""
+    if like is None:
+        return []
+    if tree is None or not isinstance(like, (dict, tuple, list)):
+        return [tree] * len(_flatten(like))
+    if isinstance(like, dict):
+        return [leaf for k in sorted(like) for leaf in _flatten_like(tree[k], like[k])]
+    return [leaf for t, l in zip(tree, like) for leaf in _flatten_like(t, l)]
 
 
 def _unflatten(like, leaves):
@@ -104,17 +132,40 @@ def _host(tree):
     return _unflatten(tree, iter(leaves))
 
 
+def meshed() -> bool:
+    """Whether this process is one rank of a ``DeviceMesh`` (whose ranks
+    save together)."""
+    return partition.distributed() and not partition.planning()
+
+
 def save(directory: str, step: int, tree: Any) -> str:
-    """Synchronous checkpoint write. Returns the step directory."""
+    """Synchronous checkpoint write. Returns the step directory.
+
+    Under a ``DeviceMesh`` every rank calls it (the module's docstring)."""
+    if not meshed():
+        final = _write_step(directory, step, _flatten(tree))
+        _point_latest(directory, step)
+        return final
+    with torch.no_grad():
+        leaves = [coll.whole(l).detach() if isinstance(l, torch.Tensor) else l
+                  for l in _flatten(tree)]
+    if dist.get_rank() == 0:
+        _write_step(directory, step, leaves)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        _point_latest(directory, step)
+    dist.barrier()
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write_step(directory: str, step: int, leaves) -> str:
+    """Write ``leaves`` as the step's directory (through a temp dir); returns it."""
     os.makedirs(directory, exist_ok=True)
-    name = f"step_{step:08d}"
-    final = os.path.join(directory, name)
+    final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    leaves = _flatten(tree)
     arrays = {}
     meta = []
     for i, leaf in enumerate(leaves):
@@ -130,12 +181,14 @@ def save(directory: str, step: int, tree: Any) -> str:
     if os.path.exists(final):  # re-save of the same step (e.g. resume tail)
         shutil.rmtree(final)
     os.rename(tmp, final)
+    return final
 
+
+def _point_latest(directory: str, step: int) -> None:
     latest_tmp = os.path.join(directory, "LATEST.tmp")
     with open(latest_tmp, "w") as f:
-        f.write(name)
+        f.write(f"step_{step:08d}")
     os.rename(latest_tmp, os.path.join(directory, "LATEST"))
-    return final
 
 
 def _complete_steps(directory: str):
@@ -174,10 +227,14 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, like: Any, step: Optional[int] = None, device=None) -> Any:
+def restore(directory: str, like: Any, step: Optional[int] = None, device=None,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors, arrays or
     anything with a ``shape``): tensors of the stored dtypes on ``device``
-    (the host if None).  A leaf count or shape that differs raises."""
+    (the host if None).  A leaf count or shape that differs from the
+    stored whole leaf raises.  ``shardings``: a tree matching ``like`` of
+    placements on the active mesh (None leaves whole); each leaf comes
+    back as this rank's slice of it (the module's docstring)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -186,6 +243,7 @@ def restore(directory: str, like: Any, step: Optional[int] = None, device=None) 
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     leaves_like = _flatten(like)
+    places = _flatten_like(shardings, like) if shardings is not None else [None] * len(leaves_like)
     if len(leaves_like) != len(manifest["leaves"]):
         raise ValueError(f"tree structure mismatch: {len(leaves_like)} leaves, "
                          f"the checkpoint has {len(manifest['leaves'])}")
@@ -195,8 +253,18 @@ def restore(directory: str, like: Any, step: Optional[int] = None, device=None) 
             t = _from_storable(data[f"a{i}"], manifest["leaves"][i]["dtype"])
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i}: shape {tuple(t.shape)} != {tuple(ref.shape)}")
+            if places[i] is not None:
+                t = t[partition.placement_slices(t.shape, places[i])].clone()
             out.append(t.to(device) if device is not None else t)
     return _unflatten(like, iter(out))
+
+
+def prune(directory: str, keep: int) -> None:
+    """Delete all but the newest ``keep`` step directories."""
+    steps = sorted(d for d in os.listdir(directory)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for d in steps[: -keep]:
+        shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
 
 
 class AsyncCheckpointer:
@@ -227,10 +295,7 @@ class AsyncCheckpointer:
                 self._q.task_done()
 
     def _gc(self):
-        steps = sorted(d for d in os.listdir(self.directory)
-                       if d.startswith("step_") and not d.endswith(".tmp"))
-        for d in steps[: -self.keep]:
-            shutil.rmtree(os.path.join(self.directory, d), ignore_errors=True)
+        prune(self.directory, self.keep)
 
     def submit(self, step: int, tree: Any):
         if self._err:

@@ -11,7 +11,10 @@ Python loop is counted once per trip, with no trip-count recovery to
 get wrong.
 
 * ``dot_flops``     — ``2 M N K`` for every ``mm``/``bmm``/``addmm``/
-  ``baddbmm`` (``2 M K`` for ``mv``, ``2 K`` for ``dot``).
+  ``baddbmm`` (``2 M K`` for ``mv``, ``2 K`` for ``dot``); under
+  ``torch.inference_mode`` the composites ``matmul`` and ``einsum``
+  reach the counter undecomposed, and count the same (an ``einsum`` of
+  two operands: twice the product of its index sizes).
 * ``traffic_bytes`` — the bytes of each operation's tensor inputs and
   outputs, each counted once per operation (a broadcast input counts
   its distinct elements); views and metadata operations cost nothing.
@@ -60,6 +63,17 @@ def _dot_flops(packet, args) -> float:
         return 2.0 * args[0].shape[0] * args[0].shape[1]
     if packet is aten.dot:
         return 2.0 * args[0].shape[0]
+    if packet is aten.matmul:
+        a, b = (t.shape if t.dim() > 1 else (1,) + tuple(t.shape) for t in args[:2])
+        if len(args[1].shape) == 1:
+            b = (args[1].shape[0], 1)
+        batch = torch.broadcast_shapes(tuple(a[:-2]), tuple(b[:-2]))
+        return 2.0 * math.prod(batch) * a[-2] * b[-1] * a[-1]
+    if packet is aten.einsum and len(args[1]) == 2:
+        sizes = {}
+        for spec, t in zip(args[0].replace(" ", "").split("->")[0].split(","), args[1]):
+            sizes.update(zip(spec, t.shape))
+        return 2.0 * math.prod(sizes.values())
     return 0.0
 
 

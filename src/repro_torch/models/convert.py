@@ -18,7 +18,11 @@ take their weights from NumPy:
   under its own path), casting to each parameter's dtype; a model built
   under a ``DeviceMesh`` takes each rank's slice;
   ``reference_params(model)`` is the way back (``exact=True`` keeps
-  each parameter's dtype, bfloat16 included, as CPU tensors);
+  each parameter's dtype, bfloat16 included, as CPU tensors); under a
+  ``DeviceMesh`` it gathers every leaf whole (``collectives.whole``, so
+  every rank calls it), and ``reference_shardings(model)`` gives the
+  tree's placements, from which ``ckpt/checkpoint.py:restore`` cuts
+  each rank's slices;
 * ``reference_leaf_of(model)`` names each parameter's reference leaf
   (the int8 gradient transform shares a scale over it);
 * ``reference_opt_state(model, state)`` and
@@ -44,6 +48,8 @@ import numpy as np
 import torch
 
 from ..sharding import ParamSpec, leaves, partition
+from ..sharding import collectives as coll
+from ..sharding.rules import shardings
 from .blocks import block_specs, plan, shared_attn_specs
 from .config import ModelConfig
 from .layers import embed_specs, rmsnorm_spec
@@ -177,7 +183,8 @@ def _to_reference(model: Model, named: Dict[str, torch.Tensor], exact: bool):
     tree: Dict = {}
 
     def arr(t: torch.Tensor):
-        t = t.detach().cpu()
+        with torch.no_grad():
+            t = coll.whole(t).detach().cpu()
         if exact:
             return t
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -197,8 +204,21 @@ def reference_params(model: Model, exact: bool = False):
     """The model's parameters as a reference-layout tree: NumPy arrays
     (bfloat16 parameters come back as float32), or with ``exact`` CPU
     tensors in each parameter's own dtype (a bfloat16 parameter keeps its
-    bits)."""
+    bits).  Whole leaves: under a ``DeviceMesh`` every rank gathers them."""
     return _to_reference(model, dict(model.named_parameters()), exact)
+
+
+def reference_specs(model: Model):
+    """The reference-layout tree of ``ParamSpec``s (whole shapes): what
+    ``ckpt/checkpoint.py:restore`` needs of ``like``, with nothing gathered."""
+    return _reference_specs(model.cfg)
+
+
+def reference_shardings(model: Model):
+    """The placements of every leaf of the reference-layout tree on the
+    active mesh (``partition.placements``; the stacked ``layer`` axis
+    whole), for ``ckpt/checkpoint.py:restore(..., shardings=)``."""
+    return shardings(_reference_specs(model.cfg))
 
 
 def reference_leaf_of(model: Model) -> Dict[str, str]:
@@ -242,7 +262,7 @@ def load_reference_opt_state(model: Model, tree):
     def named(t):
         if t is None:
             return None
-        out = {n: torch.empty(p.shape, dtype=torch.float32, device=dev)
+        out = {n: coll.with_spec(torch.empty(p.shape, dtype=torch.float32, device=dev), p)
                for n, p in model.named_parameters()}
         _copy_from_reference(model, t, out)
         return out

@@ -247,10 +247,17 @@ class Model(nn.Module):
     @staticmethod
     def _block_out(block, x, remat: bool, **kw) -> torch.Tensor:
         """``block(x, **kw)``'s hidden states; with ``remat`` (and grad mode
-        on) recomputed in the backward pass instead of kept."""
+        on) recomputed in the backward pass instead of kept, with the whole
+        batch the forward named (``partition.global_batch``: the MoE token
+        groups read it, and the backward runs outside ``forward``)."""
         if remat and torch.is_grad_enabled():
-            return checkpoint(lambda h: block(h, **kw)[0], x, use_reentrant=False,
-                              preserve_rng_state=False)
+            batch = partition.current_batch()
+
+            def run(h):
+                with partition.global_batch(batch):
+                    return block(h, **kw)[0]
+
+            return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
         return block(x, **kw)[0]
 
     def _run(self, inputs, *, cache=None, cache_index=None, offset: int = 0,

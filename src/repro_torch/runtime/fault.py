@@ -12,6 +12,16 @@ train step is ``(opt_state, batch) -> (opt_state, metrics)``
 ``models.Model`` in the reference's layout (``models/convert.py``), so
 either package restores the other's; for any other module, its
 parameters and the optimizer state keyed by parameter name.
+
+Under a ``DeviceMesh`` (the model built and the driver run under
+``partition.activate(mesh)``, every rank calling ``run``) a checkpoint
+still holds whole leaves: ``state`` gathers them on every rank
+(``models/convert.py:reference_params``), each write is the collective
+``ckpt.save`` (rank 0 writes; a collective on the writer thread would
+race the step's, so the write is synchronous), and a resume restores
+each rank's slices (``restore(..., shardings=)`` with
+``convert.reference_shardings``): a checkpoint of one mesh resumes on
+another, on no mesh, or in the reference.
 """
 
 from __future__ import annotations
@@ -21,10 +31,12 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt import checkpoint as ckpt
 from ..models.convert import (load_reference_opt_state, load_reference_params,
-                              reference_opt_state, reference_params)
+                              reference_opt_state, reference_params, reference_shardings,
+                              reference_specs)
 from ..models.model import Model
 
 
@@ -71,7 +83,8 @@ class TrainDriver:
 
     def state(self, opt_state) -> Dict[str, Any]:
         """What a checkpoint holds: the parameters and the optimizer state
-        (in the reference's layout for a ``Model``), on the host."""
+        (in the reference's layout for a ``Model``, whole leaves), on the
+        host."""
         if isinstance(self.model, Model):
             return {"params": reference_params(self.model, exact=True),
                     "opt": reference_opt_state(self.model, opt_state)}
@@ -90,20 +103,44 @@ class TrainDriver:
                 dev = p.device
         return _map(state["opt"], lambda t: t.to(dev))
 
-    def resume_or_init(self, opt_state):
-        """Restore the newest checkpoint into the model and the optimizer
-        state if there is one; returns ``(start step, opt_state)``."""
-        step = ckpt.latest_step(self.cfg.ckpt_dir) if self.cfg.ckpt_dir else None
+    def resume_or_init(self, opt_state, step: Optional[int] = None):
+        """Restore the newest checkpoint (or that of ``step``) into the model
+        and the optimizer state if there is one; returns ``(start step,
+        opt_state)``."""
+        if step is None and self.cfg.ckpt_dir:
+            step = ckpt.latest_step(self.cfg.ckpt_dir)
         if step is None:
             return 0, opt_state
-        return step, self._load(ckpt.restore(self.cfg.ckpt_dir, self.state(opt_state)))
+        if not isinstance(self.model, Model):
+            return step, self._load(ckpt.restore(self.cfg.ckpt_dir, self.state(opt_state), step))
+        # the tree's whole shapes from the specs (nothing gathered), each
+        # rank's slices by the placements under a mesh
+        ref = reference_specs(self.model)
+        master = ref if opt_state.master is not None else None
+        like = {"params": ref, "opt": type(opt_state)(opt_state.step, ref, ref, master)}
+        places = None
+        if ckpt.meshed():
+            sh = reference_shardings(self.model)
+            places = {"params": sh, "opt": type(opt_state)(None, sh, sh, sh)}
+        return step, self._load(ckpt.restore(self.cfg.ckpt_dir, like, step, shardings=places))
+
+    def _save(self, writer, step: int, opt_state) -> None:
+        """A checkpoint of ``step``: on the writer thread, or under a
+        ``DeviceMesh`` the collective ``ckpt.save`` (the module's docstring)."""
+        if writer is not None:
+            writer.submit(step, self.state(opt_state))
+            return
+        ckpt.save(self.cfg.ckpt_dir, step, self.state(opt_state))
+        if dist.get_rank() == 0:
+            ckpt.prune(self.cfg.ckpt_dir, self.cfg.keep)
 
     def run(self, opt_state, num_steps: int, preempt_at: Optional[int] = None):
         """Steps from the newest checkpoint (or 0) to ``num_steps``; returns
         ``(opt_state, metrics_hist)``, the logged steps' metrics as floats."""
         start, opt_state = self.resume_or_init(opt_state)
         writer = (ckpt.AsyncCheckpointer(self.cfg.ckpt_dir, keep=self.cfg.keep)
-                  if self.cfg.ckpt_dir else None)
+                  if self.cfg.ckpt_dir and not ckpt.meshed() else None)
+        saving = self.cfg.ckpt_dir is not None
         metrics_hist = []
         try:
             t0 = time.perf_counter()
@@ -117,10 +154,11 @@ class TrainDriver:
                     m["steps_per_s"] = (step - start + 1) / (time.perf_counter() - t0)
                     metrics_hist.append((step, m))
                     self.log_fn(step, m)
-                if writer is not None and (step + 1) % self.cfg.ckpt_every == 0:
-                    writer.submit(step + 1, self.state(opt_state))
+                if saving and (step + 1) % self.cfg.ckpt_every == 0:
+                    self._save(writer, step + 1, opt_state)
+            if saving:
+                self._save(writer, num_steps, opt_state)
             if writer is not None:
-                writer.submit(num_steps, self.state(opt_state))
                 writer.wait()
         finally:
             if writer is not None:

@@ -18,24 +18,47 @@ named mesh axes (the ranks that share every other coordinate):
 * :func:`all_to_all`: splits a dimension into one block a rank and
   concatenates the blocks received along another.
 
-A group of one rank returns its input, so a ``(1, 1)`` mesh runs the
-bits of no mesh.  NCCL works on device tensors; gloo, which has no
-``all_gather``, ``reduce_scatter`` or ``all_to_all`` of CUDA tensors,
+A group of one rank returns its input, both ways, so a ``(1, 1)`` mesh
+runs the bits of no mesh.  NCCL works on device tensors; gloo, which has
+no ``all_gather``, ``reduce_scatter`` or ``all_to_all`` of CUDA tensors,
 works through host copies (as ``core/spmd.py:BatchSplit`` stages its
 rows).  Groups are made once per mesh and axes
 (``core/spmd.py:_cached_group``); every rank makes them in the same
-order because every rank runs the same layers.  No backward: the
-forward path runs under ``torch.inference_mode``.
+order because every rank runs the same layers (in the backward too, and
+``torch.utils.checkpoint`` repeats a layer's forward collectives there
+on every rank alike).
 
-Parameters are stored by their placements (``rules.py``): :func:`weight`
-gathers the dimensions a parameter stores split over the data (``fsdp``)
-axes, at its use, and the gathered copy is freed with the layer's
-temporaries.  The model axis stays split: the layers compute on it.
+**The backward.**  Each collective is a ``torch.autograd.Function``
+whose backward is its adjoint: an all-reduce sum's is an all-reduce sum
+of the gradients; an all-gather's along ``dim`` a reduce-scatter along
+``dim`` (the sum over the group, each rank keeping its own piece;
+bfloat16 and float16 summed in float32); an all-to-all's the all-to-all
+back, with the two dimensions swapped.  An all-reduce max takes no
+gradient: its one user, the split softmax's shift
+(``models/attention.py:_split_softmax``), cancels, as in
+``torch.logsumexp``.  A rank's backward then gives the gradient of the
+*sum over the ranks* of their copies of the loss, and a parameter stored
+whole on an axis is one variable with one copy a rank:
+``train/train_step.py`` seeds each rank with ``1 / ranks`` and sums the
+gradient of such a parameter over those axes (:func:`replicated_axes`).
+The mesh context is the process's (``partition``), so a backward that
+the autograd engine runs on a thread of its own sees its forward's mesh.
+
+**Planning.**  Under ``partition.planning()`` (an abstract mesh answered
+as one rank) there is no process group: each collective returns an
+uninitialised tensor of its result's shape (``new_empty``, which
+``launch/op_stats.py`` counts as no traffic) and adds its wire bytes to
+the counter of the innermost :func:`wire_bytes`, by the ring model of
+the reference's ``launch/hlo_stats.py``: an all-gather moves its output,
+an all-reduce twice its output, a reduce-scatter its input, an
+all-to-all its output.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import math
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -43,14 +66,21 @@ import torch.distributed as dist
 from ..core.spmd import _cached_group, _subgroups
 from . import partition
 
+#: The wire-byte counters of the open :func:`wire_bytes` blocks, innermost last.
+_WIRE: List[Dict[str, float]] = []
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+#: ``reduce_scatter_tensor``, named ``reduce_scatter_single`` from torch 2.13 on.
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
 
 def _mesh_axes(axes) -> Tuple[str, ...]:
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    return tuple(a for a in partition._CTX.shape if a in axes)
+    return tuple(a for a in partition.mesh_axes() if a in axes)
 
 
 def size(axes) -> int:
-    """Ranks in this rank's group over ``axes`` (1 without a ``DeviceMesh``)."""
+    """Ranks in this rank's group over ``axes`` (1 unless each rank holds
+    its own slices: a ``DeviceMesh`` or a planned rank)."""
     if not partition.distributed():
         return 1
     return partition.axes_size((axes,) if isinstance(axes, str) else axes)
@@ -65,6 +95,27 @@ def group(axes):
     return _cached_group(mesh, ("axes",) + axes, lambda: _subgroups(mesh, axes))
 
 
+@contextlib.contextmanager
+def wire_bytes():
+    """Count the wire bytes of the planned collectives of the block, by
+    kind (:data:`KINDS`); yields the counter."""
+    counter = {k: 0.0 for k in KINDS}
+    _WIRE.append(counter)
+    try:
+        yield counter
+    finally:
+        _WIRE.pop()
+
+
+def _planned(kind: str, x: torch.Tensor, shape, wire_of) -> torch.Tensor:
+    """A planned collective's result: ``new_empty(shape)``, and ``wire_of``
+    times the bytes of (``"in"``: ``x``, else the result) on the counter."""
+    nbytes = math.prod(x.shape if wire_of == "in" else shape) * x.element_size()
+    if _WIRE:
+        _WIRE[-1][kind] += (2.0 if kind == "all-reduce" else 1.0) * nbytes
+    return x.new_empty(tuple(shape))
+
+
 def _via_host(x: torch.Tensor, grp) -> bool:
     return x.device.type == "cuda" and dist.get_backend(grp) != "nccl"
 
@@ -77,12 +128,17 @@ def _staged(x: torch.Tensor, grp) -> torch.Tensor:
     return x.contiguous()
 
 
-def all_reduce(x: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
-    """The sum (or maximum) of ``x`` over the group of ``axes``, on every rank of it."""
-    if size(axes) == 1:
-        return x
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the dtype a sum of it takes: float32 for bfloat16 and float16."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def _reduce(x: torch.Tensor, axes, op: str) -> torch.Tensor:
+    """The sum (or maximum) of ``x`` over the group of ``axes`` (more than one rank)."""
+    if partition.planning():
+        return _planned("all-reduce", x, x.shape, "out")
     grp = group(axes)
-    wide = x.float() if op == "sum" and x.dtype in (torch.bfloat16, torch.float16) else x
+    wide = _wide(x) if op == "sum" else x
     buf = _staged(wide, grp)
     if buf is x:
         buf = x.clone()
@@ -90,35 +146,115 @@ def all_reduce(x: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
     return buf.to(device=x.device, dtype=x.dtype)
 
 
-def all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
-    """The group's pieces of ``x`` concatenated along ``dim`` in rank order
-    (every piece of ``x``'s shape)."""
+def _gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     n = size(axes)
-    if n == 1:
-        return x
+    if partition.planning():
+        shape = list(x.shape)
+        shape[dim] *= n
+        return _planned("all-gather", x, shape, "out")
     grp = group(axes)
     buf = _staged(x, grp)
     parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=grp)
-    return torch.cat(parts, dim=dim).to(x.device)
+    return torch.cat([p.to(x.device) for p in parts], dim=dim)
 
 
-def all_to_all(x: torch.Tensor, axes, split_dim: int, cat_dim: int) -> torch.Tensor:
-    """``x`` cut into one block a rank along ``split_dim``; block ``j`` goes
-    to rank ``j`` of the group, and the blocks received are concatenated
-    along ``cat_dim`` in rank order."""
+def _scatter(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """The reduce-scatter along ``dim``: the group's sum of ``x``, cut into
+    one block a rank in rank order; this rank's block."""
     n = size(axes)
-    if n == 1:
-        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    if partition.planning():
+        shape = list(x.shape)
+        shape[dim] //= n
+        return _planned("reduce-scatter", x, shape, "in")
+    grp = group(axes)
+    src = _staged(torch.movedim(_wide(x), dim, 0).contiguous(), grp)
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _REDUCE_SCATTER(out, src, group=grp)
+    return torch.movedim(out.to(device=x.device, dtype=x.dtype), 0, dim)
+
+
+def _to_all(x: torch.Tensor, axes, split_dim: int, cat_dim: int) -> torch.Tensor:
+    n = size(axes)
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dimension {split_dim} of {tuple(x.shape)} does not "
                          f"split over {n} ranks")
+    if partition.planning():
+        shape = list(x.shape)
+        shape[split_dim] //= n
+        shape[cat_dim] *= n
+        return _planned("all-to-all", x, shape, "out")
     grp = group(axes)
     src = _staged(torch.movedim(x, split_dim, 0).contiguous(), grp)
     dst = torch.empty_like(src)
     dist.all_to_all_single(dst, src, group=grp)
     blocks = torch.movedim(dst.to(x.device), 0, split_dim).chunk(n, dim=split_dim)
     return torch.cat(blocks, dim=cat_dim)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return _reduce(x, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.axes, "sum"), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return _gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.axes, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, split_dim, cat_dim):
+        ctx.axes, ctx.dims = axes, (split_dim, cat_dim)
+        return _to_all(x, axes, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return _to_all(g, ctx.axes, cat_dim, split_dim), None, None, None
+
+
+def all_reduce(x: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+    """The sum (or maximum) of ``x`` over the group of ``axes``, on every
+    rank of it; the sum's backward is the sum of the gradients, the
+    maximum takes none."""
+    if size(axes) == 1:
+        return x
+    if op == "max":
+        return _reduce(x.detach(), axes, "max")
+    return _AllReduce.apply(x, axes)
+
+
+def all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """The group's pieces of ``x`` concatenated along ``dim`` in rank order
+    (every piece of ``x``'s shape); the backward is the reduce-scatter."""
+    if size(axes) == 1:
+        return x
+    return _AllGather.apply(x, axes, dim)
+
+
+def all_to_all(x: torch.Tensor, axes, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """``x`` cut into one block a rank along ``split_dim``; block ``j`` goes
+    to rank ``j`` of the group, and the blocks received are concatenated
+    along ``cat_dim`` in rank order.  The backward is the all-to-all back."""
+    if size(axes) == 1:
+        return x
+    return _AllToAll.apply(x, axes, split_dim, cat_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +265,15 @@ def all_to_all(x: torch.Tensor, axes, split_dim: int, cat_dim: int) -> torch.Ten
 def spec_of(t: torch.Tensor):
     """The ``ParamSpec`` a parameter was made from (None for other tensors)."""
     return getattr(t, "spec", None)
+
+
+def with_spec(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` carrying ``like``'s ``ParamSpec`` as ``.spec`` (if it has one):
+    an optimizer or error-feedback state of a parameter's local shape."""
+    spec = spec_of(like)
+    if spec is not None:
+        t.spec = spec
+    return t
 
 
 def split_dims(t: torch.Tensor):
@@ -145,6 +290,25 @@ def split_dims(t: torch.Tensor):
         out = [(d, partition.entry_axes(e)) for d, e in enumerate(resolved) if e is not None]
         memo[key] = [(d, axes) for d, axes in out if size(axes) > 1]
     return memo[key]
+
+
+def stored_split(t: torch.Tensor) -> Tuple[str, ...]:
+    """The mesh axes (of more than one rank) the parameter ``t`` is stored
+    split over, in mesh order: a sum over its elements is completed by a
+    sum over them."""
+    axes = {a for _, ax in split_dims(t) for a in ax}
+    return tuple(a for a in partition.mesh_axes() if a in axes)
+
+
+def replicated_axes(t: torch.Tensor) -> Tuple[str, ...]:
+    """The mesh axes (of more than one rank) the parameter ``t`` is stored
+    whole on, in mesh order (empty unless each rank holds its own
+    slices): each rank's copy is one variable, so its gradient is summed
+    over them."""
+    if not partition.distributed():
+        return ()
+    split = set(stored_split(t))
+    return tuple(a for a in partition.mesh_axes() if size(a) > 1 and a not in split)
 
 
 def _data(axes) -> bool:

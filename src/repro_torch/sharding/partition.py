@@ -13,7 +13,11 @@ a 512-rank multi-pod mesh without per-architecture tuning.
 ``activate`` takes a ``torch.distributed.device_mesh.DeviceMesh``, or an
 abstract ``{axis: size}`` mapping (the counterpart of JAX's
 ``AbstractMesh``) for plans and tests at 256 or 512 ranks in one
-process.  :func:`resolve_spec` returns what the reference's
+process.  An abstract mapping with ``rank=r`` answers as rank ``r`` of
+that mesh (:func:`planning`): it stores and computes that rank's slices,
+and ``sharding/collectives.py`` gives each collective's result shape
+without a process group (``launch/dryrun.py`` plans on the meta device
+this way).  :func:`resolve_spec` returns what the reference's
 ``PartitionSpec`` holds, as a tuple: per dimension ``None``, one axis
 name, or a tuple of names.  :func:`placements` turns it into one
 ``Shard(d)`` / ``Replicate()`` per mesh dimension, the form a ``DTensor``
@@ -33,7 +37,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -55,12 +58,18 @@ DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
 }
 
 
-class _Ctx(threading.local):
+class _Ctx:
+    """The mesh context, one a process: each rank is a process of its own,
+    and the autograd engine runs a backward (and the recompute of a
+    ``torch.utils.checkpoint`` region) on a thread of its own, which must
+    see the forward's mesh."""
+
     def __init__(self):
         self.mesh = None
         self.shape: Dict[str, int] = {}
         self.rules: Dict[str, Tuple[str, ...]] = {}
         self.batch: Optional[int] = None
+        self.rank: Optional[int] = None
         self.memo: dict = {}
 
 
@@ -77,23 +86,34 @@ def mesh_shape(mesh) -> Dict[str, int]:
 
 
 @contextlib.contextmanager
-def activate(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
+def activate(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None,
+             rank: Optional[int] = None):
     """Make ``mesh`` (a ``DeviceMesh``, an ``{axis: size}`` mapping, or None)
-    and ``rules`` (default :data:`DEFAULT_RULES`) current for the block."""
-    prev = (_CTX.mesh, _CTX.shape, _CTX.rules, _CTX.memo)
+    and ``rules`` (default :data:`DEFAULT_RULES`) current for the block.
+    ``rank`` (an abstract mapping only) makes the process answer as that
+    rank of the mesh (:func:`planning`)."""
+    if rank is not None and not isinstance(mesh, Mapping):
+        raise ValueError("activate: rank= plans on an abstract {axis: size} mesh only")
+    prev = (_CTX.mesh, _CTX.shape, _CTX.rules, _CTX.memo, _CTX.rank)
     _CTX.mesh = mesh
     _CTX.shape = mesh_shape(mesh)
     _CTX.rules = dict(DEFAULT_RULES if rules is None else rules)
     _CTX.memo = {}
+    _CTX.rank = rank
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.shape, _CTX.rules, _CTX.memo = prev
+        _CTX.mesh, _CTX.shape, _CTX.rules, _CTX.memo, _CTX.rank = prev
 
 
 def active_mesh():
     """The mesh of the innermost :func:`activate`, or None."""
     return _CTX.mesh
+
+
+def mesh_axes() -> Tuple[str, ...]:
+    """The active mesh's axis names, in mesh order (empty without one)."""
+    return tuple(_CTX.shape)
 
 
 def memo() -> dict:
@@ -108,14 +128,28 @@ def axes_size(axes: Sequence[str]) -> int:
 
 
 def distributed() -> bool:
-    """Whether the active mesh is a ``DeviceMesh``: each rank then holds
-    its own slices (under an abstract mesh one process holds them all)."""
-    return _CTX.mesh is not None and not isinstance(_CTX.mesh, Mapping)
+    """Whether each rank holds its own slices: the active mesh is a
+    ``DeviceMesh``, or an abstract one planned as one rank
+    (:func:`planning`).  Under an abstract mesh without a rank one
+    process holds them all."""
+    return _CTX.mesh is not None and (not isinstance(_CTX.mesh, Mapping)
+                                      or _CTX.rank is not None)
+
+
+def planning() -> bool:
+    """Whether the active mesh is abstract and answered as one rank: no
+    process group exists, and a collective only gives its result's shape."""
+    return isinstance(_CTX.mesh, Mapping) and _CTX.rank is not None
 
 
 def coordinates() -> Dict[str, int]:
-    """This rank's index along each axis of the active ``DeviceMesh``
-    (every index 0 under an abstract mesh or none)."""
+    """This rank's index along each axis of the active ``DeviceMesh`` or
+    planned rank (every index 0 under an abstract mesh or none)."""
+    if planning():
+        coords, rest = {}, _CTX.rank
+        for ax in reversed(list(_CTX.shape)):
+            rest, coords[ax] = divmod(rest, _CTX.shape[ax])
+        return {ax: coords[ax] for ax in _CTX.shape}
     if not distributed():
         return {ax: 0 for ax in _CTX.shape}
     return dict(zip(_CTX.shape, _CTX.mesh.get_coordinate()))
@@ -149,9 +183,15 @@ def local_slices(shape: Sequence[int], logical_axes: Sequence[AxisName],
             return tuple(slice(0, d) for d in shape)
         coords = coordinates()
     spec = resolve_spec(shape, logical_axes) or (None,) * len(shape)
+    return _cut(shape, [entry_axes(e) for e in spec], coords)
+
+
+def _cut(shape: Sequence[int], dim_axes, coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """Each dimension cut into one equal block per rank of its mesh axes
+    (``dim_axes``: a tuple of axes a dimension), the block of ``coords``'
+    row-major index over those axes."""
     out = []
-    for dim, entry in zip(shape, spec):
-        axes = entry_axes(entry)
+    for dim, axes in zip(shape, dim_axes):
         n, idx = 1, 0
         for ax in axes:
             n *= _CTX.shape[ax]
@@ -273,6 +313,22 @@ def placements(shape: Sequence[int], logical_axes: Sequence[AxisName]):
         for ax in ((entry,) if isinstance(entry, str) else entry):
             by_axis[ax] = Shard(d)
     return tuple(by_axis.get(ax, Replicate()) for ax in _CTX.shape)
+
+
+def placement_slices(shape: Sequence[int], place,
+                     coords: Optional[Mapping[str, int]] = None) -> Tuple[slice, ...]:
+    """The index range, per dimension, that the rank at ``coords`` (default:
+    this rank's) holds of a ``shape`` tensor laid out by ``place`` (one
+    ``Shard(d)`` / ``Replicate()`` per axis of the active mesh, as
+    :func:`placements` gives them; None: whole).  A dimension sharded
+    along several axes is cut row-major over them in mesh order, as
+    :func:`local_slices` cuts it; without a ``DeviceMesh`` and without
+    ``coords`` every range is whole."""
+    if place is None or _CTX.mesh is None or (coords is None and not distributed()):
+        return tuple(slice(0, d) for d in shape)
+    dim_axes = [tuple(ax for ax, pl in zip(_CTX.shape, place) if getattr(pl, "dim", None) == d)
+                for d in range(len(shape))]
+    return _cut(shape, dim_axes, coordinates() if coords is None else coords)
 
 
 def constrain(x: torch.Tensor, logical_axes: Sequence[AxisName]) -> torch.Tensor:

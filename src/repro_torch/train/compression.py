@@ -17,6 +17,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..sharding import collectives as coll
+
 
 def _quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
@@ -40,10 +42,16 @@ def make_ef_compressor(leaf_of: Optional[Dict[str, str]] = None):
     to, and parameters of one leaf share a scale (the reference's leaves
     stack a group's layers: ``models/convert.py:reference_leaf_of(model)``
     gives that map); by default each parameter is a leaf of its own.
+
+    Under a mesh each rank holds its slices of the gradients: the scale
+    is the maximum over the whole leaf, an all-reduce max of the slices'
+    over the axes the leaf is stored split on (read from the error
+    state, which ``init_fn`` makes at the parameters' local shapes with
+    their ``.spec``), so every rank quantizes with the one-device scale.
     """
 
     def init_fn(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {k: coll.with_spec(torch.zeros(p.shape, dtype=torch.float32, device=p.device), p)
                 for k, p in params.items()}
 
     def compress_fn(grads: Dict[str, torch.Tensor], ef: Dict[str, torch.Tensor]):
@@ -54,10 +62,12 @@ def make_ef_compressor(leaf_of: Optional[Dict[str, str]] = None):
         new_g, new_e = {}, {}
         for names in leaves.values():
             amax = torch.stack([torch.max(torch.abs(tot[k])) for k in names]).max()
+            # a leaf's parameters share one spec, so one set of split axes
+            amax = coll.all_reduce(amax, coll.stored_split(ef[names[0]]), "max")
             scale = torch.clamp(amax, min=1e-12) / 127.0
             for k in names:
                 deq = _dequantize(_quantize_with(tot[k], scale), scale)
-                new_g[k], new_e[k] = deq, tot[k] - deq
+                new_g[k], new_e[k] = deq, coll.with_spec(tot[k] - deq, ef[k])
         return new_g, new_e
 
     return init_fn, compress_fn

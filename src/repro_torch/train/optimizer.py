@@ -15,6 +15,15 @@ cast to the parameter's dtype.  ``torch.optim.AdamW`` is not the same
 function: it divides ``sqrt(v)`` by ``sqrt(bc2)`` before adding ``eps``,
 and applies the decay as a separate multiply before the step, so it
 rounds differently (``tests/test_torch_optimizer.py`` shows it).
+
+Under a mesh each rank holds its slices of the parameters (``Model``
+built under ``partition.activate``), and the update, elementwise, runs
+on them: ``m``, ``v`` and ``master`` are made at the parameters' local
+shapes and carry their ``ParamSpec`` as ``.spec`` (a checkpoint gathers
+them by it).  :func:`global_norm` is the norm of the whole tree: each
+leaf's sum of squares over its slice, summed over the mesh axes the
+leaf is stored split on, a leaf stored whole counted once; so the clip
+scale is the same on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional
 
 import torch
+
+from ..sharding import collectives as coll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,13 +57,14 @@ class OptState(NamedTuple):
 
 def init(params: Dict[str, torch.Tensor], cfg: OptConfig) -> OptState:
     """Zeroed moments and (with ``master_weights``) a float32 copy of
-    ``params`` (a name -> tensor dict), on the parameters' devices."""
+    ``params`` (a name -> tensor dict), on the parameters' devices, each
+    with its parameter's ``.spec``."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return coll.with_spec(torch.zeros(p.shape, dtype=torch.float32, device=p.device), p)
 
     params = dict(params)
-    master = ({k: p.detach().to(torch.float32, copy=True) for k, p in params.items()}
-              if cfg.master_weights else None)
+    master = ({k: coll.with_spec(p.detach().to(torch.float32, copy=True), p)
+               for k, p in params.items()} if cfg.master_weights else None)
     dev = next(iter(params.values())).device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev),
                     {k: zeros(p) for k, p in params.items()},
@@ -78,12 +90,21 @@ def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, in the
-    dict's order (float32)."""
-    total = None
-    for g in tree.values():
+    dict's order (float32).  Under a mesh the leaves' sums are summed over
+    the axes each leaf's parameter in ``params`` is stored split on
+    (``collectives.stored_split`` of its ``.spec``): one partial sum a
+    set of axes, in the dict's order, all-reduced, then added in their
+    order (without a mesh, one partial sum: the plain order)."""
+    parts: Dict[tuple, torch.Tensor] = {}
+    for k, g in tree.items():
+        axes = coll.stored_split(params[k])
         s = torch.sum(g.to(torch.float32) ** 2)
+        parts[axes] = s if axes not in parts else parts[axes] + s
+    total = None
+    for axes, s in parts.items():
+        s = coll.all_reduce(s, axes) if axes else s
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -98,7 +119,7 @@ def update(grads: Dict[str, torch.Tensor], state: OptState, params: Dict[str, to
     step = state.step + 1
     lr = _schedule(cfg, state.step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, params)
     clip = _f32(cfg.grad_clip).to(gnorm.device)
     scale = torch.where(gnorm > clip, clip / torch.clamp(gnorm, min=1e-12),
                         torch.ones_like(gnorm))

@@ -15,18 +15,37 @@ Memory discipline for the large configs, as the reference's:
   float32 logits chunk is alive at a time;
 * gradient accumulation: ``accum`` microbatches, float32 accumulators.
 
-The reference's ``shard_like_params`` pins gradient shardings to the
-parameters' layout; on one device it does nothing and is left out.
+**Under a mesh** (``with partition.activate(mesh)``, a ``DeviceMesh``; the
+model built there, each rank storing its slices) every rank is given
+the whole batch: microbatch ``i`` is rows ``[i*mb, (i+1)*mb)`` of it, as
+in the reference, and ``Model.forward`` runs this rank's rows of each
+(``partition.batch_rows``).  The chunked cross-entropy sums ``(loss,
+count)`` over the rank's rows and all-reduces both over the batch axes,
+so every rank holds the global mean.  The collectives' backward is their
+adjoint (``sharding/collectives.py``), which gives the gradient of the
+sum over ranks of their loss copies: each rank seeds its backward with
+``1 / ranks``, and the gradient of a parameter is summed over the mesh
+axes it is stored whole on (``collectives.replicated_axes``: the norms,
+and every weight the divisibility fallback replicates), one all-reduce a
+bucket of parameters that share those axes and a dtype.  The gradient
+of a parameter split over the data axes is already summed there: the
+backward of its gather at use (``collectives.weight``) is the
+reduce-scatter the reference's ``shard_like_params`` asks XLA for.  On
+a ``(1, 1)`` mesh nothing of this runs, and the step is the bits of no
+mesh.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.model import Model
+from ..sharding import collectives as coll
+from ..sharding import partition
 from . import optimizer as opt_mod
 
 CE_CHUNK = 512
@@ -45,7 +64,14 @@ def _chunk_ce(model: Model, h: torch.Tensor, l: torch.Tensor):
 
 def chunked_ce_loss(model: Model, hidden: torch.Tensor, labels: torch.Tensor,
                     chunk: int = CE_CHUNK) -> torch.Tensor:
-    """Mean next-token CE without materializing full logits.
+    """Mean next-token CE without materializing full logits."""
+    total, count = chunked_ce_sums(model, hidden, labels, chunk)
+    return total / torch.clamp(count, min=1.0)
+
+
+def chunked_ce_sums(model: Model, hidden: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = CE_CHUNK):
+    """(sum of the token losses, count of valid labels), float32.
 
     The sequence is padded to whole chunks (labels -1, which count for
     nothing); the chunks' sums are added in order, as the reference's
@@ -68,16 +94,49 @@ def chunked_ce_loss(model: Model, hidden: torch.Tensor, labels: torch.Tensor,
             loss, n = _chunk_ce(model, h, l)
         total = total + loss
         count = count + n
-    return total / torch.clamp(count, min=1.0)
+    return total, count
 
 
 def make_loss_fn(model: Model, remat: bool = True):
+    """``loss_fn(batch) -> loss``: the forward and the chunked CE; under a
+    mesh, of the whole batch, on every rank (the module's docstring)."""
     def loss_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         inputs = {k: v for k, v in batch.items() if k != "labels"}
+        b = batch["tokens"].shape[0]
         hidden = model.forward(inputs, remat=remat)
-        return chunked_ce_loss(model, hidden, batch["labels"])
+        labels = batch["labels"][partition.batch_rows(b)]
+        axes = partition.split_axes(b, "batch")  # none without a split: the sums as they are
+        total, count = chunked_ce_sums(model, hidden, labels)
+        total, count = coll.all_reduce(total, axes), coll.all_reduce(count, axes)
+        return total / torch.clamp(count, min=1.0)
 
     return loss_fn
+
+
+def _ranks() -> int:
+    """The ranks that each hold a copy of the loss: the mesh's, when each
+    rank holds its own slices; else 1."""
+    if not partition.distributed():
+        return 1
+    return math.prod(partition.mesh_shape(partition.active_mesh()).values())
+
+
+def sum_replicated(grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]):
+    """``grads`` with each parameter's gradient summed over the mesh axes the
+    parameter is stored whole on (``collectives.replicated_axes``), one
+    all-reduce a bucket of parameters with the same axes and dtype (an
+    elementwise sum: the bits of one all-reduce a parameter)."""
+    buckets: Dict[tuple, list] = {}
+    for k, p in params.items():
+        axes = coll.replicated_axes(p)
+        if axes:
+            buckets.setdefault((axes, grads[k].dtype), []).append(k)
+    out = dict(grads)
+    for (axes, _), names in buckets.items():
+        flat = coll.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]), axes)
+        for k, part in zip(names, flat.split([grads[k].numel() for k in names])):
+            out[k] = part.view(grads[k].shape)
+    return out
 
 
 def make_train_step(
@@ -88,7 +147,8 @@ def make_train_step(
     compression=None,  # optional grad transform: (grads, opt_state) -> (grads, opt_state)
 ):
     """Returns ``train_step(opt_state, batch) -> (opt_state, metrics)``,
-    which updates ``model``'s parameters in place.
+    which updates ``model``'s parameters in place (under a mesh, this
+    rank's slices; the module's docstring).
 
     Microbatch i is rows ``[i*mb, (i+1)*mb)`` of the batch (``mb = B /
     accum``).  With ``accum > 1`` the gradients accumulate in float32 and
@@ -102,9 +162,11 @@ def make_train_step(
     names, leaves = list(params), list(params.values())
 
     def grad_fn(batch):
+        ranks = _ranks()
         with torch.enable_grad():
             loss = loss_fn(batch)
-            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+            seed = None if ranks == 1 else torch.full_like(loss, 1.0 / ranks)
+            grads = torch.autograd.grad(loss, leaves, grad_outputs=seed, materialize_grads=True)
         return loss.detach(), dict(zip(names, grads))
 
     def train_step(opt_state, batch):
@@ -127,6 +189,7 @@ def make_train_step(
             loss = lsum / accum
         else:
             loss, grads = grad_fn(batch)
+        grads = sum_replicated(grads, params)
 
         if compression is not None:
             grads, opt_state = compression(grads, opt_state)

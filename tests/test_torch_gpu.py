@@ -1441,3 +1441,66 @@ def test_nccl_refuses_more_ranks_than_cards(monkeypatch):
     monkeypatch.setenv("LOCAL_WORLD_SIZE", str(torch.cuda.device_count() + 1))
     with pytest.raises(ValueError, match="NCCL takes one rank a card"):
         mesh_lib.init_distributed("nccl", rank=0, world_size=torch.cuda.device_count() + 1)
+
+
+def test_train_mesh_nccl_one_rank_is_bit_equal_to_no_mesh(tmp_path):
+    """NCCL with one rank on the card: reduced gemma2 and deepseek (``topk``,
+    MLA) train two steps on a (1, 1) mesh (the mesh code path, every group
+    of one rank) to the meshless run's losses and parameters, bit for bit."""
+    _need_card()
+    import torch_mesh_worker as worker
+
+    (r,) = worker.spawn("torch_train_mesh_worker:card_nccl", 1, tmp_path)
+    assert "error" not in r, r.get("error")
+    for arch in ("gemma2-2b", "deepseek-v2-lite-16b"):
+        plain, mesh = r[(arch, "plain")], r[(arch, "mesh")]
+        assert plain["loss"] == mesh["loss"] and plain["grad_norm"] == mesh["grad_norm"], arch
+        assert plain["digest"] == mesh["digest"], arch
+
+
+def test_train_mesh_gloo_ranks_on_the_card_match_one_process(tmp_path):
+    """Four gloo ranks sharing the card on (2, 2): every family's train step
+    against this process's run on the card under the abstract (2, 2) mesh,
+    by the CPU test's gates (``tests/test_torch_mesh_train.py``)."""
+    _need_card()
+    import torch_mesh_worker as worker
+    import torch_train_mesh_worker as w
+    from test_torch_mesh_train import _gates
+    from repro_torch.sharding import partition
+
+    ranks = worker.spawn("torch_train_mesh_worker:card_gloo", 4, tmp_path)
+    for r in ranks:
+        assert "error" not in r, r.get("error")
+    for arch in w.ARCHS:
+        cfg = w.config(arch)
+        with partition.activate({"data": 2, "model": 2}):
+            one = w.train_case(cfg, device="cuda")
+            one["noise"] = w.train_case(cfg, device="cuda", nudge=11)
+        ratios = _gates(ranks[0][arch], one, cfg)
+        worst = max(ratios, key=ratios.get)
+        assert ratios[worst] <= 1.0, (arch, worst, ratios[worst])
+        assert all(r[arch]["digest"] == ranks[0][arch]["digest"] for r in ranks), arch
+
+
+def test_train_mesh_moe_at_full_width_holds_the_float64_witness(tmp_path, monkeypatch):
+    """deepseek-v2-lite-16b at full width cut to 3 layers (``topk``), 3 steps
+    of 4 x 128 tokens (``accum=2``) on 4 gloo ranks sharing the card on
+    (2, 2) (``chip_smoke.lm_train_mesh_moe_case``): every step's ranks
+    within the gate of the float64 witness set by the one-process float32
+    runs, each step's routing flips reported on its line."""
+    _need_card()
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    from repro_torch import configs
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the spawned ranks import it
+    monkeypatch.syspath_prepend(str(root))
+    spec.loader.exec_module(smoke)
+    row = smoke.lm_train_mesh_moe_case(configs, torch.device("cuda"), seed=0,
+                                       out_dir=str(tmp_path))
+    assert [s["ok"] for s in row["steps"]] == [True] * 3

@@ -1,8 +1,9 @@
 """The port's training launcher (``python -m repro_torch.launch.train``)
 and ``examples/torch_train_lm.py`` on the CPU: a reduced mamba2 run with
 checkpoints, a run preempted and resumed that ends on the same bits as
-the uninterrupted one, and the multi-device flag that waits for its
-slice."""
+the uninterrupted one, and ``--model-axis 2`` on 4 gloo ranks under
+``torchrun`` (a (2, 2) mesh), whose checkpoints hold whole leaves that
+the reference's ``restore`` reads as the port's does."""
 
 import os
 import subprocess
@@ -52,9 +53,39 @@ def test_launcher_trains_and_resumes_to_the_same_bits(tmp_path):
         np.testing.assert_array_equal(got[k], want[k])
 
 
-def test_model_axis_above_one_waits_for_the_multi_device_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="6.5"):
-        train.main([*ARGS, "--ckpt", str(tmp_path), "--model-axis", "2"])
+def test_model_axis_two_trains_on_four_gloo_ranks_and_writes_whole_leaves(tmp_path):
+    """``--model-axis 2`` on 4 gloo ranks (torchrun, ``--device cpu``): the
+    ranks train on a (2, 2) mesh, rank 0 logs, and the checkpoints hold
+    whole leaves, in the reference's layout: the reference's ``restore``
+    and the port's read the same bits, and the first step's loss is the
+    meshless run's within float32 rounding."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.ckpt import checkpoint as rckpt
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    ranks = tmp_path / "ranks"
+    env = {**_env(), "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *ARGS,
+                          "--ckpt", str(ranks), "--model-axis", "2"],
+                         capture_output=True, text=True, env=env, timeout=400)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("done: final loss") == 1  # rank 0 alone logs
+    assert (ranks / "LATEST").read_text() == "step_00000006"
+    alone = train.main([*ARGS, "--ckpt", str(tmp_path / "alone"), "--steps", "1"])
+    first = float(next(line.split()[3] for line in out.stdout.splitlines()
+                       if line.startswith("step     0")))
+    assert abs(first / alone[0][1]["loss"] - 1.0) < 1e-5
+    got = _arrays(ranks, 6)
+    like = {f"a{i}": np.zeros(a.shape, a.dtype) for i, a in enumerate(got.values())}
+    mine = ckpt.restore(str(ranks), [like[k] for k in sorted(like, key=lambda k: int(k[1:]))])
+    theirs = rckpt.restore(str(ranks), [jax.ShapeDtypeStruct(a.shape, jnp.dtype(a.dtype))
+                                         for a in got.values()])
+    for a, t, r in zip(got.values(), mine, theirs):
+        np.testing.assert_array_equal(t.numpy(), a)
+        np.testing.assert_array_equal(np.asarray(r), a)
 
 
 def test_example_trains_on_the_cpu(tmp_path):

@@ -325,6 +325,8 @@ def _card(rank, world, tmp):
 #: Scenarios on the card: the backend and device of their process group.
 CARD_BACKENDS = {"card_gloo": ("gloo", None), "card_nccl": ("nccl", None),
                  "torch_lm_mesh_worker:card_gloo": ("gloo", None),
-                 "torch_lm_mesh_worker:card_nccl": ("nccl", None)}
+                 "torch_lm_mesh_worker:card_nccl": ("nccl", None),
+                 "torch_train_mesh_worker:card_gloo": ("gloo", None),
+                 "torch_train_mesh_worker:card_nccl": ("nccl", None)}
 
 SCENARIOS = {"solve": _solve_all, "int8": _int8, "card_gloo": _card, "card_nccl": _card}

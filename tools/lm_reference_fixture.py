@@ -14,6 +14,8 @@
         --prompt-len 320 --out tests/data/lm_qwen2_vl_72b_reference.npz
     PYTHONPATH=src python3 tools/lm_reference_fixture.py --train \
         --out tests/data/lm_train_gemma2_2b_reference.npz
+    PYTHONPATH=src python3 tools/lm_reference_fixture.py --train --layers 4 --mesh 2,2 \
+        --out tests/data/lm_train_gemma2_2b_mesh_reference.npz
     PYTHONPATH=src python3 tools/lm_reference_fixture.py --eval --arch deepseek-v2-lite-16b \
         --layers 3 --router lp --out tests/data/lm_eval_deepseek_v2_lite_reference.npz
     PYTHONPATH=src python3 tools/lm_reference_fixture.py --arch deepseek-v2-lite-16b \
@@ -97,7 +99,11 @@ float64 (``_float64_everywhere(train=True)``); each run's loss,
 eval-step fixture (:func:`build_eval_fixture`): ``make_eval_step`` under
 ``--router`` (default ``lp``) on one batch of 2 x 256 tokens, the same
 three runs' losses and the count of router LPs.  On the chip machine's
-CPU they took 273 s and 146 s.
+CPU they took 273 s and 146 s.  ``--train --mesh DATA,MODEL`` runs every
+one of the training fixture's runs under that mesh (``Auto`` axes, as
+above; the fixture stores ``mesh``): the reference's sharded train step,
+which ``chip_smoke.py``'s ``lm_train_mesh`` phase holds the port's ranks
+against.
 
 Full width needs about 45 GB of host memory (the float32 weights as
 NumPy and as JAX arrays, then a nudged and a float64 copy) and a few
@@ -413,24 +419,46 @@ def change_samples(tree, seed: int, size: int = TRAIN_SAMPLE):
     return out
 
 
-def _train_run(cfg, tree, batches, samples, dtype):
+def _train_run(cfg, tree, batches, samples, dtype, mesh=None):
     """The reference's jitted train step (``TRAIN_ACCUM`` microbatches,
-    remat) over ``batches`` from ``tree`` (NumPy) in ``dtype``: the
-    metrics of each step and each leaf's change at its samples (float64)."""
+    remat) over ``batches`` from ``tree`` (NumPy) in ``dtype``, under
+    ``mesh`` if given: the metrics of each step and each leaf's change at
+    its samples (float64)."""
+    from repro.sharding import partition
+
+    with partition.activate(mesh):
+        return _train_steps(cfg, tree, batches, samples, dtype)
+
+
+def _train_steps(cfg, tree, batches, samples, dtype):
     import jax
     import jax.numpy as jnp
 
     from repro.models import Model
+    from repro.sharding import partition
     from repro.train import optimizer, train_step
 
     ocfg = optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
-    step = jax.jit(train_step.make_train_step(Model(dataclasses.replace(cfg, dtype=dtype)), ocfg,
-                                              accum=TRAIN_ACCUM, remat=True))
+    model = Model(dataclasses.replace(cfg, dtype=dtype))
+    step = jax.jit(train_step.make_train_step(model, ocfg, accum=TRAIN_ACCUM, remat=True))
     params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), tree)
     opt = optimizer.init(params, ocfg)
+    put = jnp.asarray
+    if partition.named_sharding((), ()) is not None:
+        # under a mesh: the parameters and the state laid out by their
+        # placements (one copy over the devices, not one a device), and
+        # each batch over the batch axes, as the reference's launcher puts them
+        ps = model.param_shardings()
+        params = jax.device_put(params, ps)
+        opt = jax.device_put(opt, optimizer.OptState(partition.named_sharding((), ()), ps, ps,
+                                                     ps if opt.master is not None else None))
+        rows = partition.named_sharding(batches[0]["tokens"].shape, ("batch", None))
+
+        def put(v):
+            return jax.device_put(v, rows)
     metrics = {"loss": [], "grad_norm": [], "lr": []}
     for b in batches:
-        params, opt, m = step(params, opt, {k: jnp.asarray(v) for k, v in b.items()})
+        params, opt, m = step(params, opt, {k: put(v) for k, v in b.items()})
         for k in metrics:
             metrics[k].append(float(m[k]))
     del opt
@@ -456,13 +484,19 @@ def _nudge_np(tree, seed):
 
 def build_train_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed: int = SEED,
                         layers: int = 2, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
-                        batch: int = TRAIN_BATCH, sample: int = TRAIN_SAMPLE) -> dict:
+                        batch: int = TRAIN_BATCH, sample: int = TRAIN_SAMPLE, mesh=None) -> dict:
     """The training fixture: the reference's train step ``steps`` times on
     ``SyntheticLM`` batches (seed ``seed``), from ``reference_weights``
     (cut to ``layers``): in float32, with the weights one ulp away
     (``TRAIN_NUDGES``), and with every step in float64; each run's loss,
     ``grad_norm`` and ``lr`` a step, and each leaf's change at its
-    samples (``change_samples``)."""
+    samples (``change_samples``).  With ``mesh`` the float32 runs are the
+    reference's sharded step under it; the float64 run too for a config
+    whose function the mesh changes (MoE token groups), and without it
+    for a dense one (the mesh only orders the float32 sums otherwise;
+    under a mesh of host devices the float64 run of gemma2-2b's 4 layers
+    passes the 96 GiB of the chip machine's host).  ``f64_mesh`` says
+    which."""
     from repro.configs import get_config
     from repro.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.configs import get_config as port_config
@@ -475,18 +509,23 @@ def build_train_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed:
     batches = [data.batch(s) for s in range(steps)]
     samples = change_samples(tree, seed + 7, sample)
     t0 = time.perf_counter()
-    m32, d32 = _train_run(cfg, tree, batches, samples, "float32")
+    m32, d32 = _train_run(cfg, tree, batches, samples, "float32", mesh)
     t32 = time.perf_counter() - t0
+    _progress("float32 run", t0)
     noise = {"loss": np.zeros(steps), "grad_norm": np.zeros(steps)}
     noise_delta = np.zeros(len(samples))
     for nudge in TRAIN_NUDGES:
-        mn, dn = _train_run(cfg, _nudge_np(tree, seed + nudge), batches, samples, "float32")
+        mn, dn = _train_run(cfg, _nudge_np(tree, seed + nudge), batches, samples, "float32",
+                            mesh)
         for k in noise:
             noise[k] = np.maximum(noise[k], np.abs(mn[k] / m32[k] - 1.0))
         noise_delta = np.maximum(noise_delta, [trimmed_rel(dn[p], d32[p], FLIP_SHARE)
                                                for p, _ in samples])
+        _progress(f"nudged run {nudge}", t0)
+    f64_mesh = mesh if cfg.num_experts else None
     with _float64_everywhere(train=True):
-        m64, d64 = _train_run(cfg, tree, batches, samples, "float64")
+        m64, d64 = _train_run(cfg, tree, batches, samples, "float64", f64_mesh)
+    _progress("float64 run", t0)
     paths = [p for p, _ in samples]
     sizes = np.asarray([idx.size for _, idx in samples], np.int64)
     return dict(
@@ -504,7 +543,18 @@ def build_train_fixture(arch: str = "gemma2-2b", *, reduced: bool = False, seed:
         delta=np.concatenate([d32[p] for p in paths]),
         f64_delta=np.concatenate([d64[p] for p in paths]),
         noise_delta=noise_delta, reference_seconds=np.float64(t32),
+        mesh=np.asarray(tuple(mesh.shape.values()) if mesh is not None else (), np.int64),
+        f64_mesh=np.bool_(f64_mesh is not None),
     )
+
+
+def _progress(what: str, t0: float) -> None:
+    """A line on stderr: the run done, the seconds since ``t0``, the peak RSS."""
+    import resource
+
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"{what}: {time.perf_counter() - t0:.1f} s, peak RSS {rss:.1f} GiB", file=sys.stderr,
+          flush=True)
 
 
 def build_eval_fixture(arch: str = "deepseek-v2-lite-16b", *, reduced: bool = False,
@@ -589,7 +639,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.out is None:
-        name = ("lm_train_gemma2_2b_reference.npz" if args.train else
+        name = (("lm_train_gemma2_2b_mesh_reference.npz" if args.mesh else
+                 "lm_train_gemma2_2b_reference.npz") if args.train else
                 "lm_eval_deepseek_v2_lite_reference.npz" if args.eval else
                 "lm_gemma2_2b_reference.npz")
         args.out = str(ROOT / "tests" / "data" / name)
@@ -610,7 +661,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.train or args.eval:
         if args.train:
-            fx = build_train_fixture(args.arch, layers=args.layers or 2)
+            fx = build_train_fixture(args.arch, layers=args.layers or 2, mesh=mesh)
         else:
             fx = build_eval_fixture(args.arch, layers=args.layers or 3, router=args.router or "lp")
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
