@@ -197,10 +197,30 @@ line is printed:
    handoff must fail; one layer's inter-chunk loop timed alone (8,192
    launches); then bfloat16 ``Engine.generate`` of 32 steps, prefill and
    decode ms beside their bounds, the cache's bytes equal to a
-   4,096-token prompt's.  qwen2-vl-72b has no serve row (143 GB in
-   bfloat16).
+   4,096-token prompt's.  qwen2-vl-72b's 2-layer bfloat16 model goes on
+   to slice 16 (143 GB whole in bfloat16).
 
-   Slice 12, training, after slice 11, with the launch counts set to 0
+   Slice 16, the catalog's last five configurations, after slice 11, with
+   the launch counts set to 0 before and read after
+   (``lm_catalog_phase``): ``Engine.generate`` with no device argument,
+   bfloat16, 8 prompts of 4,096 tokens after a 4-step warm-up on 128,
+   then 32 greedy steps, on qwen2-vl-72b (slice 11's 2 layers; 256 patch
+   embeddings and M-RoPE positions), qwen1.5-4b (all 40 layers: MHA with
+   QKV bias), internlm2-20b (all 48), dbrx-132b (4 of 40 layers, under
+   ``topk`` and ``lp`` on one loaded model: every router LP, 24 x 128, on
+   the simplex kernel, each replayed bit-identical on
+   ``simplex_plain``; dropped share and load) and command-r-plus-104b (8
+   of 64; its 3.1 G-element embedding's rows past element 2**31 against
+   plain slicing), each made by ``Model.init`` on the card and freed
+   before the next: prefill and decode ms beside their bounds, peak
+   memory, cache bytes, finite logits and in-vocabulary tokens; every
+   count 0 but the simplex kernel's under dbrx's ``lp``.  Then dbrx's
+   router LP on the kernel against its plain version
+   (``lm_dbrx_serve_router_lp``).  The catalog's float32 reference
+   fixtures are the ``gpu`` tier's (``tests/test_torch_gpu.py -k
+   catalog``).
+
+   Slice 12, training, after slice 16, with the launch counts set to 0
    before and read after.  ``lm_train_reference``: gemma2-2b at full
    width cut to 2 layers, float32, three train steps (``accum=2``, 4 x
    128 tokens of ``SyntheticLM``, lr 1e-3 after 2 warm-up steps) against
@@ -313,8 +333,8 @@ of slice 7.
 
 Then a ``{"kernels": [...]}`` line (the simplex, revised and PDHG
 entries list their variants with their case names; the simplex entry's
-``lm_router`` holds the router's case; ``launches`` counts slice 13's
-and slices 14 and 15's ranks too, ``mesh_path_launches`` gives slice 13's per
+``lm_router`` holds deepseek's router case and ``lm_catalog_router``
+dbrx's; ``launches`` counts slice 13's and slices 14 and 15's ranks too, ``mesh_path_launches`` gives slice 13's per
 rank and the simplex entry's ``lm_mesh_router`` and ``lm_train_mesh_router``
 slices 14 and 15's), the ``nvidia-smi``
 name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  The
@@ -2275,6 +2295,9 @@ LM_SERVE_BATCH = 8
 LM_SERVE_PROMPT = 4096
 LM_SERVE_STEPS = 128
 LM_BF16_FACTOR = 1.5
+#: The serve rows' warm-up before their timed run: a prompt of this many
+#: tokens, 4 steps.
+LM_WARM_PROMPT = 128
 #: H100 SXM data sheet: bfloat16 dense tensor-core peak.
 PEAK_FLOPS_BF16 = 989e12
 
@@ -2907,34 +2930,42 @@ class RoutingStats:
 
 
 def lm_moe_prefill_flops(model, batch, s, kept) -> float:
-    """Matrix-product FLOPs a prefill needs: every layer's MLA projections
-    and causal attention, the dense FFN, the router, the ``kept`` expert
+    """Matrix-product FLOPs a prefill needs: every layer's attention
+    projections (MLA's, or GQA's where the config has no latent rank) and
+    causal scores, the dense FFN, the router, the ``kept`` expert
     assignments (this run's count) and the shared experts, and the
     unembedding of the last position."""
     cfg = model.cfg
     d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
-    qk, v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
     tokens = batch * s
     keys = batch * s * (s + 1) // 2
-    attn = (2 * tokens * (d * h * qk + d * (r + cfg.qk_rope_dim) + r * h * (cfg.qk_nope_dim + v)
-                          + h * v * d)
-            + 2 * keys * h * (qk + v))
+    if r:
+        qk, v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+        attn = (2 * tokens * (d * h * qk + d * (r + cfg.qk_rope_dim)
+                              + r * h * (cfg.qk_nope_dim + v) + h * v * d)
+                + 2 * keys * h * (qk + v))
+    else:
+        attn = (2 * tokens * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim)
+                + 4 * keys * h * cfg.head_dim)
     kinds = model.kinds()
-    dense = sum(k == "mla_dense" for k in kinds) * 6 * tokens * d * (cfg.d_ff_dense or cfg.d_ff)
-    n_moe = sum(k == "mla_moe" for k in kinds)
+    dense = (sum(k.endswith("_dense") for k in kinds) * 6 * tokens * d
+             * (cfg.d_ff_dense or cfg.d_ff))
+    n_moe = sum(k.endswith("_moe") for k in kinds)
     moe = (n_moe * tokens * (2 * d * cfg.num_experts + 6 * d * cfg.d_ff * cfg.num_shared_experts)
            + kept * 6 * d * cfg.d_ff)
     return float(len(kinds) * attn + dense + moe + 2 * batch * d * cfg.padded_vocab)
 
 
 def lm_moe_serve_case(model, router, *, seed, counters, batch=LM_SERVE_BATCH,
-                      prompt=LM_SERVE_PROMPT, steps=LM_SERVE_STEPS) -> dict:
-    """``lm_moe_serve`` for one router: ``Engine.generate`` with no device
-    argument on the loaded model, greedy; prefill and decode times beside
-    their bounds, peak memory, the routing's dropped share and expert load,
-    the simplex launches (0 under ``topk``, one a MoE layer a call under
-    ``lp``, all of the cluster variant), and the first calls' router LPs
-    re-run through the plain version."""
+                      prompt=LM_SERVE_PROMPT, steps=LM_SERVE_STEPS, row="lm_moe_serve",
+                      capture_calls=LM_MOE_CAPTURE_CALLS) -> dict:
+    """``row`` (``lm_moe_serve``) for one router: ``Engine.generate`` with
+    no device argument on the loaded model, greedy; prefill and decode
+    times beside their bounds, peak memory, the routing's dropped share and
+    expert load, the simplex launches (0 under ``topk``, one a MoE layer a
+    call under ``lp``, all of the cluster variant), and the router LPs of
+    the first ``capture_calls`` calls (None: of every call) re-run through
+    the plain version.  MLA models cache latents, GQA ones (dbrx) K and V."""
     from repro_torch.configs import Shape, make_inputs
     from repro_torch.kernels import simplex_cuda
     from repro_torch.serve.engine import Engine
@@ -2945,10 +2976,11 @@ def lm_moe_serve_case(model, router, *, seed, counters, batch=LM_SERVE_BATCH,
     engine = Engine(model, max_len=prompt + steps)
     tokens = make_inputs(cfg, Shape("lm_moe_serve", prompt, batch, "prefill"), seed + 3,
                          device=model.device)["tokens"]
-    engine.generate({"tokens": tokens[:, :128]}, steps=4)  # warm-up: handles, allocator, build
+    engine.generate({"tokens": tokens[:, :LM_WARM_PROMPT]}, steps=4)  # warm-up: handles, build
     engine.cache = None
     before = launch_counts(counters)
-    with SimplexSpy(simplex_cuda, limit=LM_MOE_CAPTURE_CALLS * n_moe) as spy, \
+    captured = (steps if capture_calls is None else capture_calls) * n_moe
+    with SimplexSpy(simplex_cuda, limit=captured) as spy, \
             RoutingStats() as routing:
         out, wall, prefill_ms, step_ms, rows = timed_generate(engine, model, {"tokens": tokens},
                                                               steps)
@@ -2962,8 +2994,12 @@ def lm_moe_serve_case(model, router, *, seed, counters, batch=LM_SERVE_BATCH,
     del routing
     weights = lm_param_bytes(model)
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    cache_bytes = [len(model.kinds()) * batch * (prompt + i + 1)
-                   * (cfg.kv_lora_rank + cfg.qk_rope_dim) * item for i in range(steps - 1)]
+    if cfg.kv_lora_rank:
+        cache_bytes = [len(model.kinds()) * batch * (prompt + i + 1)
+                       * (cfg.kv_lora_rank + cfg.qk_rope_dim) * item for i in range(steps - 1)]
+    else:
+        cache_bytes = [lm_decode_kv_bytes(model, batch, prompt + i, item)
+                       for i in range(steps - 1)]
     decode_bound = (weights + float(np.median(cache_bytes))) / HBM_BYTES_PER_S * 1e3
     flops = lm_moe_prefill_flops(model, batch, prompt, kept)
     res = dict(
@@ -2978,22 +3014,84 @@ def lm_moe_serve_case(model, router, *, seed, counters, batch=LM_SERVE_BATCH,
         captured_lps=len(spy.records), captured_bit_identical=sum(replayed),
         all_logits_finite=all_finite,
         tokens_in_vocab=bool(((out >= 0) & (out < cfg.vocab_size)).all()))
-    emit("lm_moe_serve", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers, batch=batch,
+    emit(row, arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers, batch=batch,
          prompt=prompt, steps=steps, nvidia_smi=smi_line(), **res)
     check(all_finite and res["tokens_in_vocab"],
-          f"lm_moe_serve {router}: non-finite logits or bad tokens")
+          f"{row} {router}: non-finite logits or bad tokens")
     check(spy.calls == expect and launched["simplex"] == expect
           and launched["simplex.cluster"] == expect,
-          f"lm_moe_serve {router}: {spy.calls} router LPs, launches {launched}, not {expect}")
+          f"{row} {router}: {spy.calls} router LPs, launches {launched}, not {expect}")
     check(not any(v for k, v in launched.items() if not k.startswith("simplex")),
-          f"lm_moe_serve {router}: another kernel of the port launched: {launched}")
-    check(len(spy.records) == (LM_MOE_CAPTURE_CALLS * n_moe if router == "lp" else 0)
-          and all(replayed),
-          f"lm_moe_serve {router}: {sum(replayed)} of {len(replayed)} captured router LPs "
+          f"{row} {router}: another kernel of the port launched: {launched}")
+    check(len(spy.records) == (captured if router == "lp" else 0) and all(replayed),
+          f"{row} {router}: {sum(replayed)} of {len(replayed)} captured router LPs "
           "bit-identical to simplex_plain")
     if router == "lp":
         res["_records"] = spy.records
     return res
+
+
+def lm_moe_reference_rows(rt_configs, dev, arch, path, *, counters,
+                          setup="lm_moe_setup") -> dict:
+    """``lm_moe_reference`` for each of the fixture's routers: ``arch`` at
+    full width cut to the fixture's depth, weights from ``reference_weights``
+    (checked against its digest), float32 and bfloat16 on one loaded pair
+    of models (``lm_moe_reference_case``); a ``setup`` line first."""
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, weights_digest
+
+    check(path.exists(), f"the MoE fixture {path} is missing")
+    fixture = dict(np.load(path))
+    cfg = rt_configs.get_config(arch)
+    cut = dataclasses.replace(cfg, num_layers=int(fixture["layers"]))
+    t0 = time.perf_counter()
+    tree = reference_tree(cut, int(fixture["seed"]))
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
+          f"the {arch} weights drawn here differ from the fixture's")
+    t0 = time.perf_counter()
+    model = load_reference_params(Model(dataclasses.replace(cut, dtype="float32"), device=dev),
+                                  tree)
+    model16 = load_reference_params(Model(cut, device=dev), tree)
+    del tree
+    load_s = time.perf_counter() - t0
+    emit(setup, arch=cfg.name, layers=cut.num_layers, kinds=model.kinds(),
+         params=sum(p.numel() for p in model.parameters()), param_count=cut.param_count(),
+         full_param_count=cfg.param_count(), weights_s=gen_s, load_s=load_s)
+    routers = [str(r) for r in np.asarray(fixture["routers"])]
+    out = {r: lm_moe_reference_case(model, model16, fixture, r, counters=counters)
+           for r in routers}
+    del model, model16
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_router_lp_case(serve, dev, *, n_moe, launches, row="lm_router_lp") -> dict:
+    """The router's LP on the simplex kernel against its plain version
+    (``simplex_case``) at its prefill shape: the ``lp`` serve row's first
+    captured LP (the prefill's first MoE layer); its ms beside the serve
+    row's decode step, ``launches`` the path's simplex count."""
+    from repro_torch.core.lp import LPBatch
+
+    rec = serve["lp"].pop("_records")[0]
+    tab = rec["inputs"][0]
+    spec = rec["kw"]["spec"]
+    a = tab[:, :spec.m, 1:1 + spec.n].clone()
+    b = tab[:, :spec.m, 0].clone()
+    c = rec["inputs"][3][:, 1:1 + spec.n].clone()
+    kernel = simplex_case(Timer(dev), name=f"lm_router_{spec.m}x{spec.n}_f32_lpc",
+                          batch=LPBatch(a, b, c), cap=rec["cap"], reps=20, want="cluster")
+    lp_ms = kernel["kernel_ms"]
+    router = dict(case=kernel["case"], m=spec.m, n=spec.n, kernel_ms=lp_ms,
+                  plain_ms=kernel["plain_ms"], bound_ms=kernel["bound_ms"],
+                  bound_by=kernel["bound_by"], max_abs_err=kernel["max_abs_err"],
+                  pivots=kernel["pivots"], variant=kernel["variant"], k=kernel["k"],
+                  launches=launches,
+                  lp_kernel_share_of_decode_step=n_moe * lp_ms / serve["lp"]["decode_ms_median"],
+                  lp_decode_step_over_topk=serve["lp"]["decode_ms_median"]
+                  / serve["topk"]["decode_ms_median"])
+    emit(row, nvidia_smi=smi_line(), **router)
+    return router
 
 
 def lm_moe_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
@@ -3003,40 +3101,10 @@ def lm_moe_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
     depth, bfloat16, ``Model.init`` on the card) for each router on one
     loaded model, with the launch counts set to 0 before and read after;
     then the router's LP on the simplex kernel against its plain version
-    (``simplex_case``) at its prefill shape."""
-    from repro_torch.core.lp import LPBatch
-    from repro_torch.models import Model
-    from repro_torch.models.convert import load_reference_params, weights_digest
-
-    check(LM_MOE_FIXTURE.exists(), f"the MoE fixture {LM_MOE_FIXTURE} is missing")
-    fixture = dict(np.load(LM_MOE_FIXTURE))
-    cfg = rt_configs.get_config(LM_MOE_ARCH)
-    cut = dataclasses.replace(cfg, num_layers=int(fixture["layers"]))
-    t0 = time.perf_counter()
-    tree = reference_tree(cut, int(fixture["seed"]))
-    gen_s = time.perf_counter() - t0
-    check(np.array_equal(weights_digest(tree), fixture["weights_digest"]),
-          "the MoE weights drawn here differ from the fixture's")
-    t0 = time.perf_counter()
-    model = load_reference_params(Model(dataclasses.replace(cut, dtype="float32"), device=dev),
-                                  tree)
-    model16 = load_reference_params(Model(cut, device=dev), tree)
-    del tree
-    load_s = time.perf_counter() - t0
-    emit("lm_moe_setup", arch=cfg.name, layers=cut.num_layers, kinds=model.kinds(),
-         params=sum(p.numel() for p in model.parameters()), param_count=cut.param_count(),
-         full_param_count=cfg.param_count(), weights_s=gen_s, load_s=load_s)
-    reference = {r: lm_moe_reference_case(model, model16, fixture, r, counters=counters)
-                 for r in LM_MOE_ROUTERS}
-    del model, model16
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
-    torch.cuda.synchronize()
-    emit("lm_moe_serve_setup", arch=cfg.name, layers=cfg.num_layers,
-         params=sum(p.numel() for p in model.parameters()),
-         param_bytes=lm_param_bytes(model), init_s=time.perf_counter() - t0)
+    (``lm_router_lp_case``) at its prefill shape."""
+    reference = lm_moe_reference_rows(rt_configs, dev, LM_MOE_ARCH, LM_MOE_FIXTURE,
+                                      counters=counters)
+    model = lm_init_model(rt_configs, dev, LM_MOE_ARCH, seed, "lm_moe_serve_setup")
     reset()
     serve = {r: lm_moe_serve_case(model, r, seed=seed, counters=counters)
              for r in LM_MOE_ROUTERS}
@@ -3045,28 +3113,7 @@ def lm_moe_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
     n_moe = moe_layer_count(model)
     del model
     torch.cuda.empty_cache()
-
-    # The router's LP on the kernel against its plain version: the
-    # prefill's first MoE layer, as captured.
-    rec = serve["lp"].pop("_records")[0]
-    tab, basis = rec["inputs"][0], rec["inputs"][1]
-    spec = rec["kw"]["spec"]
-    a = tab[:, :spec.m, 1:1 + spec.n].clone()
-    b = tab[:, :spec.m, 0].clone()
-    c = rec["inputs"][3][:, 1:1 + spec.n].clone()
-    timer = Timer(dev)
-    kernel = simplex_case(timer, name=f"lm_router_{spec.m}x{spec.n}_f32_lpc",
-                          batch=LPBatch(a, b, c), cap=rec["cap"], reps=20, want="cluster")
-    lp_ms = kernel["kernel_ms"]
-    router = dict(case=kernel["case"], m=spec.m, n=spec.n, kernel_ms=lp_ms,
-                  plain_ms=kernel["plain_ms"], bound_ms=kernel["bound_ms"],
-                  bound_by=kernel["bound_by"], max_abs_err=kernel["max_abs_err"],
-                  pivots=kernel["pivots"], variant=kernel["variant"], k=kernel["k"],
-                  launches=launched["simplex"],
-                  lp_kernel_share_of_decode_step=n_moe * lp_ms / serve["lp"]["decode_ms_median"],
-                  lp_decode_step_over_topk=serve["lp"]["decode_ms_median"]
-                  / serve["topk"]["decode_ms_median"])
-    emit("lm_router_lp", nvidia_smi=smi_line(), **router)
+    router = lm_router_lp_case(serve, dev, n_moe=n_moe, launches=launched["simplex"])
     return dict(reference=reference, serve=serve, router=router, launches=launched)
 
 
@@ -3104,18 +3151,19 @@ def lm_fixture_config(cfg, fixture):
     return dataclasses.replace(cfg, **cut)
 
 
-def lm_family_reference(rt_configs, dev, row) -> tuple:
+def lm_family_reference(rt_configs, dev, row, fixtures=None) -> tuple:
     """``<row>_reference``: the config at full width cut to its fixture's
-    depth, weights from ``reference_weights`` (checked against the
-    fixture's digest), float32 against the fixture with ``lm_reference``'s
-    row gates (TF32 must fail them), then bfloat16 within
-    ``LM_BF16_FACTOR`` times the reference's bfloat16 gap.  Returns the
-    float32 and bfloat16 models and the line's fields."""
+    depth (``fixtures[row]``: the config and its fixture, by default
+    ``LM_FAMILY_FIXTURES``), weights from ``reference_weights`` (checked
+    against the fixture's digest), float32 against the fixture with
+    ``lm_reference``'s row gates (TF32 must fail them), then bfloat16
+    within ``LM_BF16_FACTOR`` times the reference's bfloat16 gap.  Returns
+    the float32 and bfloat16 models and the line's fields."""
     from repro_torch.models import Model
     from repro_torch.models.convert import (load_reference_params, reference_weights,
                                             weights_digest)
 
-    arch, path = LM_FAMILY_FIXTURES[row]
+    arch, path = (LM_FAMILY_FIXTURES if fixtures is None else fixtures)[row]
     check(path.exists(), f"the fixture {path} is missing")
     fixture = dict(np.load(path))
     t_row = time.perf_counter()
@@ -3179,9 +3227,10 @@ def lm_family_serve_case(model, row, *, seed, counters, batch=LM_SERVE_BATCH,
     inputs = lm_serve_inputs(cfg, row, batch, prompt, seed, model.device)
     enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
     engine = Engine(model, max_len=prompt + steps, enc_len=enc_len)
-    warm = dict(inputs, tokens=inputs["tokens"][:, :128])
-    if "positions" in warm:
-        warm["positions"] = inputs["positions"][:, :128]
+    # The warm-up's prompt: the first LM_WARM_PROMPT tokens, with their
+    # positions and patch embeddings (the frames stay whole: ``enc_len``).
+    warm = {k: v[:, :LM_WARM_PROMPT] if k in ("tokens", "positions", "patch_embeds") else v
+            for k, v in inputs.items()}
     engine.generate(warm, steps=4)  # warm-up: handles, allocator
     engine.cache = None
     before = launch_counts(counters)
@@ -3337,14 +3386,16 @@ def lm_ssm_long_case(model, model16, *, seed, counters, prompt=LM_LONG_PROMPT,
     return res
 
 
-def lm_init_model(rt_configs, dev, arch, seed, phase):
-    """The config at full width and depth in its dtype, ``Model.init`` on
-    the card from a generator seeded ``seed``; a ``phase`` line with its
-    size and the seconds it took."""
+def lm_init_model(rt_configs, dev, arch, seed, phase, layers=0):
+    """The config at full width and depth (cut to ``layers`` if given) in
+    its dtype, ``Model.init`` on the card from a generator seeded ``seed``;
+    a ``phase`` line with its size and the seconds it took."""
     from repro_torch.models import Model
 
     t0 = time.perf_counter()
     cfg = rt_configs.get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
     torch.cuda.synchronize()
     emit(phase, arch=cfg.name, layers=cfg.num_layers, enc_layers=cfg.enc_layers,
@@ -3356,10 +3407,11 @@ def lm_init_model(rt_configs, dev, arch, seed, phase):
 def lm_families_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
     """Slice 11: mamba2-130m (full depth), zamba2-7b (7 layers for the
     fixture, 81 to serve), seamless-m4t-large-v2 (1 + 1 layers for the
-    fixture, 24 + 24 to serve) and qwen2-vl-72b (2 layers; no serve row,
-    143 GB in bfloat16 does not fit one card), each ``<row>_reference``
-    then its serve rows, with the launch counts set to 0 before and read
-    after (no kernel of the port lies on these paths)."""
+    fixture, 24 + 24 to serve) and qwen2-vl-72b (2 layers; 143 GB in
+    bfloat16 does not fit one card whole), each ``<row>_reference`` then
+    its serve rows, with the launch counts set to 0 before and read after
+    (no kernel of the port lies on these paths).  qwen2-vl's bfloat16 model
+    comes back as ``vlm_model``: slice 16 serves it."""
     reset()
     t0 = time.perf_counter()
     model, model16, ssm = lm_family_reference(rt_configs, dev, "lm_ssm")
@@ -3404,15 +3456,112 @@ def lm_families_phase(rt_configs, dev, *, seed, counters, reset) -> dict:
     del model16
     torch.cuda.empty_cache()
 
-    model, model16, vlm = lm_family_reference(rt_configs, dev, "lm_vlm")
-    del model, model16
+    model, vlm_model, vlm = lm_family_reference(rt_configs, dev, "lm_vlm")
+    del model
     torch.cuda.empty_cache()
     launched = launch_counts(counters)
     check(not any(launched.values()), f"the slice-11 paths launched a kernel of the port: {launched}")
     emit("main_path_summary", path="slice11_lm_families", launches=launched,
          wall_s=time.perf_counter() - t0)
     return dict(ssm=ssm, ssm_serve=ssm_serve, long=long, hybrid=hybrid,
-                hybrid_serve=hybrid_serve, encdec=encdec, encdec_serve=encdec_serve, vlm=vlm)
+                hybrid_serve=hybrid_serve, encdec=encdec, encdec_serve=encdec_serve, vlm=vlm,
+                vlm_model=vlm_model)
+
+
+# -- slice 16: the catalog's last five configurations at full width ---------
+
+#: ``lm_catalog_phase``'s rows after ``lm_vlm_serve``: the line, the config,
+#: the depth it is cut to (0: whole; the widths are the config's), and the
+#: MoE routers it is served under (None: a dense model).
+LM_CATALOG_ROWS = (
+    ("lm_qwen15_serve", "qwen1.5-4b", 0, None),
+    ("lm_internlm2_serve", "internlm2-20b", 0, None),
+    ("lm_dbrx_serve", "dbrx-132b", 4, ("topk", "lp")),
+    ("lm_command_r_serve", "command-r-plus-104b", 8, None),
+)
+#: Greedy decode steps of each catalog row, after the 4-step warm-up.
+LM_CATALOG_STEPS = 32
+#: The catalog's reference fixtures (``tools/lm_reference_fixture.py``):
+#: the ``gpu`` tier holds them (``tests/test_torch_gpu.py -k catalog``), not
+#: this script, whose time has no room to draw their NumPy weights.
+LM_CATALOG_FIXTURES = {
+    "lm_qwen15": ("qwen1.5-4b", ROOT / "tests" / "data" / "lm_qwen15_4b_reference.npz"),
+    "lm_internlm2": ("internlm2-20b", ROOT / "tests" / "data" / "lm_internlm2_20b_reference.npz"),
+    "lm_command_r": ("command-r-plus-104b",
+                     ROOT / "tests" / "data" / "lm_command_r_plus_104b_reference.npz"),
+}
+LM_CATALOG_MOE_FIXTURE = ("dbrx-132b", ROOT / "tests" / "data" / "lm_dbrx_132b_reference.npz")
+
+
+def lm_table_rows_case(model, row) -> dict:
+    """The embedding's rows around element 2**31 of its table (and the
+    last row), looked up by ``embed`` as the model does, against the same
+    rows read by plain slicing: a 32-bit offset anywhere in the lookup
+    would wrap there.  A ``<row>_table`` line."""
+    table = model.embed["embedding"]
+    v, d = table.shape
+    first = (1 << 31) // d + 1  # the first row that starts past element 2**31
+    ids = sorted({0, min(first - 1, v - 1), min(first, v - 1), v - 1})
+    tokens = torch.as_tensor(ids, device=table.device)[None]
+    with torch.inference_mode():
+        got = model._embed_inputs({"tokens": tokens})[0]
+        scale = math.sqrt(d) if model.cfg.embed_scale else None
+        want = torch.stack([table[i] for i in ids])
+        if scale is not None:
+            want = want * torch.tensor(scale, dtype=want.dtype, device=want.device)
+    res = dict(arch=model.cfg.name, table_elements=table.numel(),
+               past_2_31=table.numel() > (1 << 31), ids=ids, first_row_past_2_31=first,
+               rows_equal=bool(torch.equal(got, want)))
+    emit(f"{row}_table", **res)
+    check(res["rows_equal"], f"{row}: the embedding's rows past element 2**31 differ: {res}")
+    return res
+
+
+def lm_catalog_phase(rt_configs, dev, *, seed, counters, reset, vlm_model) -> dict:
+    """Slice 16: the catalog's last five configurations served at full
+    width on the card through ``Engine.generate``, bfloat16, greedy, 8
+    prompts of 4,096 tokens then ``LM_CATALOG_STEPS`` steps: qwen2-vl-72b
+    on slice 11's 2-layer bfloat16 model (``vlm_model``; 256 patch
+    embeddings, M-RoPE), then each of ``LM_CATALOG_ROWS`` made by
+    ``Model.init`` on the card and freed before the next: qwen1.5-4b and
+    internlm2-20b whole, dbrx-132b cut to 4 layers under ``topk`` and
+    ``lp`` (every router LP, 24 x 128, on the simplex kernel, each
+    replayed bit-identically on its plain version) and
+    command-r-plus-104b cut to 8 (its 3.1 G-element embedding checked by
+    ``lm_table_rows_case``).  The launch counts are set to 0 before and
+    read after: only dbrx's ``lp`` row launches a kernel of the port.
+    Then dbrx's router LP on the kernel against its plain version."""
+    reset()
+    t0 = time.perf_counter()
+    sizes = dict(seed=seed, counters=counters, batch=LM_SERVE_BATCH, prompt=LM_SERVE_PROMPT,
+                 steps=LM_CATALOG_STEPS)
+    rows = {"lm_vlm_serve": lm_family_serve_case(vlm_model, "lm_vlm_serve", **sizes)}
+    del vlm_model
+    torch.cuda.empty_cache()
+    moe = None
+    for row, arch, layers, routers in LM_CATALOG_ROWS:
+        model = lm_init_model(rt_configs, dev, arch, seed, f"{row}_setup", layers=layers)
+        if model.embed["embedding"].numel() > (1 << 31):
+            lm_table_rows_case(model, row)
+        if routers is None:
+            rows[row] = lm_family_serve_case(model, row, **sizes)
+        else:
+            rows[row] = {r: lm_moe_serve_case(model, r, row=row, capture_calls=None, **sizes)
+                         for r in routers}
+            moe = (row, moe_layer_count(model))
+        del model
+        torch.cuda.empty_cache()
+    launched = launch_counts(counters)
+    check(launched["simplex"] > 0 and launched["simplex"] == launched["simplex.cluster"]
+          and not any(v for k, v in launched.items() if not k.startswith("simplex")),
+          f"the slice-16 paths launched other than the simplex kernel's cluster variant: "
+          f"{launched}")
+    emit("main_path_summary", path="slice16_lm_catalog", launches=launched,
+         wall_s=time.perf_counter() - t0)
+    row, n_moe = moe
+    router = lm_router_lp_case(rows[row], dev, n_moe=n_moe, launches=launched["simplex"],
+                               row=f"{row}_router_lp")
+    return dict(rows=rows, router=router, launches=launched)
 
 
 # -- slice 12: training (gemma2-2b, mamba2-130m) and the eval step under lp --
@@ -6332,7 +6481,16 @@ def run(args, pool, shared_root) -> int:
 
     # Slice 11, the SSM, hybrid, encoder-decoder and M-RoPE families (no
     # kernel of the port on them; the counts must not move).
-    lm_families_phase(rt_configs, dev, seed=args.seed, counters=counters, reset=reset_counts)
+    families = lm_families_phase(rt_configs, dev, seed=args.seed, counters=counters,
+                                 reset=reset_counts)
+
+    # Slice 16, the catalog's last five configurations at full width:
+    # qwen2-vl-72b on slice 11's model, qwen1.5-4b and internlm2-20b whole,
+    # dbrx-132b (its router LPs on the simplex kernel under router="lp") and
+    # command-r-plus-104b cut in depth.
+    catalog = lm_catalog_phase(rt_configs, dev, seed=args.seed, counters=counters,
+                               reset=reset_counts, vlm_model=families.pop("vlm_model"))
+    slice16 = catalog["launches"]
 
     # Slice 12, training: gemma2-2b and mamba2-130m train steps (no kernel of
     # the port), and the eval step under router="lp" on deepseek-v2-lite-16b
@@ -6367,7 +6525,7 @@ def run(args, pool, shared_root) -> int:
 
     launches = {k: slice1[k] + slice2[k] + slice3[k] + slice6[k] + slice7[k] + slice8[k]
                 + slice10[k] + slice12[k] + slice13.get(k, 0) + slice14.get(k, 0)
-                + slice15.get(k, 0) for k in slice1}
+                + slice15.get(k, 0) + slice16[k] for k in slice1}
 
     def entry(name, source, replaces, row, n, **extra):
         key = f"{name}.{extra['variant']}" if "variant" in extra else name
@@ -6411,6 +6569,7 @@ def run(args, pool, shared_root) -> int:
     print(json.dumps({"kernels": [
         entry("simplex", "simplex.cu", "simplex_pallas.py:53", s_main, launches["simplex"],
               variants=simplex_variants, lm_router=moe["router"],
+              lm_catalog_router=catalog["router"],
               lm_mesh_router=dict(
                   nccl_1rank=lm_mesh["nccl"].get("simplex", 0),
                   gloo_ranks_sharing_one_card=[sum(r[a].get("simplex", 0) for a in r)

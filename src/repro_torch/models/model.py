@@ -52,8 +52,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.lp import resolve_device
-from ..sharding import ParamSpec, leaves, materialize, partition
-from ..sharding.rules import shardings
+from ..sharding import ParamSpec, leaves, partition
+from ..sharding.rules import draw, shardings
 from . import blocks as blk
 from .config import ModelConfig
 from .layers import embed, embed_specs, rmsnorm, rmsnorm_spec, sinusoidal_positions, unembed
@@ -157,12 +157,14 @@ class Model(nn.Module):
         setattr(mod, leaf, new)
 
     def init(self, generator: torch.Generator, dtype_override: Optional[str] = None) -> "Model":
-        """Fill every parameter from ``generator`` (on the model's device) by
-        ``sharding.materialize``; ``dtype_override`` sets their dtype."""
+        """Fill every parameter from ``generator`` (on the model's device),
+        drawn as ``sharding.materialize`` draws them (sorted names); each
+        replaces its unset parameter before the next is drawn, so the model
+        never holds two copies of its weights (a 38 GB model fits an 80 GB
+        card).  ``dtype_override`` sets their dtype."""
         specs = self.abstract_params()
-        made = materialize(specs, generator, self.device, dtype_override)
-        for name, value in made.items():
-            self.set_param(name, value)
+        for name in sorted(specs):
+            self.set_param(name, draw(specs[name], generator, self.device, dtype_override))
         return self
 
     # ------------------------------------------------------------------

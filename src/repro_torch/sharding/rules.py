@@ -49,38 +49,41 @@ def leaves(tree, path=()):
             yield path + (k,), tree[k]
 
 
-def materialize(specs, generator: torch.Generator, device, dtype_override: Optional[str] = None):
-    """Tensors for a tree of ``ParamSpec``s, each made directly on ``device``.
+def draw(spec: ParamSpec, generator: torch.Generator, device,
+         dtype_override: Optional[str] = None) -> torch.Tensor:
+    """One leaf of :func:`materialize`: ``zeros`` and ``ones`` are constant;
+    ``normal`` draws float32 normals from ``generator`` (which must live on
+    ``device``), scales them by ``ParamSpec.std`` in place and casts to the
+    leaf's dtype.  Under a ``DeviceMesh`` the leaf is drawn whole and the
+    rank's slice (``partition.local_slices``) kept."""
+    dt = getattr(torch, dtype_override or spec.dtype)
+    local = partition.local_shape(spec.shape, spec.axes)
+    if spec.init == "zeros":
+        return torch.zeros(local, dtype=dt, device=device)
+    if spec.init == "ones":
+        return torch.ones(local, dtype=dt, device=device)
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+    if local != tuple(spec.shape):
+        x = x[partition.local_slices(spec.shape, spec.axes)].clone()
+    return x.mul_(spec.std()).to(dt)
 
-    ``zeros`` and ``ones`` are constant; ``normal`` draws float32 normals
-    from ``generator`` (which must live on ``device``), scales them by
-    ``ParamSpec.std`` and casts to the leaf's dtype.  Leaves are drawn in
-    the tree's sorted key order.  The bits differ from the reference's
-    ``jax.random`` draws (``ROADMAP.md``, "Kept divergences"): weights
-    that must agree with it come from ``models/convert.py``.
+
+def materialize(specs, generator: torch.Generator, device, dtype_override: Optional[str] = None):
+    """Tensors for a tree of ``ParamSpec``s, each made directly on ``device``
+    by :func:`draw`, in the tree's sorted key order.  The bits differ from
+    the reference's ``jax.random`` draws (``ROADMAP.md``, "Kept
+    divergences"): weights that must agree with it come from
+    ``models/convert.py``.
 
     Under a ``DeviceMesh`` each leaf is drawn whole (every rank draws the
-    same stream), the rank's slice (``partition.local_slices``) is kept
-    and the rest is freed before the next leaf: no rank holds more than
-    one whole leaf at a time.
+    same stream), the rank's slice is kept and the rest is freed before
+    the next leaf: no rank holds more than one whole leaf at a time.
     """
     device = torch.device(device)
 
-    def make(spec: ParamSpec) -> torch.Tensor:
-        dt = getattr(torch, dtype_override or spec.dtype)
-        local = partition.local_shape(spec.shape, spec.axes)
-        if spec.init == "zeros":
-            return torch.zeros(local, dtype=dt, device=device)
-        if spec.init == "ones":
-            return torch.ones(local, dtype=dt, device=device)
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-        if local != tuple(spec.shape):
-            x = x[partition.local_slices(spec.shape, spec.axes)].clone()
-        return (x * spec.std()).to(dt)
-
     def walk(tree):
         if isinstance(tree, ParamSpec):
-            return make(tree)
+            return draw(tree, generator, device, dtype_override)
         return {k: walk(tree[k]) for k in sorted(tree)}
 
     return walk(specs)

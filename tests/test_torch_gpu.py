@@ -1482,6 +1482,22 @@ def test_train_mesh_gloo_ranks_on_the_card_match_one_process(tmp_path):
         assert all(r[arch]["digest"] == ranks[0][arch]["digest"] for r in ranks), arch
 
 
+def _chip_smoke(monkeypatch):
+    """``chip_smoke.py`` as a module, importable by that name (spawned ranks
+    import it) with the repo root on ``sys.path``."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    monkeypatch.syspath_prepend(str(root))
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def test_train_mesh_moe_at_full_width_holds_the_float64_witness(tmp_path, monkeypatch):
     """deepseek-v2-lite-16b at full width cut to 3 layers (``topk``), 3 steps
     of 4 x 128 tokens (``accum=2``) on 4 gloo ranks sharing the card on
@@ -1489,18 +1505,49 @@ def test_train_mesh_moe_at_full_width_holds_the_float64_witness(tmp_path, monkey
     within the gate of the float64 witness set by the one-process float32
     runs, each step's routing flips reported on its line."""
     _need_card()
-    import importlib.util
-    import sys
-    from pathlib import Path
-
     from repro_torch import configs
 
-    root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # the spawned ranks import it
-    monkeypatch.syspath_prepend(str(root))
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke(monkeypatch)
     row = smoke.lm_train_mesh_moe_case(configs, torch.device("cuda"), seed=0,
                                        out_dir=str(tmp_path))
     assert [s["ok"] for s in row["steps"]] == [True] * 3
+
+
+@pytest.mark.parametrize("row", ["lm_qwen15", "lm_internlm2", "lm_command_r"])
+def test_catalog_reference_on_the_card(row, monkeypatch):
+    """A dense catalog config at full width cut to its fixture's depth
+    (``chip_smoke.LM_CATALOG_FIXTURES``), as slice 11's reference rows are
+    held (``chip_smoke.lm_family_reference``): the weights' digest, float32
+    logits within the row gates with TF32 failing them, bfloat16 within
+    ``LM_BF16_FACTOR`` of the reference's own bfloat16 gap."""
+    _need_card()
+    from repro_torch import configs
+
+    smoke = _chip_smoke(monkeypatch)
+    model, model16, out = smoke.lm_family_reference(configs, torch.device("cuda"), row,
+                                                    smoke.LM_CATALOG_FIXTURES)
+    assert out["logits_ok"] and out["bf16_rel_l2"] <= out["bf16_limit"], out
+
+
+def test_catalog_dbrx_reference_on_the_card(monkeypatch):
+    """dbrx-132b at full width cut to its fixture's depth, under ``topk`` and
+    ``lp`` (``chip_smoke.lm_moe_reference_rows``): the float32 and bfloat16
+    gates of ``lm_moe_reference``, and under ``lp`` the fixture's router
+    LPs (24 x 128) on the simplex kernel and the port's own against the
+    reference's bases (``router_lp_checks``)."""
+    _need_card()
+    from repro_torch import configs
+
+    smoke = _chip_smoke(monkeypatch)
+    counters = {"simplex": simplex_cuda, "hyperbox": hyperbox_cuda, "revised": revised_cuda,
+                "pdhg": pdhg_cuda}
+    arch, path = smoke.LM_CATALOG_MOE_FIXTURE
+    out = smoke.lm_moe_reference_rows(configs, torch.device("cuda"), arch, path,
+                                      counters=counters, setup="lm_dbrx_reference_setup")
+    assert sorted(out) == ["lp", "topk"]
+    lp = out["lp"]["router_lp"]
+    assert lp["ok"] and (lp["fixture_on_kernel"]["m"], lp["fixture_on_kernel"]["n"]) == (24, 128)
+    assert out["lp"]["simplex_launches"] == out["lp"]["router_lps_solved"] > 0
+    for router in ("topk", "lp"):
+        assert out[router]["logits"]["ok"]
+        assert out[router]["bf16_rel_l2"] <= out[router]["bf16_limit"]

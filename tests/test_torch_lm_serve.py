@@ -407,6 +407,9 @@ def test_chip_smoke_lm_moe_phases_on_a_reduced_fixture(monkeypatch, capsys):
         return plain(*args, **kw)
 
     monkeypatch.setattr(simplex_cuda, "simplex_plain", counted)
+    # the counts are module state: restored after the test, not left raised
+    monkeypatch.setattr(simplex_cuda, "launches", simplex_cuda.launches)
+    monkeypatch.setattr(simplex_cuda, "variant_launches", dict(simplex_cuda.variant_launches))
     cfg = configs.get_config("deepseek-v2-lite-16b", reduced=True)
     tree = reference_weights(cfg, 2)
     assert np.array_equal(weights_digest(tree), fixture["weights_digest"])

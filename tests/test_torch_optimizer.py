@@ -12,6 +12,8 @@ exactly.  ``torch.optim.AdamW`` computes the same step in another order
 before the step) and rounds differently.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,8 +35,16 @@ def _tree(rng, scale=1.0):
 
 def _torch(arr, dtype):
     """A NumPy float32 array as a tensor of ``dtype`` (bfloat16 by round to
-    nearest even, as ``jnp.asarray(..., bfloat16)`` rounds it)."""
-    return torch.as_tensor(arr).to(getattr(torch, dtype))
+    nearest even, as ``jnp.asarray(..., bfloat16)`` rounds it), always in
+    memory of its own.
+
+    JAX on the CPU takes a 64-byte-aligned NumPy array without a copy, so
+    ``jnp.asarray(arr)`` may alias ``arr``; whether ``default_rng``'s draws
+    land so aligned depends on what the process allocated before.  A tensor
+    sharing ``arr``'s memory would let the port's in-place update rewrite
+    the reference's input while the reference's asynchronously dispatched
+    step may still read it."""
+    return torch.tensor(arr).to(getattr(torch, dtype))
 
 
 def _np(t):
@@ -83,6 +93,41 @@ def test_update_matches_reference(dtype, clip, master):
             assert state.master[k].dtype == torch.float32
             _within_ulps(state.master[k].numpy(), np.asarray(rstate.master[k]))
     assert (state.master is None) == (rstate.master is None) == (not master)
+
+
+def _aligned(arr, offset):
+    """``arr``'s values in a buffer whose address is ``offset`` bytes past a
+    multiple of 64: at 0, ``jnp.asarray`` aliases it."""
+    buf = np.empty(arr.nbytes + 128, np.uint8)
+    start = (-buf.ctypes.data) % 64 + offset
+    out = buf[start:start + arr.nbytes].view(arr.dtype).reshape(arr.shape)
+    out[...] = arr
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 16])
+def test_update_matches_reference_on_inputs_jax_aliases(monkeypatch, offset):
+    """The state the failing case inherited from earlier tests: inputs on
+    64-byte-aligned buffers, which ``jnp.asarray`` aliases.  The port's
+    tensors hold copies, its in-place step leaves the reference's input
+    as it was, and the case passes (at offset 16 JAX copies: the control)."""
+    p = _aligned(np.arange(8, dtype=np.float32), offset)
+    j = jnp.asarray(p)
+    p[0] = -1.0
+    assert (float(j[0]) == -1.0) == (offset == 0)  # aliased only when aligned
+    p[0] = 0.0
+
+    params = {"w": _torch(p, "float32")}
+    state = opt.init(params, opt.OptConfig(master_weights=False))
+    opt.update({"w": torch.ones(8)}, state, params, opt.OptConfig(master_weights=False))
+    assert not np.shares_memory(params["w"].numpy(), p)
+    np.testing.assert_array_equal(np.asarray(j), np.arange(8, dtype=np.float32))
+
+    plain = _tree
+    monkeypatch.setattr(sys.modules[__name__], "_tree",
+                        lambda rng, scale=1.0: {k: _aligned(v, offset)
+                                                for k, v in plain(rng, scale).items()})
+    test_update_matches_reference("float32", 1.0, False)
 
 
 def test_update_in_slices_equals_one_pass(monkeypatch):
