@@ -280,7 +280,8 @@ line is printed:
    (b) LM_MESH_RANKS gloo ranks sharing the card on a (data, model) =
    (2, 2) mesh
    (``lm_mesh_rank_main``), deepseek cut to 3 layers (``lp``) and
-   gemma2-2b cut to 4, 4 prompts of 64 tokens (two token groups that
+   gemma2-2b cut to 2 (one local, one global layer; 4 before the SSM
+   cases joined), 4 prompts of 64 tokens (two token groups that
    drop tokens) and 3 steps, held against this process's run under the
    abstract mesh ``{"data": 2, "model": 2}``: greedy tokens equal, rows
    that two ranks run the same bits, the router LPs the same bits on
@@ -289,7 +290,16 @@ line is printed:
    placements' and its peak below one process's; then each case in
    bfloat16 on the float32 run's tokens, on the ranks and in one
    process, the ranks' logits within ``LM_BF16_FACTOR`` times the
-   one-process bfloat16 run's relative L2 from the float32 run's; then
+   one-process bfloat16 run's relative L2 from the float32 run's.  The
+   group also serves mamba2-130m (all 24 layers) and zamba2-7b (2 mamba
+   layers and its shared site) at full width through the head-split
+   mixer (``models/mamba2.py:mamba_mixer``), held the same way and
+   their float32 logits within ``LM_ABS_TOL`` / ``LM_REL_TOL`` of one
+   process's; each rank reports the heads of its scans and decode steps
+   (the model axis's share: 12 and 56) and one decode step's model-axis
+   all-gather bytes beside the mixer's before the split, reckoned from
+   the shapes (``tools/mixer_spy.py:lm_mesh_mixer_step``), and gathers no whole
+   ``in_proj``, ``out_proj`` or state cache.  Then
    the float32 3-layer deepseek on the fixture
    ``tests/data/lm_deepseek_v2_lite_mesh_reference.npz`` (the reference
    under an Auto-typed (2, 2) mesh), on the ranks and in one process,
@@ -314,9 +324,9 @@ line is printed:
    training fixture ``tests/data/lm_train_gemma2_2b_mesh_reference.npz``
    (the reference's sharded step, 3 steps of 4 x 128, ``accum=2``), held
    to the fixture's gates and to this process's run under the abstract
-   mesh; mamba2-130m cut to 1 layer, preempted at step 3 and resumed
-   bit-equal, its step-2 checkpoint restored bit-equal onto (4, 1) and
-   onto one process;
+   mesh; mamba2-130m cut to 1 layer (its 24 heads split over the model
+   axis, 12 a scan), preempted at step 3 and resumed bit-equal, its
+   step-2 checkpoint restored bit-equal onto (4, 1) and onto one process;
    deepseek's eval step under ``lp`` (3 layers): every rank's router LPs
    on its simplex kernel, the same bits on all ranks, each replayed
    bit-identical on ``simplex_plain``.  Each rank's step ms, peak and
@@ -4352,16 +4362,25 @@ def mesh_phase(rt, dev, *, seed, counters, reset, type1_row) -> dict:
 LM_MESH_NCCL_CASES = (("deepseek-v2-lite-16b", "lp"), ("gemma2-2b", None))
 LM_MESH_NCCL_BATCH, LM_MESH_NCCL_PROMPT, LM_MESH_NCCL_STEPS = 8, 1024, 40
 #: (b) gloo ranks sharing the card on a (data, model) = (2, 2) mesh: (arch,
-#: router, layers) at full width cut in depth, in float32 (in bfloat16 the
+#: router, layers) at full width cut in depth (gemma2-2b to one local and
+#: one global layer, for the script's time), in float32 (in bfloat16 the
 #: split's row-parallel sums round otherwise than one product, and
 #: gemma2's 256,000-way argmax has near ties that this flips).  4 prompts
 #: of 64 tokens: 2 token groups of 128, whose capacity of 16 an expert
-#: (against a mean load of 12) drops tokens.  The same cases then run in
-#: bfloat16 on the float32 run's tokens (``lm_mesh_forced``), held to the
-#: one process's float32 logits within ``LM_BF16_FACTOR`` times the
+#: (against a mean load of 12) drops tokens.  mamba2-130m whole and
+#: zamba2-7b cut to 2 mamba layers and its shared site run the head-split
+#: mixer (``models/mamba2.py:mamba_mixer``: 12 and 56 heads a rank);
+#: their float32 logits are also held to the one process's within
+#: ``LM_ABS_TOL`` and ``LM_REL_TOL``, and each rank reports the heads of
+#: its scans and decode steps and the model-axis all-gather bytes of one
+#: decode step beside the mixer's before the split, reckoned from the
+#: shapes (``tools/mixer_spy.py``).  The same cases then run in bfloat16
+#: on the float32 run's tokens (``lm_mesh_forced``), held to the one
+#: process's float32 logits within ``LM_BF16_FACTOR`` times the
 #: one-process bfloat16 run's own gap.
 LM_MESH_RANKS, LM_MESH_SHAPE = 4, (2, 2)
-LM_MESH_GLOO_CASES = (("gemma2-2b", None, 4), ("deepseek-v2-lite-16b", "lp", 3))
+LM_MESH_GLOO_CASES = (("gemma2-2b", None, 2), ("deepseek-v2-lite-16b", "lp", 3),
+                      ("mamba2-130m", None, 24), ("zamba2-7b", None, 2))
 LM_MESH_GLOO_DTYPE = "float32"
 LM_MESH_GLOO_BATCH, LM_MESH_GLOO_PROMPT, LM_MESH_GLOO_STEPS = 4, 64, 3
 #: The reference's float32 run under an Auto-typed (2, 2) mesh of 4 host
@@ -4468,6 +4487,16 @@ def lm_mesh_spec_bytes(model, batch, max_len) -> int:
     specs += [s for layer in model.cache_specs(batch, max_len) for s in layer.values()]
     return sum(math.prod(partition.local_shape(s.shape, s.axes))
                * torch.empty((), dtype=getattr(torch, s.dtype)).element_size() for s in specs)
+
+
+def mixer_spy():
+    """``tools/mixer_spy.py``, which the tests' mesh workers also use: the
+    heads of the mixers' scans and their model-axis all-gathers."""
+    if str(ROOT / "tools") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tools"))
+    import mixer_spy as spy
+
+    return spy
 
 
 def lm_mesh_lp_digests(records) -> list:
@@ -4742,6 +4771,9 @@ def lm_mesh_rank_main(rank: int, world: int, store: str, out_dir: str, seed: int
                     records=lm_mesh_records_to(run["records"], "cpu"), routing=run["routing"],
                     stored_bytes=run["param_bytes"] + run["cache_bytes"],
                     spec_bytes=lm_mesh_spec_bytes(model, b, p + steps))
+                if cfg.supports_long_context:
+                    out[arch]["mixer"] = mixer_spy().lm_mesh_mixer_step(model, tokens,
+                                                                        run["tokens"])
                 del model, run
                 torch.cuda.empty_cache()
             forced = torch.load(os.path.join(out_dir, "forced.pt"), weights_only=False)
@@ -4887,7 +4919,10 @@ def lm_mesh_gloo_case(rt_configs, dev, *, seed) -> list:
         expect = steps * ref["n_moe"]
         split16, agree16 = lm_mesh_join((r[arch]["bf16"]["batch_rows"],
                                          r[arch]["bf16"]["logits"]) for r in ranks)
-        f32, one16, split16 = ref["f32_forced"], ref["bf16_forced"], split16.double()
+        # the padded vocabulary's logits (-1e30, mamba2's 24) left out
+        vocab = rt_configs.get_config(arch).vocab_size
+        f32, one16 = ref["f32_forced"][..., :vocab], ref["bf16_forced"][..., :vocab]
+        split16 = split16[..., :vocab].double()
 
         def rel(x, y):
             return float((x - y).norm() / y.norm())
@@ -4898,8 +4933,22 @@ def lm_mesh_gloo_case(rt_configs, dev, *, seed) -> list:
                     rel_l2_to_one_process=rel(split16, one16),
                     max_abs_to_one_process=float((split16 - one16).abs().max()),
                     rows_agree_across_model_ranks=agree16)
+        ssm = rt_configs.get_config(arch).supports_long_context
+        f32_gate = None
+        if agree:
+            got = torch.stack([w[..., :vocab].double() for w in whole])
+            want = torch.stack([o[..., :vocab].double().cpu() for o in ref["rows"]])
+            f32_gate = dict(max_abs=float((got - want).abs().max()),
+                            abs_limit=LM_ABS_TOL * max(1.0, float(want.abs().max())),
+                            rel_l2=float((got - want).norm() / want.norm()),
+                            rel_limit=LM_REL_TOL)
+        mixer = [r[arch]["mixer"] for r in ranks] if ssm else None
+        heads = mixer_spy().mesh_heads(rt_configs.get_config(arch), LM_MESH_SHAPE[1]) \
+            if ssm else None
         row = dict(part="gloo_4ranks_sharing_one_card", mesh=list(LM_MESH_SHAPE), arch=arch,
                    router=router, layers=layers, dtype=LM_MESH_GLOO_DTYPE,
+                   float32_logits_to_one_process=f32_gate, heads_a_rank=heads,
+                   mixer_per_rank=mixer,
                    batch=b, prompt=p, steps=steps,
                    label="4 ranks sharing one card: says nothing about scaling",
                    tokens_equal_to_one_process=same_tokens, rows_agree_across_model_ranks=agree,
@@ -4921,6 +4970,18 @@ def lm_mesh_gloo_case(rt_configs, dev, *, seed) -> list:
         check(all(same_tokens) and agree,
               f"lm_mesh {arch}: the ranks' tokens or rows differ from the one-process run's")
         check(same_lps, f"lm_mesh {arch}: the ranks' router LPs are not the same bits")
+        if ssm:
+            check(f32_gate["max_abs"] <= f32_gate["abs_limit"]
+                  and f32_gate["rel_l2"] <= f32_gate["rel_limit"],
+                  f"lm_mesh {arch}: the ranks' float32 logits miss the one process's: "
+                  f"{f32_gate}")
+            for r, m in zip(ranks, mixer):
+                check(m["scan_heads"] == [heads] and m["decode_heads"] == [heads]
+                      and not m["whole_leaf_gathers"]
+                      and m["decode_mixer_model_gather_bytes"]
+                      < m["parent_decode_mixer_model_gather_bytes"],
+                      f"lm_mesh {arch}: rank {r['rank']}'s mixers ran or gathered otherwise "
+                      f"than the head split: {m}")
         check(agree16 and bf16["rel_l2_to_float32"] <= bf16["limit"],
               f"lm_mesh {arch}: the ranks' bfloat16 logits miss the bfloat16 gate: {bf16}")
         check(lp_check is None or lp_check["ok"],
@@ -5481,8 +5542,10 @@ def lm_train_mesh_rank_main(rank: int, world: int, store: str, out_dir: str,
                 out[case["name"]] = lm_train_mesh_run(case, dev)
                 times[case["name"]] = time.perf_counter() - t0
             if plan.get("ssm") is not None:
-                out["ssm"] = lm_train_mesh_ssm(plan["ssm"], dev, seed=plan["seed"],
-                                               ckpt_root=out_dir, mesh41=mesh41)
+                with mixer_spy().MixerSpy() as spy:
+                    out["ssm"] = lm_train_mesh_ssm(plan["ssm"], dev, seed=plan["seed"],
+                                                   ckpt_root=out_dir, mesh41=mesh41)
+                out["ssm"]["scan_heads"] = sorted(set(spy.scan_heads))
                 times["ssm"] = time.perf_counter() - t0
             if plan.get("eval") is not None:
                 ev = plan["eval"]
@@ -5720,6 +5783,7 @@ def lm_train_mesh_gloo_case(rt_configs, dev, *, seed, out_dir) -> list:
                resumed_bit_equal=[s["resumed"] == s["uninterrupted"] for s in ssm],
                restored_onto_4x1_bit_equal=[s["restored_41"] == s["checkpoint"] for s in ssm],
                restored_onto_one_process_bit_equal=restored_one == s0["checkpoint"],
+               ssm_heads=ssm_cfg.ssm_heads, scan_heads=[s["scan_heads"] for s in ssm],
                checkpoint_bytes=os.path.getsize(os.path.join(ckpt_dir, f"step_{step2:08d}",
                                                              "arrays.npz")))
     emit("lm_train_mesh_checkpoint", **row)
@@ -5731,6 +5795,10 @@ def lm_train_mesh_gloo_case(rt_configs, dev, *, seed, out_dir) -> list:
           f"lm_train_mesh_checkpoint: the resumed run differs: {row['resumed_bit_equal']}")
     check(all(row["restored_onto_4x1_bit_equal"]) and row["restored_onto_one_process_bit_equal"],
           f"lm_train_mesh_checkpoint: a restore differs from the checkpoint: {row}")
+    heads = mixer_spy().mesh_heads(ssm_cfg, LM_TRAIN_MESH_SHAPE[1])
+    check(all(h == [heads] for h in row["scan_heads"]),
+          f"lm_train_mesh_checkpoint: the ranks' scans ran {row['scan_heads']} heads, not "
+          f"{heads}")
 
     # deepseek's eval step under lp: the router LPs on each rank's kernel.
     evs = [r["eval"] for r in ranks]
@@ -6319,8 +6387,8 @@ def run(args, pool, shared_root) -> int:
           slice3["simplex.cluster"] == slice3["simplex"],
           f"a slice-3 launch did not take the cluster variant: {slice3}")
     emit("main_path_summary", path="slice3_first_order", launches=slice3, rows=len(rows3))
-    # The confirmation of pdhg_auto's flags ran on host threads; the same
-    # flags confirmed sequentially, once, beside it.
+    # The confirmation of pdhg_auto's flags ran on host threads; the first
+    # of the same flags confirmed sequentially, once, beside it.
     confirmation_case(auto_confirm, auto_row["row"])
     del auto_confirm
     # The routing frontier: the same batch on the simplex kernel, after the

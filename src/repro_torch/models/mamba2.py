@@ -19,13 +19,31 @@ computes all of it outside Pallas, so it stays plain PyTorch here.
   (B, ssm_conv - 1, conv channels) in the model's dtype, the
   *pre-convolution* inputs of the last ssm_conv - 1 tokens; ``state``
   (B, H, P, N), always float32.
-* Under a ``DeviceMesh`` the weights are stored by their placements:
-  ``in_proj``'s ``embed_tp`` split cuts the packed ``[z, xBC, dt]``
-  dimension, not the heads, so the mixer gathers its weights whole at
-  use and runs every head on each model rank (a head-aligned split is
-  queued in ``ROADMAP.md``).  The caches keep their placements (``conv``
-  split over channels, ``state`` over heads): a step gathers them over
-  the model axis and writes back the rank's slices.
+* Under a ``DeviceMesh`` every weight and cache leaf is stored by its
+  placements, and no weight or cache leaf is gathered over the model
+  axis.  Where the model axes that ``heads_tp`` resolves to hold more
+  than one rank and divide ``ssm_heads`` (the reference's rule:
+  ``partition.resolve_spec`` drops an indivisible axis), rank r of t
+  runs the heads [r H/t, (r+1) H/t), as the reference's constraint of
+  the scan's input to ``("batch", None, "heads_tp", None)`` does
+  (``head_split``); elsewhere every rank runs every head.  ``in_proj``
+  is column-parallel on its stored block of the packed ``[z, xBC, dt]``
+  columns, the product (an activation) gathered over the model axis and
+  indexed by the heads' own column ranges; the depthwise conv runs on
+  the channels the rank stores (its blocks of ``conv_w`` and of the
+  conv cache, which is used in place), its output gathered over the
+  model axis and cut to the channels the rank's heads read (their x,
+  their groups' B and C: the channel split does not line up with
+  heads); the scan and the decode step run on the rank's heads, the
+  ``state`` cache used in place; the gated RMSNorm's sum of squares is
+  summed over the head axes in float32; ``out_proj`` is row-parallel on
+  its stored rows (exactly the rank's heads where the heads are split),
+  the partial products summed over the model axis.  Without a mesh, or
+  on one that splits nothing, these are the plain products.  CPU
+  coverage on gloo ranks: ``tests/test_torch_mamba2_mesh.py``,
+  ``tests/test_torch_lm_mesh_families.py``, ``tests/test_torch_mesh_train.py``;
+  on the card, ``chip_smoke.py``'s slice 14 (alone: ``python3
+  tools/lm_mesh_phase.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +53,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ParamSpec, partition
+from ..sharding import ParamSpec
 from ..sharding import collectives as coll
 from .config import ModelConfig
 from .layers import rmsnorm, rmsnorm_spec
@@ -179,7 +197,8 @@ def mamba_mixer(
     cache: Optional[dict] = None,
     cache_index: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """The Mamba2 block body (the pre-norm residual is the caller's).
+    """The Mamba2 block body (the pre-norm residual is the caller's), on
+    this rank's heads under a mesh (the module's docstring).
 
     * cache and S == 1: decode, the conv through the rolling buffer and
       one step of the recurrence; both cache tensors are rewritten.
@@ -188,64 +207,104 @@ def mamba_mixer(
       pre-convolution inputs (left-padded with zeros when the prompt is
       shorter) and the final state.
     """
-    if partition.distributed():
-        return _mixer_mesh(x, params, cfg, cache=cache, cache_index=cache_index)
-    return _mixer(x, params, cfg, cache=cache, cache_index=cache_index)
-
-
-def _mixer(x, params, cfg: ModelConfig, *, cache=None, cache_index=None):
+    h0, h1, axes = head_split(params, cfg)
     bsz, s, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
-    p_ = cfg.ssm_headdim
+    p_, hl = cfg.ssm_headdim, h1 - h0
+    gl = max(1, hl * g // h)
     conv_ch = di + 2 * g * n
 
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = x @ coll.weight(params["in_proj"])
+    _, _, cols = coll.model_range(params["in_proj"], 1)
+    if cols:  # the product's columns from every rank (its backward: the reduce-scatter)
+        zxbcdt = coll.all_gather(zxbcdt, cols, -1)
     z, xbc, dt = zxbcdt.split([di, conv_ch, h], dim=-1)
-    dt = F.softplus(dt.float() + params["dt_bias"])  # (B, S, H)
+    z = z[..., h0 * p_:h1 * p_]
+    dt = F.softplus(dt[..., h0:h1].float() + params["dt_bias"][h0:h1])  # (B, S, H)
 
+    # the depthwise conv on the channels this rank stores (conv_w, the conv
+    # cache), its output gathered and cut to the channels these heads read
+    c0, c1, caxes = coll.model_range(params["conv_w"], 1)
+    conv_w, conv_b = coll.weight(params["conv_w"]), params["conv_b"][c0:c1]
+    xbc = xbc[..., c0:c1]
     decode = cache is not None and s == 1
     if decode:
-        window = torch.cat([cache["conv"], xbc], dim=1)  # (B, K, C)
-        xbc_c = (window.float() * params["conv_w"].float()).sum(dim=1)
-        xbc_c = F.silu(xbc_c + params["conv_b"].float())[:, None].to(x.dtype)
-        cache["conv"].copy_(window[:, 1:])
+        xbc_c = _conv_step(cache["conv"], xbc, conv_w, conv_b)
     else:
-        xbc_c = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+        xbc_c = _causal_conv(xbc, conv_w, conv_b)
+    if caxes:
+        xbc_c = coll.all_gather(xbc_c, caxes, -1)
+    if hl < h:
+        xbc_c = _own_channels(xbc_c, cfg, h0, h1)
 
-    xs, b_, c_ = xbc_c.split([di, g * n, g * n], dim=-1)
-    xs = partition.constrain(xs.reshape(bsz, s, h, p_), ("batch", None, "heads_tp", None))
-    b_ = b_.reshape(bsz, s, g, n)
-    c_ = c_.reshape(bsz, s, g, n)
-    a = -torch.exp(params["a_log"])  # (H,)
+    xs, b_, c_ = xbc_c.split([hl * p_, gl * n, gl * n], dim=-1)
+    xs = xs.reshape(bsz, s, hl, p_)
+    b_ = b_.reshape(bsz, s, gl, n)
+    c_ = c_.reshape(bsz, s, gl, n)
+    a = -torch.exp(params["a_log"][h0:h1])  # (H,)
+    d_skip = params["d_skip"][h0:h1]
 
     if decode:
-        state = cache["state"].float()  # (B, H, P, N)
-        dt1 = dt[:, 0]  # (B, H)
-        da = torch.exp(dt1 * a[None, :])
-        bh = b_[:, 0].float().repeat_interleave(h // g, dim=1)  # (B, H, N)
-        ch = c_[:, 0].float().repeat_interleave(h // g, dim=1)
-        xt = xs[:, 0].float()  # (B, H, P)
-        new_state = state * da[:, :, None, None] + (xt * dt1[..., None])[..., None] * bh[:, :, None, :]
-        y = (new_state @ ch[..., None])[..., 0]  # (B, H, P)
-        y = y + params["d_skip"][None, :, None] * xt
-        y = y.reshape(bsz, 1, di).to(x.dtype)
-        cache["state"].copy_(new_state)
+        y = _decode_step(cache["state"], xs, dt, a, b_, c_, d_skip)
+        y = y.reshape(bsz, 1, hl * p_).to(x.dtype)
     else:
         init_state = cache["state"] if cache is not None else None
         y, final_state = _ssd_chunked(xs, dt, a, b_, c_, min(cfg.ssm_chunk, s), init_state)
-        y = y + params["d_skip"][None, None, :, None] * xs.float()
-        y = y.reshape(bsz, s, di).to(x.dtype)
+        y = y + d_skip[None, None, :, None] * xs.float()
+        y = y.reshape(bsz, s, hl * p_).to(x.dtype)
         if cache is not None:  # prefill: leave the cache ready to decode
-            kconv = cfg.ssm_conv - 1
-            if s >= kconv:
-                cache["conv"].copy_(xbc[:, s - kconv:])
-            else:
-                cache["conv"].zero_()
-                cache["conv"][:, kconv - s:] = xbc
+            _write_conv(cache["conv"], xbc, cfg.ssm_conv - 1)
             cache["state"].copy_(final_state)
 
-    y = rmsnorm(y * F.silu(z.float()).to(x.dtype), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"], cache
+    y = y * F.silu(z.float()).to(x.dtype)
+    if axes:
+        y = _split_rmsnorm(y, params["norm"][h0 * p_:h1 * p_], di, cfg.norm_eps, axes)
+    else:
+        y = rmsnorm(y, params["norm"], cfg.norm_eps)
+    # out_proj's stored rows: these heads' where they are split (head_split)
+    lo, hi, rows = coll.model_range(params["out_proj"], 0)
+    y = y[..., lo - h0 * p_:hi - h0 * p_] @ coll.weight(params["out_proj"])
+    return coll.all_reduce(y, rows), cache
+
+
+def _conv_step(conv: torch.Tensor, xbc: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """One decode token's depthwise conv: the window of the ``conv`` cache
+    (B, K - 1, C) and ``xbc`` (B, 1, C) against ``w`` (K, C), silu after
+    the bias; the cache advanced in place."""
+    window = torch.cat([conv, xbc], dim=1)  # (B, K, C)
+    out = (window.float() * w.float()).sum(dim=1)
+    conv.copy_(window[:, 1:])
+    return F.silu(out + b.float())[:, None].to(xbc.dtype)
+
+
+def _decode_step(state, xs, dt, a, b_, c_, d_skip) -> torch.Tensor:
+    """One step of the recurrence on the heads of ``xs`` (B, 1, H, P), with
+    ``dt`` (B, 1, H), ``a`` and ``d_skip`` (H,), ``b_`` and ``c_`` (B, 1,
+    G, N): the ``state`` cache (B, H, P, N) advanced in place; returns y
+    (B, H, P) float32, the skip term added."""
+    h, g = xs.shape[2], b_.shape[2]
+    st = state.float()
+    dt1 = dt[:, 0]  # (B, H)
+    da = torch.exp(dt1 * a[None, :])
+    bh = b_[:, 0].float().repeat_interleave(h // g, dim=1)  # (B, H, N)
+    ch = c_[:, 0].float().repeat_interleave(h // g, dim=1)
+    xt = xs[:, 0].float()  # (B, H, P)
+    new_state = st * da[:, :, None, None] + (xt * dt1[..., None])[..., None] * bh[:, :, None, :]
+    y = (new_state @ ch[..., None])[..., 0]  # (B, H, P)
+    state.copy_(new_state)
+    return y + d_skip[None, :, None] * xt
+
+
+def _write_conv(conv: torch.Tensor, xbc: torch.Tensor, kconv: int) -> None:
+    """A prefill's conv cache: the last ``kconv`` pre-convolution inputs
+    of ``xbc`` (B, S, C), left-padded with zeros when S is shorter."""
+    s = xbc.shape[1]
+    if s >= kconv:
+        conv.copy_(xbc[:, s - kconv:])
+    else:
+        conv.zero_()
+        conv[:, kconv - s:] = xbc
 
 
 def mamba_cache_specs(cfg: ModelConfig, batch: int, dtype: str):
@@ -261,14 +320,45 @@ def mamba_cache_specs(cfg: ModelConfig, batch: int, dtype: str):
 CACHE_AXES = {"conv": ("batch", None, "embed_tp"), "state": ("batch", "heads_tp", None, None)}
 
 
-def _mixer_mesh(x, params, cfg: ModelConfig, *, cache=None, cache_index=None):
-    """``mamba_mixer`` on this rank's slices: the weights gathered whole, the
-    cache gathered over the model axis, the rank's slices written back."""
-    whole = {k: coll.whole(v) for k, v in params.items()}
-    if cache is None:
-        return _mixer(x, whole, cfg)
-    full = {k: coll.model_whole(v) for k, v in cache.items()}
-    y, full = _mixer(x, whole, cfg, cache=full, cache_index=cache_index)
-    for k, v in cache.items():
-        v.copy_(coll.model_part(full[k], v))
-    return y, cache
+def head_split(params, cfg: ModelConfig) -> Tuple[int, int, Tuple[str, ...]]:
+    """``(h0, h1, axes)``: the heads [h0, h1) this rank runs and the model
+    axes that split them, where those axes hold more than one rank and
+    divide ``ssm_heads``; every head and no axes elsewhere.  Raises where
+    ``out_proj``'s rows are not split into exactly those heads, or where
+    the rank's heads cut a group of B and C otherwise than whole or
+    within one."""
+    h0, h1, axes = coll.dim_range(cfg.ssm_heads, "heads_tp")
+    if not axes:
+        return h0, h1, axes
+    p_ = cfg.ssm_headdim
+    if coll.model_range(params["out_proj"], 0) != (h0 * p_, h1 * p_, axes):
+        raise ValueError(f"mamba2: out_proj's rows are not split at the heads [{h0}, {h1})")
+    hg, mine = cfg.ssm_heads // cfg.ssm_ngroups, h1 - h0
+    if mine % hg and hg % mine:
+        raise ValueError(f"mamba2: {mine} heads a rank cut the groups of {hg} heads")
+    return h0, h1, axes
+
+
+def _own_channels(t: torch.Tensor, cfg: ModelConfig, h0: int, h1: int) -> torch.Tensor:
+    """The conv channels (``t``'s last dimension, the packed ``[x, B, C]``)
+    that heads [h0, h1) read: their x, and their groups' B and C."""
+    di, g, n, p_ = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    hg = cfg.ssm_heads // g
+    g0, g1 = h0 // hg, (h1 - 1) // hg + 1
+    return torch.cat([t[..., h0 * p_:h1 * p_], t[..., di + g0 * n:di + g1 * n],
+                      t[..., di + (g + g0) * n:di + (g + g1) * n]], dim=-1)
+
+
+def _norm_sum(sq: torch.Tensor, axes) -> torch.Tensor:
+    """The gated RMSNorm's sum of squares completed over the model axes (a
+    function of its own so that a negative control can leave it out)."""
+    return coll.all_reduce(sq, axes)
+
+
+def _split_rmsnorm(u: torch.Tensor, w: torch.Tensor, width: int, eps: float, axes) -> torch.Tensor:
+    """``rmsnorm`` over a dimension of ``width`` whose slices the ranks of
+    ``axes`` hold (``u`` and the weight ``w`` this rank's): the sum of
+    squares in float32, summed over the axes."""
+    uf = u.float()
+    var = _norm_sum((uf * uf).sum(dim=-1, keepdim=True), axes) / width
+    return (uf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(u.dtype)

@@ -16,6 +16,15 @@ larger); ``Engine.generate``'s greedy tokens equal
 on every rank; every parameter and cache leaf (the mamba ``conv`` leaf
 split over channels, its ``state`` over heads, the decoder's cross
 caches over encoder positions) of its placements' shape.
+
+The head-split mixer (``models/mamba2.py:mamba_mixer``): on every rank
+of every mesh, each SSD scan and decode step of mamba2 and zamba2 runs
+``ssm_heads / model`` heads (``tools/mixer_spy.py:MixerSpy``), and no
+model-axis all-gather inside a mixer has the input shape of
+``in_proj``'s, ``out_proj``'s or the state cache's gather before the
+split (``mixer_spy.mixer_parent_gathers``).  The negative control, mamba2 on
+(2, 4) with the gated RMSNorm's sum of squares left to each rank's
+heads, misses the reference under the same mesh by the same gate.
 """
 
 import os
@@ -83,3 +92,28 @@ def test_logits_and_tokens_match_the_one_process_port(runs, single, case):
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
 def test_each_rank_stores_its_placements_slice(runs, case):
     lw.check_local_shapes(runs[1][8], case, enc_len=16)
+
+
+SSM_CASES = [c for c in CASES if lw.config(c[1], c[2]).supports_long_context]
+
+
+@pytest.mark.parametrize("case", SSM_CASES, ids=_ids(SSM_CASES))
+def test_each_rank_scans_its_heads_and_gathers_no_whole_leaf(runs, case):
+    model = lw.MESHES[case[0]][1]
+    heads = lw.config(case[1], case[2]).ssm_heads // model
+    for r, rank in enumerate(runs[1][8]):
+        mixer = rank[_key(case)]["mixer"]
+        step = mixer["step"]  # mixer_spy.lm_mesh_mixer_step: a prefill, one decode step
+        for got in (mixer, step):
+            assert got["scan_heads"] == [heads] and got["decode_heads"] == [heads], (r, got)
+            assert got["whole_leaf_gathers"] == [], (r, got)
+        mine, parent = (step["decode_mixer_model_gather_bytes"],
+                        step["parent_decode_mixer_model_gather_bytes"])
+        assert (0 < mine < parent) if model > 1 else (mine == parent == 0), (r, step)
+
+
+def test_the_mixer_without_the_norm_s_sum_misses_the_reference(runs):
+    case = (lw.CONTROL_MESH, lw.CONTROL_ARCH, "topk", lw.BATCH)
+    control = lw.whole_logits(runs[1][8], case, key=lw.control_key())
+    ok, err, bound, rel = lw.gate(control, runs[2][_key(case)])
+    assert not ok and err > 10 * bound, (err, bound, rel)

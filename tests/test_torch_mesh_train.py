@@ -24,6 +24,13 @@ weight moves one ulp (``NUDGE``); every rank gathers the same bits.  The
 negative controls, a step seeded with 1 instead of ``1 / ranks`` and one
 without the sum over the axes a parameter is stored whole on, fail them.
 
+The head-split mixer (``models/mamba2.py:mamba_mixer``) in training:
+on (2, 2) every SSD scan of mamba2 and zamba2 (the forward, and remat's
+recompute in the backward) runs ``ssm_heads / 2`` heads and no
+model-axis all-gather inside a mixer has ``in_proj``'s or ``out_proj``'s
+input shape from before the split; on (1, 3), which does not divide the
+8 heads, every scan runs all of them, on the same layout.
+
 The collectives' backward: ``torch.autograd.gradcheck`` in float64 of
 each collective as a function of the group's whole (replicated) input,
 on groups of 2 (each axis of (2, 2)), 4 (both) and 1 (the model axis of
@@ -164,6 +171,21 @@ def test_a_checkpoint_of_2x2_restores_onto_4x1_by_param_shardings(ranks):
         got = rank["checkpoint"]
         assert got["files"] == ["LATEST", "step_00000001"]
         assert got["shapes_equal"] and got["bits_equal"] and got["split"] > 0
+
+
+SSM_CASES = [(m, a) for m in ("2x2", "1x3") for a in w.ARCHS
+             if w.config(a).supports_long_context]
+
+
+@pytest.mark.parametrize("mesh,arch", SSM_CASES, ids=["-".join(c) for c in SSM_CASES])
+def test_the_mixer_splits_its_heads_where_the_model_axis_divides_them(ranks, mesh, arch):
+    heads, model = w.config(arch).ssm_heads, w.MESHES[mesh][1]
+    want = heads // model if heads % model == 0 else heads
+    assert (want == heads) == (mesh == "1x3")
+    for r, rank in enumerate(_group(ranks, mesh)):
+        mixer = rank[(mesh, arch, "mixer")]
+        assert mixer["scan_heads"] == [want] and mixer["decode_heads"] == [], (r, mixer)
+        assert mixer["whole_leaf_gathers"] == [], (r, mixer)
 
 
 COLLECTIVE_GROUPS = [("2x2", "model"), ("2x2", "data"), ("2x2", "data+model"), ("4x1", "model")]

@@ -53,6 +53,30 @@ def config(arch: str, router: str, dtype: str = ""):
     return dataclasses.replace(cfg, router=router) if cfg.num_experts else cfg
 
 
+#: The negative control of the head-split mixer: mamba2 on (2, 4) with the
+#: gated RMSNorm's sum of squares left to each rank's heads (no sum over
+#: the model axis).
+CONTROL_MESH, CONTROL_ARCH = "2x4", "mamba2-130m"
+
+
+def control_key() -> str:
+    return "control|" + case_key(CONTROL_MESH, CONTROL_ARCH, "topk")
+
+
+class NoNormSum:
+    """``models/mamba2.py:_norm_sum`` as the identity for a ``with``."""
+
+    def __enter__(self):
+        from repro_torch.models import mamba2
+
+        self.mod, self.orig = mamba2, mamba2._norm_sum
+        mamba2._norm_sum = lambda sq, axes: sq
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._norm_sum = self.orig
+
+
 def bf16_key(arch: str, router: str) -> str:
     return "bf16|" + case_key(BF16_MESH, arch, router)
 
@@ -96,8 +120,25 @@ class LPCapture:
         self.ops.simplex_solve = self.orig
 
 
+def mixer_spy():
+    """The repo's ``tools/mixer_spy.py`` (``MixerSpy``, ``mixer_parent_gathers``,
+    ``lm_mesh_mixer_step``), which ``chip_smoke.py`` uses too."""
+    import sys
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import mixer_spy as spy
+
+    return spy
+
+
 def run_case(cfg, tokens, extras, device="cpu"):
-    """One case on this rank under the active mesh: what the test compares."""
+    """One case on this rank under the active mesh: what the test compares
+    (for the SSM and hybrid families also what ``mixer_spy.MixerSpy``
+    saw of the mixers, and ``mixer_spy.lm_mesh_mixer_step``)."""
+    import contextlib
+
     from repro_torch.models import Model
     from repro_torch.models.convert import load_reference_params, reference_weights
     from repro_torch.serve.engine import Engine
@@ -108,18 +149,25 @@ def run_case(cfg, tokens, extras, device="cpu"):
     model = load_reference_params(Model(cfg, device=device), reference_weights(cfg, SEED))
     prompt = {"tokens": torch.as_tensor(tokens[:, :PROMPT], device=device),
               **{k: torch.as_tensor(v, device=device) for k, v in extras.items()}}
-    with LPCapture() as lps:
-        cache = model.init_cache(b, PROMPT + FED_STEPS, enc_len=enc_len)
-        lg, _ = model.prefill(prompt, cache)
-        logits = [lg[:, -1]]
-        for i in range(FED_STEPS):
-            step = torch.as_tensor(tokens[:, PROMPT + i:PROMPT + i + 1], device=device)
-            lg, _ = model.decode_step({"tokens": step}, cache, PROMPT + i)
-            logits.append(lg[:, -1])
-    engine = Engine(model, max_len=PROMPT + GEN_STEPS, enc_len=enc_len, device=device)
-    gen = engine.generate(prompt, steps=GEN_STEPS)
+    spies = mixer_spy() if cfg.supports_long_context else None
+    with (spies.MixerSpy() if spies else contextlib.nullcontext()) as spy:
+        with LPCapture() as lps:
+            cache = model.init_cache(b, PROMPT + FED_STEPS, enc_len=enc_len)
+            lg, _ = model.prefill(prompt, cache)
+            logits = [lg[:, -1]]
+            for i in range(FED_STEPS):
+                step = torch.as_tensor(tokens[:, PROMPT + i:PROMPT + i + 1], device=device)
+                lg, _ = model.decode_step({"tokens": step}, cache, PROMPT + i)
+                logits.append(lg[:, -1])
+        engine = Engine(model, max_len=PROMPT + GEN_STEPS, enc_len=enc_len, device=device)
+        gen = engine.generate(prompt, steps=GEN_STEPS)
     rows = partition.batch_rows(b)
+    mixer = None
+    if spies:
+        mixer = spy.summary(spies.mixer_parent_gathers(model, engine.cache))
+        mixer["step"] = spies.lm_mesh_mixer_step(model, prompt["tokens"], gen)
     return {
+        "mixer": mixer,
         "rows": (rows.start, rows.stop),
         "logits": torch.stack(logits, dim=1).float().cpu(),
         "params": {n: tuple(p.shape) for n, p in model.named_parameters()},
@@ -154,6 +202,10 @@ def _cases(rank, world, tmp, which):
                     tokens, extras = inputs_of(arr, arch, router, b)
                     out[case_key(name, arch, router, b)] = run_case(config(arch, router),
                                                                     tokens, extras)
+            if name == CONTROL_MESH and which == "families":
+                tokens, extras = inputs_of(arr, CONTROL_ARCH, "topk", BATCH)
+                with NoNormSum():
+                    out[control_key()] = run_case(config(CONTROL_ARCH, "topk"), tokens, extras)
             if name == BF16_MESH and which == "core":
                 for arch, router in BF16_ARCHS:
                     tokens, extras = inputs_of(arr, arch, router, BATCH)

@@ -138,6 +138,11 @@ CONTROLS = {"control_seed": ("_ranks", lambda: 1),
 
 
 def _cases(rank, world, meshes, cases):
+    import contextlib
+
+    from torch_lm_mesh_worker import mixer_spy
+
+    from repro_torch.models import Model
     from repro_torch.sharding import partition
     from repro_torch.train import train_step
 
@@ -149,11 +154,20 @@ def _cases(rank, world, meshes, cases):
                 orig = getattr(train_step, attr) if attr else None
                 if attr:
                     setattr(train_step, attr, fake)
+                # an SSM or hybrid family's step: what mixer_spy.MixerSpy
+                # sees of its mixers (the forward, remat's recompute, the backward)
+                cfg = config(key[0])
+                ssm = key[1] == "step" and cfg.supports_long_context
+                spy = mixer_spy().MixerSpy() if ssm else None
                 try:
-                    out[(name,) + key] = train_case(config(key[0]), keep_params=rank == 0, **kw)
+                    with spy or contextlib.nullcontext():
+                        out[(name,) + key] = train_case(cfg, keep_params=rank == 0, **kw)
                 finally:
                     if attr:
                         setattr(train_step, attr, orig)
+                if spy is not None:
+                    parent = mixer_spy().mixer_parent_gathers(Model(cfg, device="meta"))
+                    out[(name, key[0], "mixer")] = spy.summary(parent)
     return out
 
 
