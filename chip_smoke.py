@@ -290,8 +290,12 @@ line is printed:
    placements' and its peak below one process's; then each case in
    bfloat16 on the float32 run's tokens, on the ranks and in one
    process, the ranks' logits within ``LM_BF16_FACTOR`` times the
-   one-process bfloat16 run's relative L2 from the float32 run's.  The
-   group also serves mamba2-130m (all 24 layers) and zamba2-7b (2 mamba
+   one-process bfloat16 run's relative L2 from the float32 run's; each
+   rank's residual stream in that run (``stream_rows``: its rows and
+   block of the prompt's positions at every block boundary of the
+   prefill, every position of a decode step) is its block of the
+   reference's ``("batch", "seq_tp", None)`` (``lm_stream_block``).  The
+   group also serves mamba2-130m (cut to 8 layers) and zamba2-7b (2 mamba
    layers and its shared site) at full width through the head-split
    mixer (``models/mamba2.py:mamba_mixer``), held the same way and
    their float32 logits within ``LM_ABS_TOL`` / ``LM_REL_TOL`` of one
@@ -4367,8 +4371,9 @@ LM_MESH_NCCL_BATCH, LM_MESH_NCCL_PROMPT, LM_MESH_NCCL_STEPS = 8, 1024, 40
 #: split's row-parallel sums round otherwise than one product, and
 #: gemma2's 256,000-way argmax has near ties that this flips).  4 prompts
 #: of 64 tokens: 2 token groups of 128, whose capacity of 16 an expert
-#: (against a mean load of 12) drops tokens.  mamba2-130m whole and
-#: zamba2-7b cut to 2 mamba layers and its shared site run the head-split
+#: (against a mean load of 12) drops tokens.  mamba2-130m cut to 8 layers
+#: (24 before the sequence-parallel stream pushed the script past 1,150 s)
+#: and zamba2-7b cut to 2 mamba layers and its shared site run the head-split
 #: mixer (``models/mamba2.py:mamba_mixer``: 12 and 56 heads a rank);
 #: their float32 logits are also held to the one process's within
 #: ``LM_ABS_TOL`` and ``LM_REL_TOL``, and each rank reports the heads of
@@ -4380,7 +4385,7 @@ LM_MESH_NCCL_BATCH, LM_MESH_NCCL_PROMPT, LM_MESH_NCCL_STEPS = 8, 1024, 40
 #: one-process bfloat16 run's own gap.
 LM_MESH_RANKS, LM_MESH_SHAPE = 4, (2, 2)
 LM_MESH_GLOO_CASES = (("gemma2-2b", None, 2), ("deepseek-v2-lite-16b", "lp", 3),
-                      ("mamba2-130m", None, 24), ("zamba2-7b", None, 2))
+                      ("mamba2-130m", None, 8), ("zamba2-7b", None, 2))
 LM_MESH_GLOO_DTYPE = "float32"
 LM_MESH_GLOO_BATCH, LM_MESH_GLOO_PROMPT, LM_MESH_GLOO_STEPS = 4, 64, 3
 #: The reference's float32 run under an Auto-typed (2, 2) mesh of 4 host
@@ -4781,8 +4786,12 @@ def lm_mesh_rank_main(rank: int, world: int, store: str, out_dir: str, seed: int
                 cfg = lm_mesh_config(rt_configs, arch, router, layers, "bfloat16")
                 model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
                 rows = partition.batch_rows(b)
-                logits = lm_fixture_logits(model, forced[arch]).float().cpu()
+                # the residual stream of its prefill and decode steps: the
+                # layout is float32's, and no call is added for it
+                with mixer_spy().ResidualSpy(sums=False) as spy:
+                    logits = lm_fixture_logits(model, forced[arch]).float().cpu()
                 out[arch]["bf16"] = dict(logits=logits, batch_rows=[rows.start, rows.stop])
+                out[arch]["stream"] = mixer_spy().stream_rows(spy, p)
                 del model
                 torch.cuda.empty_cache()
             fixture = lm_fixture_head(fixture_view(dict(np.load(LM_MESH_FIXTURE)), "lp"),
@@ -4804,6 +4813,32 @@ def lm_mesh_rank_main(rank: int, world: int, store: str, out_dir: str, seed: int
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     if "error" in out:
         os._exit(1)
+
+
+def lm_stream_block(coordinate, shape, batch: int, seq: int) -> list:
+    """``[rows, positions, seq]``: the block of a (batch, seq, width) residual
+    stream the rank at ``coordinate`` of the (data, model) ``shape`` holds,
+    by the reference's rule (each axis cuts its dimension into equal
+    blocks where it divides it, else leaves it whole)."""
+    out = []
+    for idx, n, size in zip(coordinate, shape, (batch, seq)):
+        per = size // n if size % n == 0 else size
+        lo = idx * per if per < size else 0
+        out.append([lo, lo + per])
+    return out + [seq]
+
+
+def lm_mesh_stream_check(arch, rank, stream, batch: int, prompt: int) -> None:
+    """A rank's ``mixer_spy.stream_rows``: the prefill's stream is its block
+    of the rows and the prompt's positions at every block boundary, and
+    reduce-scatters; each decode step's is whole and does not."""
+    want = dict(prefill=[lm_stream_block(rank["coordinate"], LM_MESH_SHAPE, batch, prompt)],
+                decode=[lm_stream_block(rank["coordinate"], LM_MESH_SHAPE, batch, 1)])
+    check(stream["prefill"] == want["prefill"] and stream["decode"] == want["decode"]
+          and stream["shapes_match"] and stream["prefill_reduce_scatters"] > 0
+          and stream["decode_reduce_scatters"] == 0,
+          f"lm_mesh {arch}: rank {rank['rank']}'s residual stream is not its block: {stream}, "
+          f"want {want}")
 
 
 def lm_mesh_whole(ranks, key):
@@ -4963,6 +4998,7 @@ def lm_mesh_gloo_case(rt_configs, dev, *, seed) -> list:
                                **{k: r[arch][k] for k in ("prefill_ms", "decode_ms_median",
                                                           "wall_s", "peak", "stored_bytes",
                                                           "spec_bytes", "lps", "routing")},
+                               stream_rows=r[arch]["stream"],
                                launches={k: v for k, v in r[arch]["launches"].items() if v})
                           for r in ranks],
                    nvidia_smi=smi_line())
@@ -4970,6 +5006,8 @@ def lm_mesh_gloo_case(rt_configs, dev, *, seed) -> list:
         check(all(same_tokens) and agree,
               f"lm_mesh {arch}: the ranks' tokens or rows differ from the one-process run's")
         check(same_lps, f"lm_mesh {arch}: the ranks' router LPs are not the same bits")
+        for r in ranks:
+            lm_mesh_stream_check(arch, r, r[arch]["stream"], b, p)
         if ssm:
             check(f32_gate["max_abs"] <= f32_gate["abs_limit"]
                   and f32_gate["rel_l2"] <= f32_gate["rel_limit"],
@@ -5345,8 +5383,12 @@ def lm_train_mesh_run(case, dev, *, nudge=None, forced=None) -> dict:
     each step's loss, ``grad_norm``, ``lr`` and ms, the parameters at the
     case's samples after each step (``afters``; gathered), the peak, the
     bytes stored (parameters and optimizer state) and the placements'
-    share of them; with ``case["routes"]`` each step's ``moe.route`` calls
-    (``RouteSpy``; ``forced``: a step's routing to replay, by step)."""
+    share of them, the first step's residual stream at the block
+    boundaries (``mixer_spy.ResidualSpy``: its blocks, its reduce-scatters)
+    and the bytes remat keeps at the layer inputs
+    (``mixer_spy.SavedLayerInputs``); with ``case["routes"]`` each step's
+    ``moe.route`` calls (``RouteSpy``; ``forced``: a step's routing to
+    replay, by step)."""
     import contextlib
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
@@ -5369,14 +5411,23 @@ def lm_train_mesh_run(case, dev, *, nudge=None, forced=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out.update(loss=[], grad_norm=[], lr=[], step_ms=[], afters=[], routes=[])
+    spies = mixer_spy()
     for s in range(case["steps"]):
         b = to_device(data.batch(s), dev)
         spy = RouteSpy(forced[s] if forced else None) if case.get("routes") else None
-        with spy or contextlib.nullcontext():
+        # the first step's residual stream and the layer inputs remat keeps
+        stream = spies.ResidualSpy(sums=False) if s == 0 else None
+        saved = spies.SavedLayerInputs() if s == 0 else None
+        with spy or contextlib.nullcontext(), stream or contextlib.nullcontext(), \
+                saved or contextlib.nullcontext():
             sync(dev)
             t0 = time.perf_counter()
             state, m = step(state, b)
             sync(dev)
+        if s == 0:
+            out.update(stream_rows=stream.blocks(), stream_shapes_match=stream.shapes_match(),
+                       reduce_scatters=len(stream.scatters),
+                       saved_layer_input_bytes=saved.bytes)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         for k in ("loss", "grad_norm", "lr"):
             out[k].append(float(m[k]))
@@ -5651,11 +5702,15 @@ def lm_train_mesh_group(plan, dev, out_dir: str):
     return ranks, group_s
 
 
-def lm_train_mesh_rank_rows(name: str, ranks, one, dev) -> list:
+def lm_train_mesh_rank_rows(name: str, ranks, one, dev, case) -> list:
     """Each rank's step ms, peak and stored bytes beside the placements'
-    share and the one-process run's; fails unless every rank holds the same
-    losses and samples after every step, stores its placements' bytes and
-    (on the card) peaks below the one-process run."""
+    share and the one-process run's, its residual stream's block in the
+    first step and the bytes remat kept at its layer inputs beside one
+    process's; fails unless every rank holds the same losses and samples
+    after every step, stores its placements' bytes, holds its block of the
+    ``case``'s microbatch rows and positions (``lm_stream_block``) and
+    keeps 1 / ranks of one process's layer-input bytes, and (on the card)
+    peaks below the one-process run."""
     agree = all(r[name]["loss"] == ranks[0][name]["loss"]
                 and all(np.array_equal(a, b) for a, b in zip(r[name]["afters"],
                                                              ranks[0][name]["afters"]))
@@ -5670,9 +5725,23 @@ def lm_train_mesh_rank_rows(name: str, ranks, one, dev) -> list:
         check(dev.type != "cuda" or got["peak"] < one["peak"],
               f"lm_train_mesh {name}: rank {r['rank']}'s peak {got['peak']} is not below "
               f"the one-process run's {one['peak']}")
+        micro = case["batch"] // case["accum"]
+        want = [lm_stream_block(r["coordinate"], LM_TRAIN_MESH_SHAPE, micro, case["seq"])]
+        check(got["stream_rows"] == want and got["stream_shapes_match"]
+              and got["reduce_scatters"] > 0,
+              f"lm_train_mesh {name}: rank {r['rank']}'s residual stream is not its block: "
+              f"{got['stream_rows']}, want {want}")
+        split = math.prod(LM_TRAIN_MESH_SHAPE)
+        check(got["saved_layer_input_bytes"] * split == one["saved_layer_input_bytes"],
+              f"lm_train_mesh {name}: rank {r['rank']} keeps {got['saved_layer_input_bytes']} "
+              f"bytes at the layer inputs, not 1/{split} of one process's "
+              f"{one['saved_layer_input_bytes']}")
         rows.append(dict(coordinate=r["coordinate"], step_ms=got["step_ms"], peak=got["peak"],
                          stored_bytes=got["stored_bytes"], spec_bytes=got["spec_bytes"],
-                         share_of_one_process=got["stored_bytes"] / one["stored_bytes"]))
+                         share_of_one_process=got["stored_bytes"] / one["stored_bytes"],
+                         stream_rows=got["stream_rows"],
+                         saved_layer_input_bytes=got["saved_layer_input_bytes"],
+                         one_process_saved_layer_input_bytes=one["saved_layer_input_bytes"]))
     return rows
 
 
@@ -5736,7 +5805,7 @@ def lm_train_mesh_gloo_case(rt_configs, dev, *, seed, out_dir) -> list:
              eval=dict(cfg=ev_cfg, tree=moe_dir, batch=ev_batch)), dev, out_dir)
 
     name = gemma.name
-    per_rank = lm_train_mesh_rank_rows(name, ranks, one, dev)
+    per_rank = lm_train_mesh_rank_rows(name, ranks, one, dev, case)
     gates = lm_train_mesh_gates(ranks[0][name], one, noise)
     fx = lm_train_gates(dict(ranks[0][name], delta=ranks[0][name]["after"] - one["start"]),
                         fixture)
@@ -5988,7 +6057,7 @@ def lm_train_mesh_moe_case(rt_configs, dev, *, seed, out_dir) -> dict:
     one_s = time.perf_counter() - t0 - weights_s
     ranks, group_s = lm_train_mesh_group(dict(train=[case], seed=seed), dev, out_dir)
     name = cfg.name
-    per_rank = lm_train_mesh_rank_rows(name, ranks, one, dev)
+    per_rank = lm_train_mesh_rank_rows(name, ranks, one, dev, case)
     got = dict(ranks[0][name], start=start)
     data_ranks = sorted((r for r in ranks if r["coordinate"][1] == 0),
                         key=lambda r: r["coordinate"][0])

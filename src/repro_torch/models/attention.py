@@ -25,23 +25,32 @@ Each function is written for a ``DeviceMesh`` (the reference's
 ``_head_tp`` / ``_shard_heads_or_seq``, ``attention.py:145-170``).
 Without one, or where an axis holds one rank, every range below is
 whole and every collective returns its input, so the same body runs the
-meshless function:
+meshless function.  Inside a model the input ``x`` is this rank's block
+of the residual stream's positions (``partition.global_seq``; every
+position where the model axes do not divide them, as in every decode
+step), and the output is returned in that layout
+(``sharding/collectives.py``); a function called alone takes and
+returns every position:
 
 * **Heads split over the model axis** where the heads count divides
-  (the weights ``wq``/``wo`` are then stored split by heads): each rank
-  projects and attends its heads, over the KV heads they read (its own
-  KV heads when ``wk`` is split too, else those of its q heads, as the
+  (the weights ``wq``/``wo`` are then stored split by heads): ``x`` is
+  gathered along the sequence, each rank projects and attends its heads
+  over every position, over the KV heads they read (its own KV heads
+  when ``wk`` is split too, else those of its q heads, as the
   reference's ``_expand_kv``), and the output projections' partial
-  products are summed over the model axis.
+  products are reduce-scattered along the sequence (the Megatron-SP
+  pattern the reference's constraint asks of XLA).
 * **Otherwise the sequence** (the reference's ``seq_tp``): each model
-  rank attends its block of query positions (causal offset ``q_offset``)
-  against the whole K and V, and the blocks are gathered.
+  rank attends its block of query positions (causal offset
+  ``q_offset``), which is its block of the stream, against K and V from
+  the gathered input; the output is already that block.
 * **Caches** are split over positions (``kv_seq_tp``) and batch rows.  A
-  prefill writes each rank's block of positions; a decode step writes the
-  new token on the rank that owns its slot.  Decode attends the whole
-  heads on each rank's block of positions, and the softmax is combined
-  across the model axis exactly as the reference's one softmax: the
-  maximum over all positions, the sum of the exponentials, then the
+  prefill writes each rank's block of positions (cut over the cache's
+  length, from the gathered k and v); a decode step writes the new token
+  on the rank that owns its slot.  Decode attends the whole heads on
+  each rank's block of positions, and the softmax is combined across
+  the model axis exactly as the reference's one softmax: the maximum
+  over all positions, the sum of the exponentials, then the
   probabilities (cast to the cache's dtype) times each block's values,
   summed.  With the positions whole, the rank attends its heads alone.
 """
@@ -213,6 +222,7 @@ def gqa_attention(
     The cache's tensors are updated in place (where the reference's jit
     donates them) and returned.
     """
+    x = coll.seq_whole(x)
     s = x.shape[1]
     w = _gathered(p)
     lo, hi, hax = coll.model_range(p["wq"], 1)
@@ -249,12 +259,7 @@ def gqa_attention(
                               _kv_for_heads(v, lo, hi, groups, klo), causal=causal,
                               window=window, chunk=cfg.attn_chunk,
                               attn_softcap=cfg.attn_softcap, q_offset=s0)
-    y = _out_proj(out, w["wo"])
-    if hax:
-        y = coll.all_reduce(y, hax)
-    elif sax:
-        y = coll.all_gather(y, sax, 1)
-    return y, cache
+    return _to_stream(_out_proj(out, w["wo"]), hax, sax), cache
 
 
 def cross_attention(
@@ -271,6 +276,7 @@ def cross_attention(
     encoder's (k, v), each (B, H, Senc, hd) with every head and position
     of this rank's rows; given the cached ``kv``, those are this rank's
     block of positions of the cache."""
+    x = coll.seq_whole(x)
     s = x.shape[1]
     w = _gathered(p)
     lo, hi, hax = coll.model_range(p["wq"], 1)
@@ -286,8 +292,7 @@ def cross_attention(
             out = flash_attention(q, _kv_for_heads(ck, lo, hi, groups),
                                   _kv_for_heads(cv, lo, hi, groups), causal=False,
                                   chunk=cfg.attn_chunk)
-        y = _out_proj(out, w["wo"])
-        return (coll.all_reduce(y, hax) if hax else y), kv
+        return _to_stream(_out_proj(out, w["wo"]), hax, ()), kv
     klo, khi, kax = coll.model_range(p["wk"], 1)
     groups = cfg.num_heads // max(cfg.num_kv_heads, 1)
     s0, s1, sax = (0, s, ()) if hax else coll.dim_range(s, "seq_tp")
@@ -296,11 +301,7 @@ def cross_attention(
     out = flash_attention(q, _kv_for_heads(k, lo, hi, groups, klo),
                           _kv_for_heads(v, lo, hi, groups, klo), causal=False,
                           chunk=cfg.attn_chunk)
-    y = _out_proj(out, w["wo"])
-    if hax:
-        y = coll.all_reduce(y, hax)
-    elif sax:
-        y = coll.all_gather(y, sax, 1)
+    y = _to_stream(_out_proj(out, w["wo"]), hax, sax)
     if kax:
         k, v = coll.all_gather(k, kax, 1), coll.all_gather(v, kax, 1)
     return y, (k, v)
@@ -309,6 +310,19 @@ def cross_attention(
 def encoder_attention(x, p, cfg: ModelConfig, positions):
     """Bidirectional self-attention of the encoder (rope on q and k)."""
     return gqa_attention(x, p, cfg, positions=positions, causal=False)[0]
+
+
+def _to_stream(y: torch.Tensor, hax, sax) -> torch.Tensor:
+    """The output projection ``y`` in the residual stream's layout: the
+    block of query positions cut over ``sax`` (the ``seq_tp`` case), else
+    every position's partial products over the heads' axes ``hax`` (none:
+    whole), summed and reduce-scattered along the sequence.  The queries'
+    block is the stream's own where the stream is split (both are
+    ``dim_range(S, "seq_tp")``); a sublayer called outside a stream
+    gathers it."""
+    if not sax:
+        return coll.seq_sum(y, hax)
+    return y if coll.stream_range()[2] else coll.all_gather(y, sax, 1)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -374,6 +388,7 @@ def mla_attention(
       keys and values and go through ``flash_attention`` (causal); with a
       cache, the latents are also written at ``cache_index``.
     """
+    x = coll.seq_whole(x)
     b, s, _ = x.shape
     w = _gathered(p)
     lo, hi, hax = coll.model_range(p["wq"], 1)
@@ -389,7 +404,7 @@ def mla_attention(
         if not tax:
             y = _mla_decode(q_nope, q_pe, cache["ckv"][:, :cache_index + 1],
                             cache["kpe"][:, :cache_index + 1], w, cfg)
-            return (coll.all_reduce(y, hax) if hax else y), cache
+            return _to_stream(y, hax, ()), cache
         q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, :, 0], w["w_uk"])  # (B, h, R)
         q_rot = q_pe[:, :, 0]
         if hax:
@@ -402,18 +417,13 @@ def mla_attention(
         ctx = coll.all_reduce(torch.bmm(attn.to(ckv.dtype).float(), ckv.float()), tax)
         out = torch.einsum("bhr,rhv->bhv", ctx[:, lo:hi].to(ckv.dtype), w["w_uv"])
         y = _out_proj(out.view(b, hi - lo, 1, -1), w["wo"])
-        return (coll.all_reduce(y, hax) if hax else y), cache
+        return _to_stream(y, hax, ()), cache
     k_nope = _heads(c_kv, w["w_uk"])  # (B, h, S, nope)
     v = _heads(c_kv, w["w_uv"])
     k = torch.cat([k_nope, k_pe[:, None].expand(b, k_nope.shape[1], s, cfg.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
     out = flash_attention(q, k, v, chunk=cfg.attn_chunk, q_offset=s0)
-    y = _out_proj(out, w["wo"])
-    if hax:
-        y = coll.all_reduce(y, hax)
-    elif sax:
-        y = coll.all_gather(y, sax, 1)
-    return y, cache
+    return _to_stream(_out_proj(out, w["wo"]), hax, sax), cache
 
 
 def _mla_decode(q_nope, q_pe, ckv, kpe, p, cfg: ModelConfig) -> torch.Tensor:

@@ -17,10 +17,17 @@ The zamba2 hybrid also owns ONE shared attention block (attention + MLP,
 mamba layer; its parameters are shared across the sites, and each site
 has its own KV cache (``models/model.py``).
 
-Under a mesh the residual stream stays whole on every model rank (this
-rank's batch rows): ``_res`` is the reference's call site of
-``partition.constrain`` to its sequence-parallel layout, which changes
-no value and is an open item (``ROADMAP.md``).
+Under a mesh the residual stream is sequence-parallel, the reference's
+``("batch", "seq_tp", None)`` (its Megatron-SP pattern): between
+sublayers a rank holds its batch rows and its block of the positions
+``partition.global_seq`` names (``collectives.stream_range``; every
+position where the model axes do not divide them, as in every decode
+step).  Norms and residual adds run on the block; each sublayer gathers
+its normalised input along the sequence where it needs every position
+and reduce-scatters its row-parallel sums back into the block
+(``sharding/collectives.py``).  ``_res`` marks the stream at the
+reference's call sites of ``partition.constrain``: both operands of
+every ``x + sublayer(...)`` are in that layout.
 """
 
 from __future__ import annotations
@@ -172,6 +179,9 @@ def _register(module: nn.Module, specs, device) -> None:
 
 
 def _res(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream at a block boundary: this rank's rows and its
+    block of the positions (``collectives.stream_range``), which is the
+    reference's constraint of it (a plain tensor is one rank's value)."""
     return partition.constrain(x, ("batch", "seq_tp", None))
 
 

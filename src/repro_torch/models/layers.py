@@ -11,19 +11,23 @@ where the weights are split there, as the reference's SPMD does:
 
 * ``embed``: each model rank looks up the tokens of its vocabulary rows
   (zeros for the others), and a sum over the model axis completes the
-  rows (a sum of one value and zeros, so exact); the table's width,
-  split over the data axes, is not gathered: the looked-up rows are
-  (the same values, fewer bytes);
+  rows (a sum of one value and zeros, so exact), reduce-scattered along
+  the sequence: the result is the residual stream's block of positions
+  (``sharding/collectives.py``); the table's width, split over the data
+  axes, is not gathered: the looked-up rows are (the same values, fewer
+  bytes);
 * ``unembed``: each model rank's logits of its vocabulary rows, softcap
   and pad mask applied, gathered over the model axis; where the data
   axes split the table's width, each data rank multiplies every data
   rank's rows by its columns, an all-to-all hands each rank the partial
   products of its rows, and they are summed in float32 in rank order
   (the reference's SPMD sums a contraction split this way);
-* ``mlp``: ``wi``'s columns split, so each rank's product columns are
-  gathered into the whole ``[gate | up]`` pair, the gate applied, and
-  each rank multiplies its block of ``wo``'s rows; the partial products
-  are summed over the model axis.
+* ``mlp``: the stream's block is gathered along the sequence; ``wi``'s
+  columns split, so each rank's product columns are gathered into the
+  whole ``[gate | up]`` pair, the gate applied, and each rank multiplies
+  its block of ``wo``'s rows; the partial products are reduce-scattered
+  along the sequence, each rank keeping its block of the stream.  Where
+  the model axes split neither weight, it runs on the block alone.
 
 ``partition.constrain`` is called where the reference calls it (a plain
 tensor is one rank's value and comes back unchanged).
@@ -147,17 +151,19 @@ def mlp_specs(d: int, f: int, dtype: str):
 def mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Gated MLP: SwiGLU, or GeGLU with the tanh GELU (tensor-parallel
     under a mesh: the module's docstring)."""
-    h = x @ coll.weight(wi)
     _, _, cols = coll.model_range(wi, 1)
+    lo, hi, rows = coll.model_range(wo, 0)
+    split = bool(cols or rows)
+    if split:  # every position of the stream's block
+        x = coll.seq_whole(x)
+    h = x @ coll.weight(wi)
     if cols:
         h = coll.all_gather(h, cols, -1)
     g, u = h.chunk(2, dim=-1)
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     h = partition.constrain(g * u, ("batch", None, "embed_tp"))
-    lo, hi, rows = coll.model_range(wo, 0)
-    if not rows:
-        return h @ coll.weight(wo)
-    return coll.all_reduce(h[..., lo:hi] @ coll.weight(wo), rows)
+    y = h[..., lo:hi] @ coll.weight(wo)
+    return coll.seq_sum(y, rows) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -180,18 +186,19 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, cfg: ModelConfig) -> torch.
     if dax:  # every data rank's tokens, in its columns of the table
         ids = coll.all_gather(ids.reshape(1, *ids.shape), dax, 0)
     lo, hi, axes = coll.model_range(table, 0)
-    if axes:
+    seq = ids.dim() - 1
+    if axes:  # the rows summed over the model axes, left as the stream's block
         ids = ids - lo
         inside = (ids >= 0) & (ids < hi - lo)
         x = table[ids.clamp(0, hi - lo - 1)]
-        x = coll.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)), axes)
+        x = coll.seq_sum(torch.where(inside[..., None], x, torch.zeros_like(x)), axes, seq)
     else:
-        x = table[ids]
+        x = table[coll.seq_part(ids, seq)]
     if dax:  # each rank its own rows, every rank's columns
         x = coll.all_to_all(x, dax, 0, x.dim() - 1)[0]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    return partition.constrain(x, ("batch", None, None))
+    return partition.constrain(x, ("batch", "seq_tp", None))
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -39,7 +39,13 @@ computes all of it outside Pallas, so it stays plain PyTorch here.
   summed over the head axes in float32; ``out_proj`` is row-parallel on
   its stored rows (exactly the rank's heads where the heads are split),
   the partial products summed over the model axis.  Without a mesh, or
-  on one that splits nothing, these are the plain products.  CPU
+  on one that splits nothing, these are the plain products.  Inside a
+  model the mixer's input arrives as this rank's block of the residual
+  stream's positions (``sharding/collectives.py``): it is gathered along
+  the sequence first (the conv and the scan run over every position of
+  the rank's heads), and ``out_proj``'s partial products are
+  reduce-scattered along the sequence into the block (cut to it where
+  no model axis splits them); a decode step's one position is whole.  CPU
   coverage on gloo ranks: ``tests/test_torch_mamba2_mesh.py``,
   ``tests/test_torch_lm_mesh_families.py``, ``tests/test_torch_mesh_train.py``;
   on the card, ``chip_smoke.py``'s slice 14 (alone: ``python3
@@ -198,7 +204,9 @@ def mamba_mixer(
     cache_index: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """The Mamba2 block body (the pre-norm residual is the caller's), on
-    this rank's heads under a mesh (the module's docstring).
+    this rank's heads under a mesh (the module's docstring): inside a
+    model ``x`` is this rank's block of the residual stream's positions,
+    and so is the output.
 
     * cache and S == 1: decode, the conv through the rolling buffer and
       one step of the recurrence; both cache tensors are rewritten.
@@ -208,6 +216,7 @@ def mamba_mixer(
       shorter) and the final state.
     """
     h0, h1, axes = head_split(params, cfg)
+    x = coll.seq_whole(x)  # the conv and the scan run over every position
     bsz, s, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
     p_, hl = cfg.ssm_headdim, h1 - h0
@@ -264,7 +273,7 @@ def mamba_mixer(
     # out_proj's stored rows: these heads' where they are split (head_split)
     lo, hi, rows = coll.model_range(params["out_proj"], 0)
     y = y[..., lo - h0 * p_:hi - h0 * p_] @ coll.weight(params["out_proj"])
-    return coll.all_reduce(y, rows), cache
+    return coll.seq_sum(y, rows), cache
 
 
 def _conv_step(conv: torch.Tensor, xbc: torch.Tensor, w: torch.Tensor,

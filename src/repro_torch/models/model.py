@@ -36,7 +36,11 @@ positions by the model axis and over rows by the batch axes, the mamba
 ``prefill`` and ``decode_step`` take the whole batch's inputs on every
 rank, run this rank's rows (``partition.batch_rows``; every row where
 the batch axes do not divide the batch) and return those rows: logits
-with the whole vocabulary.  Parameters and cache leaves keep their
+with the whole vocabulary.  Between the layers a rank holds its block
+of the rows' positions (``partition.global_seq``: the reference's
+sequence-parallel residual stream, ``models/blocks.py``); the final
+norm runs on the block, which is then gathered, so the hidden states
+and logits have every position.  Parameters and cache leaves keep their
 ``ParamSpec`` as ``.spec``.  Under an abstract mesh (``{axis: size}``)
 one process holds and runs everything, and computes the function of the
 split run (the MoE token groups follow the mesh's batch axes).
@@ -53,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.lp import resolve_device
 from ..sharding import ParamSpec, leaves, partition
+from ..sharding import collectives as coll
 from ..sharding.rules import draw, shardings
 from . import blocks as blk
 from .config import ModelConfig
@@ -232,15 +237,22 @@ class Model(nn.Module):
         return pos
 
     def _embed_inputs(self, inputs) -> torch.Tensor:
-        """Token embeddings; under the vision frontend, ``patch_embeds``
-        (B, P, D) overwrite the first P of them (P <= S)."""
+        """Token embeddings, the stream's block of positions; under the
+        vision frontend, ``patch_embeds`` (B, P, D) overwrite the first P
+        of them (P <= S), each on the rank that holds its position."""
         cfg = self.cfg
         x = embed(inputs["tokens"], self.embed["embedding"], cfg)
         if cfg.frontend == "vision" and "patch_embeds" in inputs:
-            pe = inputs["patch_embeds"]
-            if pe.shape[1] > x.shape[1]:
-                raise ValueError(f"{pe.shape[1]} patch embeddings for a prompt of {x.shape[1]} tokens")
-            x[:, :pe.shape[1]] = pe.to(x.dtype)
+            pe, s = inputs["patch_embeds"], inputs["tokens"].shape[1]
+            if pe.shape[1] > s:
+                raise ValueError(f"{pe.shape[1]} patch embeddings for a prompt of {s} tokens")
+            if partition.current_seq() is None:
+                raise RuntimeError("_embed_inputs cuts the patches to the stream's block: "
+                                   "call it inside partition.global_seq")
+            lo, hi, _ = coll.stream_range()
+            n = min(hi, pe.shape[1]) - lo
+            if n > 0:
+                x[:, :n] = pe[:, lo:lo + n].to(x.dtype)
         return x
 
     def _layer_cache(self, cache, i):
@@ -250,13 +262,15 @@ class Model(nn.Module):
     def _block_out(block, x, remat: bool, **kw) -> torch.Tensor:
         """``block(x, **kw)``'s hidden states; with ``remat`` (and grad mode
         on) recomputed in the backward pass instead of kept, with the whole
-        batch the forward named (``partition.global_batch``: the MoE token
-        groups read it, and the backward runs outside ``forward``)."""
+        batch and the stream's positions the forward named
+        (``partition.global_batch``, ``global_seq``: the MoE token groups
+        and the stream's layout read them, and the backward runs outside
+        ``forward``).  The layer input kept is the stream's block."""
         if remat and torch.is_grad_enabled():
-            batch = partition.current_batch()
+            batch, seq = partition.current_batch(), partition.current_seq()
 
             def run(h):
-                with partition.global_batch(batch):
+                with partition.global_batch(batch), partition.global_seq(seq):
                     return block(h, **kw)[0]
 
             return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
@@ -264,16 +278,21 @@ class Model(nn.Module):
 
     def _run(self, inputs, *, cache=None, cache_index=None, offset: int = 0,
              remat: bool = False) -> torch.Tensor:
-        x = self._embed_inputs(inputs)
-        b, s = x.shape[0], x.shape[1]
-        positions = self._positions(inputs, b, s, offset)
-        if self._hybrid():
-            x = self._run_hybrid(x, positions, cache, cache_index, remat=remat)
-        else:
-            for i, layer in enumerate(self.layers):
-                x = self._block_out(layer, x, remat, positions=positions,
-                                cache=self._layer_cache(cache, i), cache_index=cache_index)
-        return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        """The layers over the stream's block of positions (``positions``
+        whole: each sublayer cuts them where it cuts q); the final norm on
+        the block, then every position gathered."""
+        b, s = inputs["tokens"].shape
+        with partition.global_seq(s):
+            x = self._embed_inputs(inputs)
+            positions = self._positions(inputs, b, s, offset)
+            if self._hybrid():
+                x = self._run_hybrid(x, positions, cache, cache_index, remat=remat)
+            else:
+                for i, layer in enumerate(self.layers):
+                    x = self._block_out(layer, x, remat, positions=positions,
+                                        cache=self._layer_cache(cache, i),
+                                        cache_index=cache_index)
+            return coll.seq_whole(rmsnorm(x, self.final_norm, self.cfg.norm_eps))
 
     def _run_hybrid(self, x, positions, cache, cache_index, remat: bool = False):
         """zamba2: the shared block (site j's own cache) before each
@@ -294,22 +313,28 @@ class Model(nn.Module):
         frames = frames.to(getattr(torch, cfg.dtype))
         b, senc, _ = frames.shape
         pos_table = sinusoidal_positions(senc, cfg.d_model, frames.device).to(frames.dtype)
-        x = partition.constrain(frames + pos_table[None], ("batch", None, None))
-        positions = self._positions({}, b, senc)
-        for layer in self.layers[:cfg.enc_layers]:
-            x = self._block_out(layer, x, remat, positions=positions)
-        return rmsnorm(x, self.enc_norm, cfg.norm_eps)
+        with partition.global_seq(senc):
+            x = coll.seq_part(frames + pos_table[None])
+            x = partition.constrain(x, ("batch", "seq_tp", None))
+            positions = self._positions({}, b, senc)
+            for layer in self.layers[:cfg.enc_layers]:
+                x = self._block_out(layer, x, remat, positions=positions)
+            # cross attention reads every encoder position: gathered once
+            return coll.seq_whole(rmsnorm(x, self.enc_norm, cfg.norm_eps))
 
     def _decode_stack(self, tokens, *, enc_out=None, cache=None, cache_index=None,
                       offset: int = 0, remat: bool = False) -> torch.Tensor:
         """The decoder layers over ``tokens`` at positions from ``offset``."""
         cfg = self.cfg
-        x = embed(tokens, self.embed["embedding"], cfg)
-        positions = self._positions({}, x.shape[0], x.shape[1], offset)
-        for i in range(cfg.enc_layers, len(self.layers)):
-            x = self._block_out(self.layers[i], x, remat, positions=positions, enc_out=enc_out,
-                            cache=self._layer_cache(cache, i), cache_index=cache_index)
-        return rmsnorm(x, self.final_norm, cfg.norm_eps)
+        b, s = tokens.shape
+        with partition.global_seq(s):
+            x = embed(tokens, self.embed["embedding"], cfg)
+            positions = self._positions({}, b, s, offset)
+            for i in range(cfg.enc_layers, len(self.layers)):
+                x = self._block_out(self.layers[i], x, remat, positions=positions,
+                                    enc_out=enc_out, cache=self._layer_cache(cache, i),
+                                    cache_index=cache_index)
+            return coll.seq_whole(rmsnorm(x, self.final_norm, cfg.norm_eps))
 
     def _forward_encdec(self, inputs, *, cache=None, cache_index=None,
                         remat: bool = False) -> torch.Tensor:

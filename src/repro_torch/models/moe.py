@@ -24,7 +24,10 @@ so the mesh's batch axes change the function.  Under a ``DeviceMesh``:
   keeps its own rows;
 * experts split over the model axis: each model rank runs its experts
   on its groups' capacity buffers, and the combined outputs are summed
-  over the model axis;
+  over the model axis, reduce-scattered along the sequence into the
+  residual stream's block (the input's block is gathered along the
+  sequence before the groups are formed; the shared experts run
+  ``layers.mlp`` on the block);
 * under ``router="lp"`` the layer still solves one LP over all T tokens
   (``_lp_balance_bias`` groups them by ``router_groups``): every rank
   gathers the float32 router logits of every batch rank, bit for bit, in
@@ -215,8 +218,12 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     into (E, C, D) buffers, run the experts as batched products, and
     combine each token's kept outputs weighted by its router weights.
     Under a mesh ``x`` is this rank's rows of the batch named by
-    ``partition.current_batch``.
+    ``partition.current_batch`` and, inside a model, its block of the
+    residual stream's positions, which are gathered first (the groups and
+    the router see every token of the rows); the output is the block.
     """
+    block = x
+    x = coll.seq_whole(x)  # every token of this rank's rows
     b, s, d = x.shape
     batch = partition.current_batch() or b
     t = batch * s
@@ -239,14 +246,14 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
         ys.append(_group_ffn(xg[gi], weights[gi * tl:(gi + 1) * tl],
                              experts[gi * tl:(gi + 1) * tl], p, cfg, cap))
     y = partition.constrain(torch.stack(ys), ("batch", None, None)).reshape(-1, d)
-    _, _, eax = coll.model_range(p["wi"], 0)
-    if eax:
-        y = coll.all_reduce(y, eax)
     if y.shape[0] != b * s:
         y = y[t0:t1]
-    y = y.reshape(b, s, d)
+    # the experts' partial outputs summed over the model axis, left as the
+    # stream's block (a cut where no axis splits the experts)
+    _, _, eax = coll.model_range(p["wi"], 0)
+    y = coll.seq_sum(y.reshape(b, s, d), eax)
     if cfg.num_shared_experts:
-        y = y + mlp(x, p["shared"]["wi"], p["shared"]["wo"], cfg.act)
+        y = y + mlp(block, p["shared"]["wi"], p["shared"]["wo"], cfg.act)
     return y
 
 

@@ -15,8 +15,23 @@ named mesh axes (the ranks that share every other coordinate):
   is the row-major order of the axes (``partition.local_slices`` cuts
   the same way), so the pieces go back where they came from; a gather
   moves raw values and changes no bit;
+* :func:`reduce_scatter` along a dimension: the group's sum, cut into
+  one block a rank in rank order (a row-parallel product whose output is
+  kept sequence-parallel); bfloat16 and float16 summed in float32, as
+  the all-reduce sums them;
 * :func:`all_to_all`: splits a dimension into one block a rank and
   concatenates the blocks received along another.
+
+The residual stream between a model's sublayers is sequence-parallel,
+as the reference constrains it to ``("batch", "seq_tp", None)``: a rank
+holds its rows and its block of the positions that
+``partition.global_seq`` names (:func:`stream_range`; every position
+where the model axes do not divide them).  A sublayer gathers its
+normalised input along the sequence where it needs every position
+(:func:`seq_whole`), and leaves its output in the stream's layout: a
+row-parallel product's partial sums reduce-scattered along the sequence
+(:func:`seq_sum`), a position-wise result cut (:func:`seq_part`),
+queries already cut by ``seq_tp`` kept.
 
 A group of one rank returns its input, both ways, so a ``(1, 1)`` mesh
 runs the bits of no mesh.  NCCL works on device tensors; gloo, which has
@@ -32,7 +47,8 @@ on every rank alike).
 whose backward is its adjoint: an all-reduce sum's is an all-reduce sum
 of the gradients; an all-gather's along ``dim`` a reduce-scatter along
 ``dim`` (the sum over the group, each rank keeping its own piece;
-bfloat16 and float16 summed in float32); an all-to-all's the all-to-all
+bfloat16 and float16 summed in float32), and a reduce-scatter's the
+all-gather; an all-to-all's the all-to-all
 back, with the two dimensions swapped.  An all-reduce max takes no
 gradient: its one user, the split softmax's shift
 (``models/attention.py:_split_softmax``), cancels, as in
@@ -217,6 +233,17 @@ class _AllGather(torch.autograd.Function):
         return _scatter(g, ctx.axes, ctx.dim), None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return _scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.axes, ctx.dim), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, split_dim, cat_dim):
@@ -246,6 +273,15 @@ def all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     if size(axes) == 1:
         return x
     return _AllGather.apply(x, axes, dim)
+
+
+def reduce_scatter(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over the group of ``axes``, cut along ``dim`` into one
+    block a rank in rank order: this rank's block (bfloat16 and float16
+    summed in float32); the backward is the all-gather along ``dim``."""
+    if size(axes) == 1:
+        return x
+    return _ReduceScatter.apply(x, axes, dim)
 
 
 def all_to_all(x: torch.Tensor, axes, split_dim: int, cat_dim: int) -> torch.Tensor:
@@ -404,3 +440,50 @@ def gather_rows(x: torch.Tensor, batch: int, dim: int = 0) -> torch.Tensor:
     ``partition.batch_rows(batch)`` along ``dim``; the result all of them."""
     axes = partition.split_axes(batch, "batch")
     return all_gather(x, axes, dim) if axes else x
+
+
+# ---------------------------------------------------------------------------
+# The residual stream's sequence-parallel layout
+# ---------------------------------------------------------------------------
+
+
+def stream_range() -> Tuple[int, int, Tuple[str, ...]]:
+    """``(lo, hi, axes)``: this rank's block of the residual stream's
+    positions (``partition.global_seq``), ``dim_range(S, "seq_tp")``, and
+    the model axes that split them; ``(0, 0, ())`` outside a stream, where
+    a sublayer takes and returns every position."""
+    seq = partition.current_seq()
+    if seq is None:
+        return 0, 0, ()
+    return dim_range(seq, "seq_tp")
+
+
+def seq_whole(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """``x``, this rank's block of the stream's positions along ``dim``,
+    with every position: the all-gather over the axes that split them (its
+    backward the reduce-scatter); ``x`` itself where the stream is whole."""
+    _, _, axes = stream_range()
+    return all_gather(x, axes, dim) if axes else x
+
+
+def seq_part(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's block of the stream's positions of ``x``, which holds every
+    position along ``dim``."""
+    lo, hi, axes = stream_range()
+    return x.narrow(dim, lo, hi - lo) if axes else x
+
+
+def seq_sum(x: torch.Tensor, axes, dim: int = 1) -> torch.Tensor:
+    """The sum over the group of ``axes`` of the partial products ``x`` (every
+    position along ``dim``; no axes: ``x`` is whole), left in the stream's
+    layout: the reduce-scatter along ``dim`` where the stream is split (the
+    Megatron-SP pattern: on a ``(data, model)`` mesh the stream and every
+    model-axis product are split over the same ``model`` axis), the
+    all-reduce where it is whole, this rank's block where there is no sum."""
+    if not axes:
+        return seq_part(x, dim)
+    _, _, sax = stream_range()
+    if not sax:
+        return all_reduce(x, axes)
+    assert _mesh_axes(sax) == _mesh_axes(axes), (sax, axes)
+    return reduce_scatter(x, axes, dim)

@@ -31,6 +31,9 @@ axes is cut row-major over them, in the order the spec names them), and
 mesh one process holds every slice: the local shape is the whole shape,
 while :func:`axis_size` still reports the mesh (the MoE group count reads
 it), so one process computes the function of the split run.
+:func:`global_batch` and :func:`global_seq` name the whole batch and the
+residual stream's positions of a model's computation, which a rank holds
+a block of.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ class _Ctx:
         self.shape: Dict[str, int] = {}
         self.rules: Dict[str, Tuple[str, ...]] = {}
         self.batch: Optional[int] = None
+        self.seq: Optional[int] = None
         self.rank: Optional[int] = None
         self.memo: dict = {}
 
@@ -241,6 +245,28 @@ def global_batch(batch: int):
 def current_batch() -> Optional[int]:
     """The whole batch named by the innermost :func:`global_batch`, or None."""
     return _CTX.batch
+
+
+@contextlib.contextmanager
+def global_seq(seq: Optional[int]):
+    """Name ``seq`` as the positions of the residual stream of the block's
+    computation: between its sublayers a rank holds its block of them,
+    ``local_slices((seq,), ("seq_tp",))`` (the reference's ``(B, S, D)``
+    under ``("batch", "seq_tp", None)``), and each sublayer reads the
+    layout from :func:`current_seq` (``sharding/collectives.py``:
+    ``stream_range``).  None: no stream (a sublayer called alone takes
+    and returns every position)."""
+    prev = _CTX.seq
+    _CTX.seq = seq
+    try:
+        yield
+    finally:
+        _CTX.seq = prev
+
+
+def current_seq() -> Optional[int]:
+    """The positions named by the innermost :func:`global_seq`, or None."""
+    return _CTX.seq
 
 
 def axis_size(logical: str) -> int:

@@ -37,6 +37,15 @@ one-process bfloat16 run's own gap from the float32 run).  The
 negative control: the one-process port forced to one token group misses
 the reference under (4, 2) by far more than the gate.  The collectives themselves run on
 the 4-rank group.
+
+The residual stream (``tools/mixer_spy.py:ResidualSpy``): at every
+block boundary of the prefill each rank holds its rows and positions of
+the reference's ``resolve_spec((B, S, D), ("batch", "seq_tp", None))``
+under the same mesh (laid out by the JAX subprocess), with the
+one-process run's values there (float64 sums over the width within
+``STREAM_TOL``); every decode step's stream is whole and makes no
+reduce-scatter; on (2, 2) a prompt of 31 tokens, which the model axis
+does not divide, keeps the stream whole.
 """
 
 import os
@@ -75,7 +84,8 @@ def _ids(cases):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lm_mesh")
     arr, ranks, ref = lw.run_all(tmp, WHICH, (8, 4),
-                                 [FIXTURE_KEY] + [_key(c) for c in REFERENCE_CASES], ROOT)
+                                 [FIXTURE_KEY] + [_key(c) for c in REFERENCE_CASES]
+                                 + lw.stream_keys(MESH8 + MESH4, CASES), ROOT)
     return arr, ranks, ref
 
 
@@ -114,6 +124,46 @@ def test_logits_and_tokens_match_the_one_process_port(runs, single, case):
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
 def test_each_rank_stores_its_placements_slice(runs, case):
     lw.check_local_shapes(_ranks(runs, case[0]), case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_the_residual_stream_is_the_reference_s_block(runs, single, case):
+    """At every block boundary of the prefill each rank holds its rows and
+    positions of the reference's ``resolve_spec((B, S, D), ("batch",
+    "seq_tp", None))`` under the same mesh (from the JAX subprocess), with
+    the one-process run's values there; every decode step's stream is
+    whole and makes no reduce-scatter; the prefill reduce-scatters where
+    the model axis cuts the stream."""
+    mesh = case[0]
+    ranks = _ranks(runs, mesh)
+    errors = lw.stream_errors(ranks, mesh, _key(case), runs[2], lw.config(*case[1:3]).d_model,
+                              single[_key(case)])
+    assert not errors, errors[:3]
+    for r, rank in enumerate(ranks):
+        assert bool(rank[_key(case)]["stream"][0]["scatters"]) == (lw.MESHES[mesh][1] > 1), r
+
+
+def test_a_prompt_the_model_axis_does_not_divide_keeps_the_stream_whole(runs):
+    """gemma2's prefill of 31 tokens on (2, 2): every rank holds every
+    position (the reference's ``resolve_spec`` drops the model axis), no
+    sum is reduce-scattered, and the logits meet the one-process run's."""
+    from repro_torch.sharding import partition
+
+    mesh, key = lw.ODD_PROMPT_MESH, lw.odd_prompt_key()
+    ranks = _ranks(runs, mesh)
+    tokens, _ = lw.inputs_of(runs[0], lw.ODD_PROMPT_ARCH, "topk", lw.BATCH)
+    cfg = lw.config(lw.ODD_PROMPT_ARCH, "topk")
+    data, model = lw.MESHES[mesh]
+    with partition.activate({"data": data, "model": model}):
+        one = lw.stream_case(cfg, tokens, lw.ODD_PROMPT)
+    assert not lw.stream_errors(ranks, mesh, key, runs[2], cfg.d_model, one)
+    for rank in ranks:
+        prefill = rank[key]["stream"][0]
+        assert {rec["seq"] for rec in prefill["records"]} == {(0, lw.ODD_PROMPT)}
+        assert prefill["scatters"] == []
+    case = (mesh, lw.ODD_PROMPT_ARCH, "topk", lw.BATCH)
+    ok, err, bound, rel = lw.gate(lw.whole_logits(ranks, case, key=key), one["logits"].numpy())
+    assert ok, (err, bound, rel)
 
 
 @pytest.mark.parametrize("mesh", MESH8 + MESH4)

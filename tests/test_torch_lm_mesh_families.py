@@ -25,6 +25,11 @@ model-axis all-gather inside a mixer has the input shape of
 split (``mixer_spy.mixer_parent_gathers``).  The negative control, mamba2 on
 (2, 4) with the gated RMSNorm's sum of squares left to each rank's
 heads, misses the reference under the same mesh by the same gate.
+
+The residual stream, as ``tests/test_torch_lm_mesh.py`` holds it: every
+block boundary of the prefill (seamless's encoder over its 16 frames
+too) is the rank's block of the reference's ``resolve_spec`` with the
+one-process run's values; every decode step's stream is whole.
 """
 
 import os
@@ -52,7 +57,8 @@ def _ids(cases):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lm_mesh_families")
-    return lw.run_all(tmp, WHICH, (8,), NOISE_KEYS + [_key(c) for c in CASES], ROOT)
+    return lw.run_all(tmp, WHICH, (8,), NOISE_KEYS + [_key(c) for c in CASES]
+                      + lw.stream_keys(MESHES, CASES), ROOT)
 
 
 def _noise(runs, case):
@@ -92,6 +98,21 @@ def test_logits_and_tokens_match_the_one_process_port(runs, single, case):
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
 def test_each_rank_stores_its_placements_slice(runs, case):
     lw.check_local_shapes(runs[1][8], case, enc_len=16)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_the_residual_stream_is_the_reference_s_block(runs, single, case):
+    """As ``tests/test_torch_lm_mesh.py`` holds it: every block boundary of
+    the prefill (seamless's encoder over its 16 frames too) is the rank's
+    block of the reference's ``resolve_spec``, with the one-process run's
+    values there; every decode step's stream is whole and makes no
+    reduce-scatter."""
+    mesh = case[0]
+    errors = lw.stream_errors(runs[1][8], mesh, _key(case), runs[2],
+                              lw.config(*case[1:3]).d_model, single[_key(case)])
+    assert not errors, errors[:3]
+    for r, rank in enumerate(runs[1][8]):
+        assert bool(rank[_key(case)]["stream"][0]["scatters"]) == (lw.MESHES[mesh][1] > 1), r
 
 
 SSM_CASES = [c for c in CASES if lw.config(c[1], c[2]).supports_long_context]

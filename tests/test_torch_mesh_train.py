@@ -21,8 +21,9 @@ another order), ``lr`` equal, and each parameter leaf's change within
 ``trimmed_rel``'s gate, the largest of ``LEAF_FLOOR`` and
 ``NOISE_FACTOR`` times the one-process run's own change when every
 weight moves one ulp (``NUDGE``); every rank gathers the same bits.  The
-negative controls, a step seeded with 1 instead of ``1 / ranks`` and one
-without the sum over the axes a parameter is stored whole on, fail them.
+negative controls, a step seeded with 1 instead of ``1 / ranks``, one
+without the sum over the axes a parameter is stored whole on, and one
+whose reduce-scatters do not sum, fail them.
 
 The head-split mixer (``models/mamba2.py:mamba_mixer``) in training:
 on (2, 2) every SSD scan of mamba2 and zamba2 (the forward, and remat's
@@ -31,23 +32,38 @@ model-axis all-gather inside a mixer has ``in_proj``'s or ``out_proj``'s
 input shape from before the split; on (1, 3), which does not divide the
 8 heads, every scan runs all of them, on the same layout.
 
+The sequence-parallel residual stream: at every block boundary of each
+family's step (the forward and remat's recompute) on (2, 2) and (1, 3)
+each rank holds its rows and positions of the reference's
+``resolve_spec((B, S, D), ("batch", "seq_tp", None))`` (laid out by a
+JAX subprocess started beside the groups); the bytes remat keeps at the
+layer inputs (``saved_tensors_hooks``, ``tools/mixer_spy.py:
+SavedLayerInputs``) are 1 / (data x model) of one process's; a third
+negative control, the reduce-scatter replaced by a cut of the rank's
+block without the sum, fails the gates by more than 10x.
+
 The collectives' backward: ``torch.autograd.gradcheck`` in float64 of
-each collective as a function of the group's whole (replicated) input,
-on groups of 2 (each axis of (2, 2)), 4 (both) and 1 (the model axis of
-(4, 1): the identity both ways); and the adjoint identity, the sum over
-the group of ``<C(x), y>`` equal to that of ``<x, C*(y)>``.
+each collective (the reduce-scatter along dimensions 0 and 1 too) as a
+function of the group's whole (replicated) input, on groups of 2 (each
+axis of (2, 2)), 4 (both) and 1 (the model axis of (4, 1): the identity
+both ways); and the adjoint identity, the sum over the group of
+``<C(x), y>`` equal to that of ``<x, C*(y)>``.  A bfloat16
+reduce-scatter sums in float32 and rounds once.
 """
 
 import concurrent.futures
+import os
 
 import pytest
 import torch
 
+import torch_lm_mesh_worker as lw
 import torch_mesh_worker as tw
 import torch_train_mesh_worker as w
 from repro_torch.models.convert import reference_weights, trimmed_rel
 from repro_torch.sharding import partition
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALAR_TOL = 1e-5
 LEAF_FLOOR = 1e-5
 NOISE_FACTOR = 4.0
@@ -62,8 +78,35 @@ def _id(case):
     return "-".join(case)
 
 
+#: The (data, model) meshes and microbatch of the stream checks: 2 rows of 24
+#: positions (the encoder's 24 frames too) a microbatch.
+STREAM_MESHES = ("2x2", "1x3")
+STREAM_CASES = [(m, a) for m in STREAM_MESHES for a in w.ARCHS]
+
+
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def reference_streams_started(tmp_path_factory):
+    """The reference's layout of each case's residual stream
+    (``resolve_spec`` under the same mesh), in a JAX subprocess started
+    before the groups are spawned."""
+    tmp = tmp_path_factory.mktemp("train_mesh_streams")
+    keys = sorted({lw.stream_key(m, w.BATCH // w.ACCUM, w.SEQ, w.config(a).d_model)
+                   for m, a in STREAM_CASES})
+    return tmp, lw.reference_process(tmp, "streams.npz", keys, ROOT)
+
+
+@pytest.fixture(scope="module")
+def reference_streams(ranks, reference_streams_started):
+    import numpy as np
+
+    tmp, proc = reference_streams_started
+    _, err = proc.communicate(timeout=lw.REFERENCE_TIMEOUT_S)
+    assert proc.returncode == 0, err
+    return dict(np.load(tmp / "streams.npz"))
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, reference_streams_started):
     """Each group's ranks' results, by group size (the two groups run at once)."""
     tmp = tmp_path_factory.mktemp("train_mesh")
     jobs = {4: "train4", 3: "train3"}
@@ -86,7 +129,9 @@ def single():
         data, model = w.MESHES[mesh]
         kw = KW.get(kind, {})
         with partition.activate({"data": data, "model": model}):
-            one = w.train_case(w.config(arch), **kw)
+            with lw.mixer_spy().SavedLayerInputs() as saved:
+                one = w.train_case(w.config(arch), **kw)
+            one["saved_bytes"], one["layers_saved"] = saved.bytes, saved.layers
             if kind not in w.CONTROLS:
                 one["noise"] = w.train_case(w.config(arch), nudge=NUDGE, **kw)
         out[case] = one
@@ -186,6 +231,50 @@ def test_the_mixer_splits_its_heads_where_the_model_axis_divides_them(ranks, mes
         mixer = rank[(mesh, arch, "mixer")]
         assert mixer["scan_heads"] == [want] and mixer["decode_heads"] == [], (r, mixer)
         assert mixer["whole_leaf_gathers"] == [], (r, mixer)
+
+
+@pytest.mark.parametrize("mesh,arch", STREAM_CASES, ids=["-".join(c) for c in STREAM_CASES])
+def test_the_residual_stream_is_the_reference_s_block(ranks, reference_streams, mesh, arch):
+    """At every block boundary of the step (each microbatch's forward and
+    remat's recompute) each rank holds its rows and positions of the
+    reference's ``resolve_spec((B, S, D), ("batch", "seq_tp", None))``
+    under the same mesh, and the step reduce-scatters."""
+    data, model = w.MESHES[mesh]
+    width = w.config(arch).d_model
+    for r, rank in enumerate(_group(ranks, mesh)):
+        got = rank[(mesh, arch, "stream")]
+        d, m = divmod(r, model)
+        assert got["records"] and got["scatters"] > 0, (r, got["scatters"])
+        for rec in got["records"]:
+            key = lw.stream_key(mesh, w.BATCH // w.ACCUM, rec["positions"], width)
+            r0, r1, lo, hi = (int(v) for v in reference_streams[key][d, m])
+            assert (rec["rows"], rec["seq"]) == ((r0, r1), (lo, hi)), (r, rec)
+            assert rec["shape"][:2] == (r1 - r0, hi - lo), (r, rec)
+
+
+@pytest.mark.parametrize("mesh,arch", STREAM_CASES, ids=["-".join(c) for c in STREAM_CASES])
+def test_the_layer_inputs_saved_are_a_rank_s_block(ranks, single, mesh, arch):
+    """The bytes remat keeps at the layer inputs (``saved_tensors_hooks``) are
+    1 / (data x model) of one process's: a rank's rows and positions (the
+    stream kept whole on the model axis would give 1 / data)."""
+    data, model = w.MESHES[mesh]
+    one = single[(mesh, arch, "step")]
+    assert one["saved_bytes"] > 0 and one["layers_saved"] > 0
+    for r, rank in enumerate(_group(ranks, mesh)):
+        got = rank[(mesh, arch, "stream")]
+        assert got["layers_saved"] == one["layers_saved"], r
+        assert got["saved_bytes"] * data * model == one["saved_bytes"], (r, got["saved_bytes"])
+
+
+def test_a_bf16_reduce_scatter_sums_in_float32(ranks):
+    """Each group's bfloat16 reduce-scatter is the float32 sum rounded once;
+    on the 4-rank group that differs from the bfloat16 sum in rank order."""
+    for r, rank in enumerate(ranks[4]):
+        for group in COLLECTIVE_GROUPS:
+            got, once, _ = rank["collectives"][group + ("bf16",)]
+            assert {v for row in got for v in row} == {once}, (r, group, got)
+        _, once, seq = rank["collectives"][("2x2", "data+model", "bf16")]
+        assert once != seq, (once, seq)
 
 
 COLLECTIVE_GROUPS = [("2x2", "model"), ("2x2", "data"), ("2x2", "data+model"), ("4x1", "model")]

@@ -19,9 +19,10 @@ import os
 import numpy as np
 import torch
 
-#: Mesh name -> (data, model).
+#: Mesh name -> (data, model); no group here has 3 ranks: (1, 3) is the
+#: training tests' mesh, whose streams the JAX subprocess lays out too.
 MESHES = {"4x2": (4, 2), "2x4": (2, 4), "8x1": (8, 1), "1x8": (1, 8), "2x2": (2, 2),
-          "4x1": (4, 1)}
+          "4x1": (4, 1), "1x3": (1, 3)}
 #: (arch, router); the router applies to the MoE configs only.
 ARCHS = {
     "core": [("gemma2-2b", "topk"), ("qwen1.5-4b", "topk"), ("deepseek-v2-lite-16b", "topk"),
@@ -75,6 +76,22 @@ class NoNormSum:
 
     def __exit__(self, *exc):
         self.mod._norm_sum = self.orig
+
+
+#: A prompt the model axis of (2, 2) does not divide (the stream stays
+#: whole), on the 4-rank group: gemma2's prefill of ODD_PROMPT tokens and
+#: one decode step.
+ODD_PROMPT, ODD_PROMPT_MESH, ODD_PROMPT_ARCH = PROMPT - 1, "2x2", "gemma2-2b"
+
+
+def odd_prompt_key() -> str:
+    return "oddprompt|" + case_key(ODD_PROMPT_MESH, ODD_PROMPT_ARCH, "topk")
+
+
+def stream_key(mesh: str, batch: int, seq: int, width: int) -> str:
+    """The key of the reference's layout of a (batch, seq, width) residual
+    stream under ``mesh`` (the JAX subprocess's ``stream|`` cases)."""
+    return f"stream|{mesh}|{batch}|{seq}|{width}"
 
 
 def bf16_key(arch: str, router: str) -> str:
@@ -135,8 +152,10 @@ def mixer_spy():
 
 def run_case(cfg, tokens, extras, device="cpu"):
     """One case on this rank under the active mesh: what the test compares
-    (for the SSM and hybrid families also what ``mixer_spy.MixerSpy``
-    saw of the mixers, and ``mixer_spy.lm_mesh_mixer_step``)."""
+    (the residual stream that ``mixer_spy.ResidualSpy`` saw in the prefill
+    and each fed decode step; for the SSM and hybrid families also what
+    ``mixer_spy.MixerSpy`` saw of the mixers, and
+    ``mixer_spy.lm_mesh_mixer_step``)."""
     import contextlib
 
     from repro_torch.models import Model
@@ -150,14 +169,19 @@ def run_case(cfg, tokens, extras, device="cpu"):
     prompt = {"tokens": torch.as_tensor(tokens[:, :PROMPT], device=device),
               **{k: torch.as_tensor(v, device=device) for k, v in extras.items()}}
     spies = mixer_spy() if cfg.supports_long_context else None
+    streams = []  # the residual stream of the prefill and of each fed decode step
     with (spies.MixerSpy() if spies else contextlib.nullcontext()) as spy:
         with LPCapture() as lps:
             cache = model.init_cache(b, PROMPT + FED_STEPS, enc_len=enc_len)
-            lg, _ = model.prefill(prompt, cache)
+            with mixer_spy().ResidualSpy() as stream:
+                lg, _ = model.prefill(prompt, cache)
+            streams.append(stream)
             logits = [lg[:, -1]]
             for i in range(FED_STEPS):
                 step = torch.as_tensor(tokens[:, PROMPT + i:PROMPT + i + 1], device=device)
-                lg, _ = model.decode_step({"tokens": step}, cache, PROMPT + i)
+                with mixer_spy().ResidualSpy() as stream:
+                    lg, _ = model.decode_step({"tokens": step}, cache, PROMPT + i)
+                streams.append(stream)
                 logits.append(lg[:, -1])
         engine = Engine(model, max_len=PROMPT + GEN_STEPS, enc_len=enc_len, device=device)
         gen = engine.generate(prompt, steps=GEN_STEPS)
@@ -168,6 +192,7 @@ def run_case(cfg, tokens, extras, device="cpu"):
         mixer["step"] = spies.lm_mesh_mixer_step(model, prompt["tokens"], gen)
     return {
         "mixer": mixer,
+        "stream": [dict(records=st.records, scatters=st.scatters) for st in streams],
         "rows": (rows.start, rows.stop),
         "logits": torch.stack(logits, dim=1).float().cpu(),
         "params": {n: tuple(p.shape) for n, p in model.named_parameters()},
@@ -176,6 +201,28 @@ def run_case(cfg, tokens, extras, device="cpu"):
         "tokens": gen.cpu(),
         "lps": lps.calls,
     }
+
+
+def stream_case(cfg, tokens, prompt_len: int, device="cpu"):
+    """The prefill of ``tokens[:, :prompt_len]`` and one fed decode step under
+    ``mixer_spy.ResidualSpy``: each call's stream and last logits."""
+    from repro_torch.models import Model
+    from repro_torch.models.convert import load_reference_params, reference_weights
+
+    model = load_reference_params(Model(cfg, device=device), reference_weights(cfg, SEED))
+    tok = torch.as_tensor(tokens, device=device)
+    cache = model.init_cache(tok.shape[0], prompt_len + 1)
+    with mixer_spy().ResidualSpy() as pre:
+        first, _ = model.prefill({"tokens": tok[:, :prompt_len]}, cache)
+    with mixer_spy().ResidualSpy() as step:
+        second, _ = model.decode_step({"tokens": tok[:, prompt_len:prompt_len + 1]}, cache,
+                                      prompt_len)
+    spies, logits = (pre, step), (first[:, -1], second[:, -1])
+    from repro_torch.sharding import partition
+
+    rows = partition.batch_rows(tok.shape[0])
+    return {"stream": [dict(records=st.records, scatters=st.scatters) for st in spies],
+            "rows": (rows.start, rows.stop), "logits": torch.stack(logits, dim=1).float().cpu()}
 
 
 def _mesh(shape, device="cpu"):
@@ -206,6 +253,10 @@ def _cases(rank, world, tmp, which):
                 tokens, extras = inputs_of(arr, CONTROL_ARCH, "topk", BATCH)
                 with NoNormSum():
                     out[control_key()] = run_case(config(CONTROL_ARCH, "topk"), tokens, extras)
+            if name == ODD_PROMPT_MESH and which == "core":
+                tokens, _ = inputs_of(arr, ODD_PROMPT_ARCH, "topk", BATCH)
+                out[odd_prompt_key()] = stream_case(config(ODD_PROMPT_ARCH, "topk"), tokens,
+                                                    ODD_PROMPT)
             if name == BF16_MESH and which == "core":
                 for arch, router in BF16_ARCHS:
                     tokens, extras = inputs_of(arr, arch, router, BATCH)
@@ -304,7 +355,8 @@ from repro_torch.models.convert import reference_weights
 import torch_lm_mesh_worker as lw
 
 tmp, name, keys = sys.argv[1], sys.argv[2], sys.argv[3:]
-arr = dict(np.load(os.path.join(tmp, "inputs.npz")))
+inputs = os.path.join(tmp, "inputs.npz")
+arr = dict(np.load(inputs)) if os.path.exists(inputs) else {}
 
 
 def logits(arch, router, b, mesh_name, params=None):
@@ -348,6 +400,21 @@ def nudged(params, seed):
 
 out = {}
 for key in keys:
+    if key.startswith("stream|"):  # the reference's layout of the residual stream
+        _, mesh_name, b, s, d = key.split("|")
+        shape, dims = lw.MESHES[mesh_name], (int(b), int(s), int(d))
+        mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2,
+                             devices=jax.devices()[:shape[0] * shape[1]])
+        with partition.activate(mesh):
+            spec = partition.resolve_spec(dims, ("batch", "seq_tp", None))
+        index = jax.sharding.NamedSharding(mesh, spec).devices_indices_map(dims)
+        blocks = np.zeros(shape + (4,), np.int64)  # rows lo, hi; positions lo, hi
+        for i in range(shape[0]):
+            for j in range(shape[1]):
+                sl = index[mesh.devices[i, j]]
+                blocks[i, j] = [*sl[0].indices(dims[0])[:2], *sl[1].indices(dims[1])[:2]]
+        out[key] = blocks
+        continue
     if key.startswith("fixture|"):  # the fixture tool's mesh mode, reduced
         sys.path.insert(0, os.path.join(os.path.dirname(lw.__file__), os.pardir, "tools"))
         import lm_reference_fixture as tool
@@ -430,26 +497,32 @@ def write_inputs(path, which: str) -> dict:
     return arr
 
 
+def reference_process(tmp, name: str, keys, root: str):
+    """The reference's cases ``keys`` (:data:`REFERENCE`) in a JAX subprocess
+    with 8 forced host devices, started: it writes ``tmp/name``."""
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+           "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join([os.path.join(root, "src"), here])}
+    return subprocess.Popen([sys.executable, "-c", REFERENCE, str(tmp), name, *keys], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def run_all(tmp, which: str, groups, reference_keys, root: str):
     """The spawned gloo groups (``groups``: ranks a group) and the reference's
     cases, split over two JAX subprocesses that run while the groups do.
 
     Returns ``(inputs, {ranks: [each rank's dict]}, {case key: reference logits})``.
     """
-    import subprocess
-    import sys
-
     import torch_mesh_worker as tw
 
     tmp = str(tmp)
     arr = write_inputs(os.path.join(tmp, "inputs.npz"), which)
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
-           "JAX_PLATFORMS": "cpu",
-           "PYTHONPATH": os.pathsep.join([os.path.join(root, "src"), here])}
     halves = [reference_keys[0::2], reference_keys[1::2]]
-    procs = [subprocess.Popen([sys.executable, "-c", REFERENCE, tmp, f"reference{i}.npz", *keys],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = [reference_process(tmp, f"reference{i}.npz", keys, root)
              for i, keys in enumerate(halves) if keys]
     try:
         ranks = {}
@@ -505,12 +578,13 @@ class _OneGroup:
 
 
 def whole_logits(ranks, case, key: str = "") -> np.ndarray:
-    """The batch's logits (B, 1 + FED_STEPS, V) put together from the ranks'
-    rows (of ``key``, by default the case's); ranks that run the same rows
-    (the model axis) hold the same bits."""
+    """The batch's logits (B, calls, V) put together from the ranks' rows (of
+    ``key``, by default the case's); ranks that run the same rows (the
+    model axis) hold the same bits."""
     key = key or case_key(*case)
     vocab = config(*case[1:3]).padded_vocab
-    out = np.full((case[3], 1 + FED_STEPS, vocab), np.nan, np.float32)
+    calls = ranks[0][key]["logits"].shape[1]
+    out = np.full((case[3], calls, vocab), np.nan, np.float32)
     for r, rank in enumerate(ranks):
         got = rank[key]
         r0, r1 = got["rows"]
@@ -549,3 +623,62 @@ def check_local_shapes(ranks, case, enc_len: int = 0) -> None:
                 assert {k: local(s, coords) for k, s in specs.items()} == layer
         if data * model_axis > 1:
             assert got["param_bytes"] < whole
+
+
+#: The stream's float64 sums over the width (``mixer_spy.ResidualSpy``) of a
+#: rank against the one-process run's at the rank's block: within this
+#: share of the one-process record's largest magnitude (at least 1).  The
+#: split's float32 sums round otherwise than one process's; a block taken
+#: at other rows or positions misses by the values' own size.
+STREAM_TOL = 1e-3
+
+
+def stream_keys(meshes, cases) -> list:
+    """The reference's layout of each case's streams: the prompt's (and the
+    encoder's 16 frames') positions, the decode step's one, and the odd
+    prompt's, for each case's batch."""
+    keys = []
+    for mesh, arch, router, b in cases:
+        cfg = config(arch, router)
+        seqs = [PROMPT, 1] + ([16] if cfg.family == "encdec" else [])
+        keys += [stream_key(mesh, b, s, cfg.d_model) for s in seqs]
+    if ODD_PROMPT_MESH in meshes:
+        cfg = config(ODD_PROMPT_ARCH, "topk")
+        keys += [stream_key(ODD_PROMPT_MESH, BATCH, s, cfg.d_model) for s in (ODD_PROMPT, 1)]
+    return sorted(set(keys))
+
+
+def stream_errors(ranks, mesh: str, key: str, ref, width: int, one=None) -> list:
+    """What differs between each rank's residual stream in the case ``key``
+    (its ``stream``: the prefill's, then each decode step's) and the
+    reference's layout (``ref``: the JAX subprocess's ``stream|`` blocks):
+    every record's rows and positions must be the rank's block of the
+    reference's ``resolve_spec``, its shape that block's, every decode
+    step's stream whole and without a reduce-scatter, and (given ``one``,
+    the one-process run's case) each record's sums within ``STREAM_TOL``
+    of the one-process run's at that block."""
+    errors, batch = [], int(key.split("|")[-1])
+    for r, rank in enumerate(ranks):
+        d, m = rank[f"{mesh}|coords"]["data"], rank[f"{mesh}|coords"]["model"]
+        calls = rank[key]["stream"]
+        for c, call in enumerate(calls):
+            if not call["records"]:
+                errors.append((r, c, "no block boundary seen"))
+            for i, rec in enumerate(call["records"]):
+                rows_lo, rows_hi, lo, hi = (int(v) for v in ref[stream_key(
+                    mesh, batch, rec["positions"], width)][d, m])
+                got = (rec["rows"], rec["seq"], rec["shape"][:2])
+                want = ((rows_lo, rows_hi), (lo, hi), (rows_hi - rows_lo, hi - lo))
+                if got != want:
+                    errors.append((r, c, i, got, want))
+                if one is not None:
+                    base = one["stream"][c]["records"][i]["sums"]
+                    part = base[rows_lo:rows_hi, lo:hi]
+                    bound = STREAM_TOL * max(1.0, float(base.abs().max()))
+                    err = float((rec["sums"] - part).abs().max())
+                    if not err <= bound:
+                        errors.append((r, c, i, "sums", err, bound))
+            if c > 0 and (call["scatters"] or any(rec["seq"] != (0, 1) for rec in call["records"])):
+                errors.append((r, c, "a decode step's stream is cut or reduce-scattered"))
+    return errors
+

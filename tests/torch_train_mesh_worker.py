@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib
 import os
 
 import numpy as np
@@ -130,11 +131,23 @@ def mesh_of(shape, device="cpu"):
                       mesh_dim_names=("data", "model"))
 
 
+def _no_sum(x, axes, dim):
+    """A reduce-scatter without its sum: this rank's block of its own ``x``."""
+    from repro_torch.sharding import collectives as coll
+
+    per = x.shape[dim] // coll.size(axes)
+    return x.narrow(dim, _group_index(axes) * per, per)
+
+
 #: The negative controls: the train step with its seed left at 1 (the
-#: gradients ``ranks`` times too large), or with no sum over the axes a
-#: parameter is stored whole on (partial gradients).
-CONTROLS = {"control_seed": ("_ranks", lambda: 1),
-            "control_sum": ("sum_replicated", lambda grads, params: grads)}
+#: gradients ``ranks`` times too large), with no sum over the axes a
+#: parameter is stored whole on (partial gradients), or with the
+#: sequence-parallel stream's reduce-scatter replaced by a cut of the
+#: rank's block without the sum (a rank's partial products as the stream).
+#: Each: (the ``repro_torch`` module, its attribute, the stand-in).
+CONTROLS = {"control_seed": ("train.train_step", "_ranks", lambda: 1),
+            "control_sum": ("train.train_step", "sum_replicated", lambda grads, params: grads),
+            "control_scatter": ("sharding.collectives", "reduce_scatter", _no_sum)}
 
 
 def _cases(rank, world, meshes, cases):
@@ -144,30 +157,38 @@ def _cases(rank, world, meshes, cases):
 
     from repro_torch.models import Model
     from repro_torch.sharding import partition
-    from repro_torch.train import train_step
 
     out = {}
     for name in meshes:
         with partition.activate(mesh_of(MESHES[name])):
             for key, kw in cases.items():
-                attr, fake = CONTROLS.get(key[1], (None, None))
-                orig = getattr(train_step, attr) if attr else None
-                if attr:
-                    setattr(train_step, attr, fake)
-                # an SSM or hybrid family's step: what mixer_spy.MixerSpy
-                # sees of its mixers (the forward, remat's recompute, the backward)
+                mod, attr, fake = CONTROLS.get(key[1], (None, None, None))
+                if mod:
+                    mod = importlib.import_module("repro_torch." + mod)
+                    orig = getattr(mod, attr)
+                    setattr(mod, attr, fake)
+                # a step: the residual stream and the layer inputs saved; an
+                # SSM or hybrid family's also what mixer_spy.MixerSpy sees of
+                # its mixers (the forward, remat's recompute, the backward)
                 cfg = config(key[0])
-                ssm = key[1] == "step" and cfg.supports_long_context
-                spy = mixer_spy().MixerSpy() if ssm else None
+                step = key[1] == "step"
+                spy = mixer_spy().MixerSpy() if step and cfg.supports_long_context else None
+                stream = mixer_spy().ResidualSpy(sums=False) if step else None
+                saved = mixer_spy().SavedLayerInputs() if step else None
                 try:
-                    with spy or contextlib.nullcontext():
+                    with spy or contextlib.nullcontext(), stream or contextlib.nullcontext(), \
+                            saved or contextlib.nullcontext():
                         out[(name,) + key] = train_case(cfg, keep_params=rank == 0, **kw)
                 finally:
-                    if attr:
-                        setattr(train_step, attr, orig)
+                    if mod:
+                        setattr(mod, attr, orig)
                 if spy is not None:
                     parent = mixer_spy().mixer_parent_gathers(Model(cfg, device="meta"))
                     out[(name, key[0], "mixer")] = spy.summary(parent)
+                if step:
+                    out[(name, key[0], "stream")] = dict(
+                        records=stream.records, scatters=len(stream.scatters),
+                        saved_bytes=saved.bytes, layers_saved=saved.layers)
     return out
 
 
@@ -345,6 +366,10 @@ def _functions(axes):
         "all_gather_dim1": lambda x: coll.all_gather(mine(x), axes, 1),
         "all_to_all_0_1": lambda x: coll.all_gather(coll.all_to_all(mine(x), axes, 0, 1), axes, 0),
         "all_to_all_1_1": lambda x: coll.all_gather(coll.all_to_all(mine(x), axes, 1, 1), axes, 0),
+        "reduce_scatter_dim0": lambda x: coll.all_gather(coll.reduce_scatter(mine(x), axes, 0),
+                                                         axes, 0),
+        "reduce_scatter_dim1": lambda x: coll.all_gather(coll.reduce_scatter(mine(x), axes, 1),
+                                                         axes, 1),
     }
 
 
@@ -361,7 +386,9 @@ def _adjoint(axes, rank):
            "all_gather_dim1": lambda x: coll.all_gather(x, axes, 1),
            "all_to_all_0_1": lambda x: coll.all_to_all(x, axes, 0, 1),
            "all_to_all_1_0": lambda x: coll.all_to_all(x, axes, 1, 0),
-           "all_to_all_0_0": lambda x: coll.all_to_all(x, axes, 0, 0)}
+           "all_to_all_0_0": lambda x: coll.all_to_all(x, axes, 0, 0),
+           "reduce_scatter_dim0": lambda x: coll.reduce_scatter(x, axes, 0),
+           "reduce_scatter_dim1": lambda x: coll.reduce_scatter(x, axes, 1)}
     out = {}
     for name, op in ops.items():
         x = x0.clone().requires_grad_(True)
@@ -371,6 +398,24 @@ def _adjoint(axes, rank):
         sums = torch.stack([(y.detach() * w).sum(), (x * x.grad).sum()])
         out[name] = coll._reduce(sums, axes, "sum").tolist() if n > 1 else sums.tolist()
     return out
+
+
+def _bf16_scatter(axes):
+    """A bfloat16 reduce-scatter whose float32 sum differs from any bfloat16
+    one: the group's first rank holds 1, every other 2**-9 (bfloat16 keeps
+    8 bits: 1 + 2**-9 rounds back to 1, while 1 + 3 * 2**-9 rounds up).
+    Returns (this rank's block, the float32 sum rounded once, the bfloat16
+    sum in rank order)."""
+    from repro_torch.sharding import collectives as coll
+
+    n = coll.size(axes)
+    parts = [1.0] + [2.0 ** -9] * (n - 1)
+    x = torch.full((2 * n, 3), parts[_group_index(axes)], dtype=torch.bfloat16)
+    seq = torch.tensor(0.0, dtype=torch.bfloat16)
+    for v in parts:
+        seq = seq + torch.tensor(v, dtype=torch.bfloat16)
+    once = torch.tensor(sum(parts), dtype=torch.float32).to(torch.bfloat16)
+    return coll.reduce_scatter(x, axes, 0).float().tolist(), float(once), float(seq)
 
 
 def collectives(rank, world, tmp):
@@ -395,6 +440,7 @@ def collectives(rank, world, tmp):
                     name: bool(torch.autograd.gradcheck(fn, (x,), eps=1e-6, atol=1e-9))
                     for name, fn in _functions(axes).items()}
                 out[key + ("adjoint",)] = _adjoint(axes, rank)
+                out[key + ("bf16",)] = _bf16_scatter(axes)
                 v = torch.full((3,), float(rank), requires_grad=True)
                 m = coll.all_reduce(v, axes, "max")
                 out[key + ("max",)] = (m.tolist(), m.requires_grad)

@@ -12,7 +12,12 @@ mixer and ``repro_torch.sharding.collectives._gather`` for a ``with``;
 ``mixer_parent_gathers`` reckons from the shapes the model-axis gathers of
 the mixer before the head split, which gathered every weight and cache
 whole; ``lm_mesh_mixer_step`` reads both for a prefill and one decode
-step.
+step.  ``ResidualSpy`` wraps ``repro_torch.models.blocks._res`` and
+``collectives._scatter``: the residual stream's block at every block
+boundary (rows, positions, shape, a float64 sum over the width of each
+position) and every reduce-scatter; ``stream_rows`` reads it over a
+prefill and decode steps.  ``SavedLayerInputs`` counts the bytes remat
+keeps at the checkpointed layer inputs of ``Model.forward(remat=True)``.
 """
 
 from __future__ import annotations
@@ -154,3 +159,107 @@ def lm_mesh_mixer_step(model, prompts, generated) -> dict:
                 parent_decode_step_model_gather_bytes=total - step_sum["model_gather_bytes"]
                 + parent["bytes"],
                 whole_leaf_gathers=pre_sum["whole_leaf_gathers"] + step_sum["whole_leaf_gathers"])
+
+
+class ResidualSpy:
+    """For the length of a ``with``: the residual stream at every block
+    boundary of ``models/blocks.py`` (each ``_res``) as this rank holds it
+    (``records``: its ``shape``, its ``rows`` of the batch, its block
+    ``seq`` of the ``positions`` the stream names, the mesh ``axes`` that
+    cut them and, with ``sums``, each position's float64 sum over the
+    width), and each reduce-scatter of ``sharding/collectives.py`` as
+    ``(mesh axes, input shape)`` (``scatters``)."""
+
+    def __init__(self, sums: bool = True):
+        from repro_torch.models import blocks
+        from repro_torch.sharding import collectives, partition
+
+        self.blk, self.coll, self.part = blocks, collectives, partition
+        self.sums = sums
+        self.records, self.scatters = [], []
+
+    def __enter__(self):
+        blk, coll, part = self.blk, self.coll, self.part
+        self.orig = (blk._res, coll._scatter)
+        res, scatter = self.orig
+
+        def stream(x):
+            lo, hi, axes = coll.stream_range()
+            batch = part.current_batch()
+            rows = part.batch_rows(batch) if batch else slice(0, x.shape[0])
+            self.records.append(dict(
+                shape=tuple(x.shape), rows=(rows.start, rows.stop), seq=(lo, hi),
+                positions=part.current_seq(), axes=tuple(axes),
+                sums=x.detach().double().sum(-1).cpu() if self.sums else None))
+            return res(x)
+
+        def scattered(x, axes, dim):
+            self.scatters.append((coll._mesh_axes(axes), tuple(x.shape), part.current_seq()))
+            return scatter(x, axes, dim)
+
+        blk._res, coll._scatter = stream, scattered
+        return self
+
+    def __exit__(self, *exc):
+        self.blk._res, self.coll._scatter = self.orig
+
+    def blocks(self, positions=None) -> list:
+        """The distinct ``[rows, seq, positions]`` of the records (of a stream
+        of ``positions`` only, if given), in order."""
+        out = []
+        for r in self.records:
+            key = [list(r["rows"]), list(r["seq"]), r["positions"]]
+            if key not in out and positions in (None, r["positions"]):
+                out.append(key)
+        return out
+
+    def reduce_scatters(self, positions=None) -> int:
+        """The reduce-scatters (inside a stream of ``positions`` only, if given)."""
+        return sum(positions in (None, sc[2]) for sc in self.scatters)
+
+    def shapes_match(self) -> bool:
+        """Whether every record's shape is its rows by its block of positions."""
+        return all(r["shape"][:2] == (r["rows"][1] - r["rows"][0], r["seq"][1] - r["seq"][0])
+                   for r in self.records)
+
+
+def stream_rows(spy: ResidualSpy, prompt: int) -> dict:
+    """What a :class:`ResidualSpy` over a prefill of ``prompt`` positions and
+    decode steps saw: the blocks of each stream at the block boundaries
+    (``prefill``, ``decode``: ``[rows, positions, S]``), whether every
+    boundary's shape is its block's, and the reduce-scatters of each."""
+    return dict(prefill=spy.blocks(prompt), decode=spy.blocks(1),
+                shapes_match=spy.shapes_match(),
+                prefill_reduce_scatters=spy.reduce_scatters(prompt),
+                decode_reduce_scatters=spy.reduce_scatters(1))
+
+
+class SavedLayerInputs:
+    """For a ``with``: the bytes that ``torch.autograd.graph.saved_tensors_hooks``
+    sees saved at the checkpointed layer inputs of ``Model.forward(remat=True)``
+    (``models/model.py``'s ``checkpoint`` wrapped: inside it the hook sees
+    what the checkpoint keeps of its arguments, the layer's input, and the
+    checkpoint's own hooks take every tensor its layer saves)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import model
+
+        self.mod, self.orig = model, model.checkpoint
+        self.bytes, self.layers = 0, 0
+
+        def pack(t):
+            self.bytes += t.numel() * t.element_size()
+            return t
+
+        def checkpoint(fn, *args, **kw):
+            self.layers += 1
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                return self.orig(fn, *args, **kw)
+
+        model.checkpoint = checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.checkpoint = self.orig
