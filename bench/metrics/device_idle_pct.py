@@ -1,0 +1,12 @@
+"""The share of the traced window in which no operation ran on the device (%).
+
+From the union of the device's intervals on the profiler's timeline,
+so overlapping operations count once.
+"""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
